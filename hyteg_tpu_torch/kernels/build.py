@@ -1,0 +1,112 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources ``hyteg_tpu_torch/csrc/*.cu`` (plus their ``*.cuh``) are
+compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library with
+a plain C interface, on first use, into ``hyteg_tpu_torch/_build/``. The
+library's name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads at once. It is loaded with
+ctypes; every pointer and the stream pass as ``c_void_p`` (ctypes would
+otherwise pass a Python int as a 32-bit C int and cut the pointer).
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name -> argtypes (all return int = cudaGetLastError())
+SIGNATURES = {
+    # src, A, E, dst, C, N, pitch, dirs, gmask, stream
+    "hyteg_p1_const_apply": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # elmats, coeff, dst, C, N, pitch, lumped, mode, offs, margins, stream
+    "hyteg_p1_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+}
+
+
+def cuda_available() -> bool:
+    """True when torch sees a CUDA device (the kernels need one)."""
+    return torch.cuda.is_available()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"hyteg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the library if it is missing. Returns (path, seconds spent
+    compiling (0.0 when it was there), nvcc's output: registers, shared
+    memory and spills per kernel)."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return so, seconds, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize does not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def current_stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
