@@ -4,11 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from hyteg_tpu_torch/csrc, checks each one
-against its plain PyTorch version on the card, drives the main path —
-a P1 Laplace GMG solve (Chebyshev smoothing, fixed-iteration CG coarse
-solve) on the 48-cell unit-cube macro mesh at levels 6 and 7 — and times
-the kernels, the operator apply and one V-cycle with CUDA events. Prints
-one JSON line per phase; the last line is
+against its plain PyTorch version on the card, and drives the port's
+paths, each with the kernels' launch counts set to 0 just before it and
+read just after:
+
+- the macro-tet path: a P1 Laplace GMG solve (Chebyshev smoothing,
+  fixed-iteration CG coarse solve) on the 48-cell unit-cube macro mesh at
+  levels 6 and 7 (kernels B2, B3);
+- the structured box path: box GMG V(2,2) solves of the manufactured
+  Poisson problem on m = (2, 2, 2) at levels 6 and 7, then at level 9,
+  1,076,890,625 DoFs on one card (kernel B1, f32 and bf16 storage);
+- the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
+  and the level-7 macro-tet block: the card's measured bandwidth ceiling.
+
+It times the kernels, the operator applies and the V-cycles with CUDA
+events. Prints one JSON line per phase; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Refuses to run
 without CUDA. Imports nothing of JAX.
@@ -36,11 +46,28 @@ B2_RTOL = 1e-5        # f32, 15-term sums taken in another order
 B3_RTOL = 1e-6        # f32, <= 24-term sums taken in another order
 RATE_MAX = 0.2        # geometric-mean residual reduction over cycles 1-4
 ERR_DROP_MIN = 3.0    # O(h^2) predicts 4; f32 rounding eats into level 7
+# the box path (bench.py's box settings: m = (2, 2, 2), V(2,2),
+# min_level 3, 40 coarse CG iterations)
+BOX_M = (2, 2, 2)
+BOX_CHECKS = (((2, 1, 1), 3), (BOX_M, 7))  # level 9: after its solve
+BOX_SLICE_LEVELS = (6, 7)
+BOX_BIG_LEVEL = 9     # 1025^3 = 1,076,890,625 DoFs, 4.31 GB per f32 block
+BOX_MIN_LEVEL = 3
+BOX_CYCLES = 12       # levels 6/7: down to the f32 floor
+BOX_BIG_CYCLES = 6
+BOX_RATE_MAX = 0.4    # bench.py's gate on the box V(2,2) residual rate
+B1_RTOL = 1e-5        # f32, 15-term sums taken in another order
+B1_BF16_ULP = 2.0 ** -7  # one bf16 ulp of an element is at most 2^-7 of it
+B1_BF16_VS_F32 = 2e-2    # bench.py's gate, bf16 apply vs f32 apply
 REPLACES = {
     "p1_const_apply": ("hyteg_tpu_torch/csrc/p1_const_stencil.cu",
                        "hyteg_tpu/kernels/p1_const_stencil.py:746"),
     "p1_diagonal_local": ("hyteg_tpu_torch/csrc/p1_diag.cu",
                           "hyteg_tpu/kernels/p1_stencil.py:303"),
+    "box_apply": ("hyteg_tpu_torch/csrc/box_stencil.cu",
+                  "hyteg_tpu/kernels/box_stencil.py:210"),
+    "stream_scale": ("hyteg_tpu_torch/csrc/stream.cu",
+                     "scripts/prof_r5.py:46"),
 }
 
 
@@ -53,9 +80,11 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def median_ms(fn, runs: int, warmup: int = 3) -> float:
+def median_ms(fn, runs: int, warmup: int = 3, batch: int = 1) -> float:
     """Median over ``runs`` of the device time of one call, from CUDA
-    events around each call, after ``warmup`` calls."""
+    events around ``batch`` back-to-back calls (divided by ``batch``),
+    after ``warmup`` calls. A batch keeps the host's launch overhead out
+    of a short kernel's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -64,10 +93,11 @@ def median_ms(fn, runs: int, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -182,6 +212,133 @@ def solve(storage, level: int, device) -> tuple[dict, object, tuple]:
     return out, stack, (x, b)
 
 
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    d = a.float() - b.float()
+    return d.abs_().max().item()
+
+
+def bf16_ulp_excess(yb: torch.Tensor, ref: torch.Tensor, scale: float) -> float:
+    """max |yb - ref| / (2^-7 |ref| + B1_RTOL * scale) over the block: at
+    most 1 when every element is within one bf16 ulp of the plain value
+    (the B1_RTOL term covers sums that cancel to near zero). A kernel that
+    accumulated in bf16 lands several ulps off in many elements."""
+    tol = ref.float().abs_().mul_(B1_BF16_ULP).add_(B1_RTOL * scale)
+    d = yb.float().sub_(ref.float()).abs_()
+    return d.div_(tol).max().item()
+
+
+def box_sol(x, y, z):
+    return (torch.sin(math.pi * x) * torch.sin(math.pi * y)
+            * torch.sin(math.pi * z))
+
+
+def check_box_kernels(m, level: int, device, seed: int) -> dict:
+    """Kernel B1 against its plain version (f32 and bf16 storage) and the
+    bf16 apply against the f32 one, for Laplace and mass, at one size."""
+    from hyteg_tpu_torch.kernels import box_stencil as b1
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
+
+    dom = BoxDomain(m, level, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"m": list(m), "level": level, "block": list(dom.block_shape),
+           "dofs": dom.num_dofs()}
+    for name, form in (("laplace", forms.laplace_form),
+                       ("mass", forms.mass_form)):
+        w = BoxStencilOperator(dom, form).w_vecs
+        u = torch.randn(dom.block_shape, generator=gen, device=device)
+        y = b1.box_apply(u, w, dom.dims)
+        y_ref = b1.box_apply_torch(u, w, dom.dims)
+        err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
+        check(math.isfinite(err) and err <= B1_RTOL * scale,
+              f"B1 f32 {name} {dom.block_shape}: max|dy| {err} > "
+              f"{B1_RTOL} * {scale}")
+        del y_ref
+        ub = u.to(torch.bfloat16)
+        del u
+        yb = b1.box_apply(ub, w, dom.dims)
+        yb_ref = b1.box_apply_torch(ub, w, dom.dims)
+        check(yb.dtype == torch.bfloat16, "B1 bf16 result is not bf16")
+        err_b = max_abs_diff(yb, yb_ref)
+        excess = bf16_ulp_excess(yb, yb_ref, scale)
+        check(math.isfinite(excess) and excess <= 1.0,
+              f"B1 bf16 {name} {dom.block_shape}: an element is "
+              f"{excess} x (1 bf16 ulp + {B1_RTOL} * {scale}) off")
+        del yb_ref
+        rel = max_abs_diff(yb, y) / yb.float().abs().max().item()
+        check(math.isfinite(rel) and rel <= B1_BF16_VS_F32,
+              f"B1 bf16 vs f32 {name} {dom.block_shape}: rel {rel} > "
+              f"{B1_BF16_VS_F32}")
+        out[f"b1_{name}_max_abs_err"] = err
+        out[f"b1_{name}_max_abs"] = scale
+        out[f"b1_bf16_{name}_max_abs_err"] = err_b
+        out[f"b1_bf16_{name}_ulp_excess"] = excess
+        out[f"b1_bf16_vs_f32_{name}_rel"] = rel
+        del y, yb, ub, w
+        torch.cuda.empty_cache()
+    return out
+
+
+def box_solve(level: int, device, cycles: int) -> tuple[dict, list, tuple]:
+    """The box path: hierarchy set-up, the manufactured rhs b = M f, and
+    solve_poisson's V(2,2) cycles from u = 0."""
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
+    from hyteg_tpu_torch.structured import gmg
+
+    t0 = time.perf_counter()
+    dom = BoxDomain(BOX_M, level, device=device)
+    levels = gmg.build_hierarchy(dom, min_level=BOX_MIN_LEVEL)
+    b = BoxStencilOperator(dom, forms.mass_form).apply_raw(dom.interpolate(
+        lambda x, y, z: 3 * math.pi ** 2 * box_sol(x, y, z)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    r0 = gmg._norm(dom.mask_interior(b)).item()
+    t0 = time.perf_counter()
+    u, rns = gmg.solve_poisson(levels, b, cycles=cycles)
+    res = [r0] + rns.tolist()
+    solve_s = time.perf_counter() - t0
+    err = max_abs_diff(u, dom.interpolate(box_sol))
+    rate = (res[4] / res[0]) ** 0.25
+    check(all(math.isfinite(r) for r in res) and math.isfinite(err),
+          f"box level {level}: non-finite residual or solution")
+    check(rate <= BOX_RATE_MAX,
+          f"box level {level}: residual rate {rate} > {BOX_RATE_MAX}")
+    out = {"m": list(BOX_M), "level": level, "dofs": dom.num_dofs(),
+           "block": list(dom.block_shape), "residuals": res,
+           "rate_cycles_1_4": rate, "max_nodal_error": err,
+           "setup_s": setup_s, "solve_s_incl_residual_norms": solve_s,
+           "eig_max": [lvl.eig_max for lvl in levels]}
+    return out, levels, (u, dom.mask_interior(b))
+
+
+def stream_probe(sizes: dict, device) -> tuple[dict, dict]:
+    """Kernel P1 against torch.mul (exact) at each size, then its rate:
+    returns (errors, {size: (kernel ms, plain ms)}); the launch count is
+    reset between the two so that it counts the probe alone."""
+    from hyteg_tpu_torch.kernels import stream as p1
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    errs = {}
+    for name, n in sizes.items():
+        src = torch.randn(n, generator=gen, device=device)
+        errs[name] = max_abs_diff(p1.stream_scale(src),
+                                  p1.stream_scale_torch(src))
+        check(errs[name] == 0.0, f"P1 {name}: max|d| {errs[name]} != 0")
+        del src
+    p1.stream_scale.launches = 0
+    times = {}
+    for name, n in sizes.items():
+        src = torch.randn(n, generator=gen, device=device)
+        dst = torch.empty_like(src)
+        times[name] = (
+            median_ms(lambda: p1.stream_scale(src), 10, batch=10),
+            median_ms(lambda: torch.mul(src, 2.0, out=dst), 10, batch=10))
+        del src, dst
+        torch.cuda.empty_cache()
+    return errs, times
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -189,10 +346,13 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; this test needs one "
               "GPU", file=sys.stderr)
         return 1
+    from hyteg_tpu_torch.kernels import box_stencil as b1
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import stream as p1
     from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
     from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.structured import gmg as box_gmg
 
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -211,6 +371,7 @@ def main() -> int:
          ptxas=[l.strip() for l in log.splitlines()
                 if "registers" in l or "spill" in l])
 
+    # -- the macro-tet path (B2, B3) ------------------------------------------
     storage = CellStorage(mesh_unit_cube(MESH_N))
     for i, level in enumerate(CHECK_LEVELS):
         checked = check_kernels(storage, level, device, seed=i)
@@ -245,30 +406,147 @@ def main() -> int:
     # timings at the finest level, on the stack's own operator and data
     level = SLICE_LEVELS[-1]
     sp, op = stack.space(), stack.operators[level]
-    dofs = sp.num_global_dofs()
+    tet_dofs = sp.num_global_dofs()
+    tet_block = list(sp.block_shape)
     A, E, elm = op.stencil, op.stencil_face, op.elmats
     t = {
         "p1_const_apply": median_ms(
-            lambda: b2.p1_const_apply(x, A, E, level, 3, sp.pitch), 30),
+            lambda: b2.p1_const_apply(x, A, E, level, 3, sp.pitch), 10,
+            batch=10),
         "p1_const_apply_plain": median_ms(
             lambda: b2.p1_const_apply_torch(x, A, level, 3, sp.pitch, E=E), 20),
         "p1_diagonal_local": median_ms(
-            lambda: b3.p1_diagonal_local(elm, level, 3, sp.pitch), 30),
+            lambda: b3.p1_diagonal_local(elm, level, 3, sp.pitch), 10,
+            batch=10),
         "p1_diagonal_local_plain": median_ms(
             lambda: b3.p1_diagonal_local_torch(elm, level, 3, sp.pitch), 20),
-        "apply_raw": median_ms(lambda: op.apply_raw(x), 30),
+        "apply_raw": median_ms(lambda: op.apply_raw(x), 10, batch=10),
         "vcycle": median_ms(lambda: stack.gmg.cycle(x, b), 20),
     }
-    emit("timings", card=card, level=level, global_dofs=dofs,
-         block=list(sp.block_shape), ms=t,
-         gdofs_per_s={k: dofs / (v * 1e-3) / 1e9 for k, v in t.items()
-                      if k != "vcycle"},
-         method="CUDA events, median of 20-30 runs after 3 warm-up runs")
+    del stack, sp, op, A, E, elm, x, b
+    torch.cuda.empty_cache()
 
+    # -- the structured box path (B1) -----------------------------------------
+    box_errs = []
+    for i, (m, level) in enumerate(BOX_CHECKS):
+        box_errs.append(check_box_kernels(m, level, device, seed=10 + i))
+        emit("box_kernels_vs_plain", card=card, **box_errs[-1])
+
+    b1.box_apply.launches = 0
+    box = {}
+    for level in BOX_SLICE_LEVELS:
+        box[level], levels, (u, b) = box_solve(level, device, BOX_CYCLES)
+        emit("box_gmg_solve", card=card, **box[level])
+    drop = (box[BOX_SLICE_LEVELS[0]]["max_nodal_error"]
+            / box[BOX_SLICE_LEVELS[1]]["max_nodal_error"])
+    launches["box_apply"] = b1.box_apply.launches
+    emit("box_gmg_checks", error_drop=drop,
+         launches={"box_apply": launches["box_apply"]})
+    check(drop >= ERR_DROP_MIN,
+          f"box nodal error dropped {drop}x from level {BOX_SLICE_LEVELS[0]} "
+          f"to {BOX_SLICE_LEVELS[1]}, < {ERR_DROP_MIN}x")
+    check(b1.box_apply.launches > 0, "box_apply was not launched on the box path")
+    lvl = levels[0]
+    ub = u.to(torch.bfloat16)
+    box_t = {
+        "box_apply_level7": median_ms(
+            lambda: b1.box_apply(u, lvl.op.w_vecs, lvl.domain.dims), 10,
+            batch=10),
+        "box_apply_level7_plain": median_ms(
+            lambda: b1.box_apply_torch(u, lvl.op.w_vecs, lvl.domain.dims), 10),
+        "box_apply_bf16_level7": median_ms(
+            lambda: b1.box_apply(ub, lvl.op.w_vecs, lvl.domain.dims), 10,
+            batch=10),
+        "box_apply_bf16_level7_plain": median_ms(
+            lambda: b1.box_apply_torch(ub, lvl.op.w_vecs, lvl.domain.dims), 10),
+        "box_apply_raw_level7": median_ms(lambda: lvl.op.apply_raw(u), 10,
+                                          batch=10),
+        "box_vcycle_level7": median_ms(
+            lambda: box_gmg.vcycle(levels, u, b), 10),
+    }
+    box_dofs = {7: lvl.domain.num_dofs()}
+    del levels, lvl, u, ub, b
+    torch.cuda.empty_cache()
+
+    # 1e9 DoFs on one card: set-up, 6 cycles, then the time of a cycle
+    torch.cuda.reset_peak_memory_stats()
+    b1.box_apply.launches = 0
+    big, levels, (u, b) = box_solve(BOX_BIG_LEVEL, device, BOX_BIG_CYCLES)
+    big["launches"] = {"box_apply": b1.box_apply.launches}
+    check(b1.box_apply.launches > 0, "box_apply was not launched at level 9")
+    launches["box_apply"] += b1.box_apply.launches
+    big["ms_per_vcycle"] = median_ms(
+        lambda: box_gmg.vcycle(levels, u, b), 3, warmup=1)
+    big["peak_bytes"] = torch.cuda.max_memory_allocated()
+    big["peak_gb"] = big["peak_bytes"] / 1e9
+    emit("box_gmg_1e9", card=card, **big)
+    box_t["box_vcycle_level9"] = big["ms_per_vcycle"]
+    box_dofs[9] = big["dofs"]
+    del levels, u, b
+    torch.cuda.empty_cache()
+
+    box_errs.append(check_box_kernels(BOX_M, BOX_BIG_LEVEL, device, seed=20))
+    emit("box_kernels_vs_plain", card=card, **box_errs[-1])
+    from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
+    dom = BoxDomain(BOX_M, BOX_BIG_LEVEL, device=device)
+    w = BoxStencilOperator(dom).w_vecs
+    u = torch.randn(dom.block_shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+    box_t["box_apply_level9"] = median_ms(
+        lambda: b1.box_apply(u, w, dom.dims), 5, batch=5)
+    box_t["box_apply_level9_plain"] = median_ms(
+        lambda: b1.box_apply_torch(u, w, dom.dims), 3, warmup=1)
+    del dom, w, u
+    torch.cuda.empty_cache()
+    errs["box_apply"] = max(v for c in box_errs for k, v in c.items()
+                            if k.startswith("b1_") and k.endswith("_max_abs_err"))
+    errs_bf16 = max(v for c in box_errs for k, v in c.items()
+                    if k.startswith("b1_bf16_") and k.endswith("_max_abs_err"))
+
+    # -- the stream-copy probe (P1): the card's bandwidth ceiling -------------
+    sizes = {"box_level7": box_dofs[7], "box_level9": box_dofs[9],
+             "tet_level7_block": math.prod(tet_block)}
+    p1_errs, p1_t = stream_probe(sizes, device)
+    launches["stream_scale"] = p1.stream_scale.launches
+    errs["stream_scale"] = max(p1_errs.values())
+    gbps = {name: 8 * n / (p1_t[name][0] * 1e-3) / 1e9
+            for name, n in sizes.items()}
+    gbps_plain = {name: 8 * n / (p1_t[name][1] * 1e-3) / 1e9
+                  for name, n in sizes.items()}
+    emit("stream_probe", card=card, elements=sizes, max_abs_err=p1_errs,
+         ms={k: v[0] for k, v in p1_t.items()},
+         plain_ms={k: v[1] for k, v in p1_t.items()},
+         gb_per_s=gbps, plain_gb_per_s=gbps_plain,
+         launches=p1.stream_scale.launches,
+         method="8 B per element, CUDA events, median of 10 runs of 10 "
+                "back-to-back calls")
+    check(p1.stream_scale.launches > 0, "stream_scale was not launched")
+
+    t.update(box_t)
+    t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
+    dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
+            "apply_raw": tet_dofs, "vcycle": tet_dofs}
+    for k in t:
+        for lv in (7, 9):
+            if k.startswith("box_") and f"level{lv}" in k:
+                dofs[k] = box_dofs[lv]
+    emit("timings", card=card, tet_level=level, tet_global_dofs=tet_dofs,
+         tet_block=tet_block, box_dofs=box_dofs, ms=t,
+         gdofs_per_s={k: dofs[k] / (v * 1e-3) / 1e9 for k, v in t.items()
+                      if k in dofs and "vcycle" not in k},
+         stream_gb_per_s=gbps,
+         method="CUDA events after 1-3 warm-up calls; kernels and applies: "
+                "median of 5-10 runs of 5-10 back-to-back calls; plain "
+                "versions and V-cycles: median of 3-20 single calls")
+
+    timed = {"p1_const_apply": "p1_const_apply",
+             "p1_diagonal_local": "p1_diagonal_local",
+             "box_apply": "box_apply_level7", "stream_scale": "stream_scale"}
+    extra = {"box_apply": {"max_abs_err_bf16": errs_bf16}}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": t[name],
-                "plain_ms": t[name + "_plain"]}
+                "max_abs_err": errs[name], "ms": t[timed[name]],
+                "plain_ms": t[timed[name] + "_plain"], **extra.get(name, {})}
                for name, (src, rep) in REPLACES.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Carry state over from the JAX package (hyteg_tpu) as numpy arrays.
 
-Both packages lay a P1 block out as (C, N, N*pitch) with the same lane
-map, so no conversion repacks: these functions only change the array
-type, dtype and device, and copy (an array read from JAX is read-only).
+Both packages lay a P1 block out as (C, N, N*pitch) and a box block as
+(X, Y*Z), with the same lane maps, so no conversion repacks: these
+functions only change the array type, dtype and device, and copy (an
+array read from JAX is read-only).
 They let a test run both packages on identical operators (element
 matrices, eigenvalue bounds) and identical states.
 """
@@ -28,5 +29,25 @@ def block_from_reference(block: np.ndarray, device="cpu",
 
 
 def block_to_numpy(block: torch.Tensor) -> np.ndarray:
-    """A (C, N, N*pitch) tensor -> numpy on the host."""
-    return block.detach().cpu().numpy()
+    """A P1 or box block tensor -> numpy on the host (bf16 as f32, which
+    numpy lacks)."""
+    block = block.detach().cpu()
+    if block.dtype == torch.bfloat16:
+        block = block.to(torch.float32)
+    return block.numpy()
+
+
+def box_block_from_reference(block: np.ndarray, device="cpu",
+                             dtype=torch.float32) -> torch.Tensor:
+    """An (X, Y*Z) BoxDomain block -> tensor on ``device``. Both packages
+    use lane = y*Z + z, so nothing is repacked."""
+    return torch.tensor(np.asarray(block, dtype=np.float32), dtype=dtype,
+                        device=device)
+
+
+def lane_weights_from_reference(w_vecs: np.ndarray,
+                                device="cpu") -> torch.Tensor:
+    """(3, 15, Y*Z) box lane-weight vectors -> f32 tensor for
+    ``box_apply`` (the kernel takes f32 weights whatever the block dtype)."""
+    return torch.tensor(np.asarray(w_vecs, dtype=np.float32),
+                        dtype=torch.float32, device=device)

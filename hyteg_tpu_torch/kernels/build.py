@@ -37,6 +37,10 @@ SIGNATURES = {
     "hyteg_p1_const_apply": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # elmats, coeff, dst, C, N, pitch, lumped, mode, offs, margins, stream
     "hyteg_p1_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # u, w, y, X, Y, Z, bf16, stream
+    "hyteg_box_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # src, dst, n, stream
+    "hyteg_stream_scale": [_P, _P, ctypes.c_longlong, _P],
 }
 
 

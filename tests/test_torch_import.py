@@ -43,6 +43,9 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.kernels.p1_stencil",
               "hyteg_tpu_torch.kernels.build",
               "hyteg_tpu_torch.solvers.templates",
+              "hyteg_tpu_torch.structured.gmg",
+              "hyteg_tpu_torch.kernels.box_stencil",
+              "hyteg_tpu_torch.kernels.stream",
               "hyteg_tpu_torch.interop"):
         assert m in MODULES
 
