@@ -14,8 +14,13 @@ read just after:
 - the structured box path: box GMG V(2,2) solves of the manufactured
   Poisson problem on m = (2, 2, 2) at levels 6 and 7, then at level 9,
   1,076,890,625 DoFs on one card (kernel B1, f32 and bf16 storage);
+- the paired-tet engine (kernels B6, B7, B8): bench.py's bench_tet path,
+  lift / apply_ex / lower gated against the classic apply (B2) on the
+  unit cube at levels 6 and 7 and on the 1920-cell spherical shell at
+  level 5, with a torch.profiler breakdown of chained applies at level 7;
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
-  and the level-7 macro-tet block: the card's measured bandwidth ceiling.
+  and the level-7 macro-tet and paired blocks: the card's measured
+  bandwidth ceiling.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events. Prints one JSON line per phase; the last line is
@@ -59,6 +64,16 @@ BOX_RATE_MAX = 0.4    # bench.py's gate on the box V(2,2) residual rate
 B1_RTOL = 1e-5        # f32, 15-term sums taken in another order
 B1_BF16_ULP = 2.0 ** -7  # one bf16 ulp of an element is at most 2^-7 of it
 B1_BF16_VS_F32 = 2e-2    # bench.py's gate, bf16 apply vs f32 apply
+# the paired-tet engine (bench.py's bench_tet: Laplace, unit cube, level 6)
+TETPAIR_CASES = (("cube", 6), ("cube", 7), ("shell", 5))
+# (mesh, level, pitch) of the kernels-vs-plain checks: padding lanes, then
+# every shape the path launches the kernels at
+TETPAIR_CHECKS = (("cube", 4, PITCH),) + tuple(
+    (mesh, level, None) for mesh, level in TETPAIR_CASES)
+TETPAIR_TIME_LEVEL = 7
+SHELL = (2, 2, 0.55, 1.0)  # mesh_spherical_shell: 1920 macro-tets
+B6_RTOL = 1e-5        # f32, 15-term sums taken in another order
+TETPAIR_RTOL = 1e-5   # bench_tet's gate (hyteg_tpu/core/benchgate.py:20)
 REPLACES = {
     "p1_const_apply": ("hyteg_tpu_torch/csrc/p1_const_stencil.cu",
                        "hyteg_tpu/kernels/p1_const_stencil.py:746"),
@@ -68,6 +83,12 @@ REPLACES = {
                   "hyteg_tpu/kernels/box_stencil.py:210"),
     "stream_scale": ("hyteg_tpu_torch/csrc/stream.cu",
                      "scripts/prof_r5.py:46"),
+    "pair_apply": ("hyteg_tpu_torch/csrc/tetpair.cu",
+                   "hyteg_tpu/tetpair/kernel.py:295"),
+    "pair_install": ("hyteg_tpu_torch/csrc/tetpair.cu",
+                     "hyteg_tpu/tetpair/kernel.py:337"),
+    "pair_extract": ("hyteg_tpu_torch/csrc/tetpair.cu",
+                     "hyteg_tpu/tetpair/kernel.py:381"),
 }
 
 
@@ -339,6 +360,134 @@ def stream_probe(sizes: dict, device) -> tuple[dict, dict]:
     return errs, times
 
 
+def tetpair_storage(mesh: str):
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_spherical_shell, mesh_unit_cube
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    return CellStorage(mesh_unit_cube(MESH_N) if mesh == "cube"
+                       else mesh_spherical_shell(*SHELL))
+
+
+def tetpair_setup(storage, level: int, device, seed: int, form=None,
+                  pitch=None):
+    """A space, its classic operator, the paired-tet engine bound to it and
+    a consistent random x (interface replicas equal)."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.tetpair import TetPairEngine
+
+    sp = P1Space(storage, level, device=device, pitch=pitch)
+    op = P1ElementwiseOperator(sp, form or forms.laplace_form)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(sp.block_shape, generator=gen, device=device)
+    x = sp.exchange_rep(x * sp.vertex_mask_t)
+    return sp, op, TetPairEngine(sp, op.elmats), x
+
+
+def check_tetpair_kernels(storage, level: int, pitch, device, seed: int) -> dict:
+    """Kernels B6, B7, B8 against their plain versions at one level, on the
+    state after one exchanged apply (nontrivial faces to install)."""
+    from hyteg_tpu_torch.kernels import tetpair as tk
+    from hyteg_tpu_torch.operators import forms
+
+    out = {"level": level, "cells": storage.cells_per_shard}
+    for name, form in (("laplace", forms.laplace_form),
+                       ("mass", forms.mass_form)):
+        sp, op, eng, x = tetpair_setup(storage, level, device, seed, form,
+                                       pitch)
+        N, P = eng.N, eng.P
+        out.update(pitch=P, paired_block=[eng.Cp, N, N * P])
+        st = eng.apply_ex(eng.lift(x))
+        faces = (st.xf, st.yf, st.zf, st.df)
+        got = tk.pair_apply(st.u, eng.W, *faces, N, P)
+        ref = tk.pair_apply_torch(st.u, eng.W, *faces, N, P)
+        for part, g, r in zip(("dst", "xf", "yf", "zf", "df"), got, ref):
+            err, scale = max_abs_diff(g, r), r.abs().max().item()
+            check(math.isfinite(err) and err <= B6_RTOL * scale,
+                  f"B6 {name} level {level} {part}: max|d| {err} > "
+                  f"{B6_RTOL} * {scale}")
+            out[f"b6_{name}_{part}_max_abs_err"] = err
+            out[f"b6_{name}_{part}_max_abs"] = scale
+        err = max_abs_diff(tk.pair_install(st.u, *faces, N, P),
+                           tk.pair_install_torch(st.u, *faces, N, P))
+        check(err == 0.0, f"B7 {name} level {level}: max|d| {err} != 0")
+        out[f"b7_{name}_max_abs_err"] = err
+        for blk, u in (("packed", eng.pack(x)), ("applied", st.u)):
+            err = max(max_abs_diff(g, r) for g, r in zip(
+                tk.pair_extract(u, N, P), tk.pair_extract_torch(u, N, P)))
+            check(err == 0.0, f"B8 {name} level {level} {blk}: max|d| {err} != 0")
+            out[f"b8_{name}_{blk}_max_abs_err"] = err
+        del sp, op, eng, x, st, faces, got, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|a|: bench.py's gate_close."""
+    return max_abs_diff(a, b) / max(a.abs().max().item(), 1e-30)
+
+
+def tetpair_apply(storage, level: int, device, seed: int):
+    """bench_tet's path: the engine's apply_full, and two chained apply_ex
+    then lower, against the classic apply (B2 + slot exchange) on every
+    in-tet position."""
+    t0 = time.perf_counter()
+    sp, op, eng, x = tetpair_setup(storage, level, device, seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mask = sp.vertex_mask_t
+    full = rel_err(eng.apply_full(x) * mask, op.apply_raw(x) * mask)
+    chained = rel_err(
+        eng.lower(eng.apply_ex(eng.apply_ex(eng.lift(x)))) * mask,
+        op.apply_raw(op.apply_raw(x)) * mask)
+    where = f"level {level}, {storage.cells_per_shard} cells"
+    check(math.isfinite(full) and full <= TETPAIR_RTOL,
+          f"tetpair apply_full vs apply_raw, {where}: rel {full} > {TETPAIR_RTOL}")
+    check(math.isfinite(chained) and chained <= TETPAIR_RTOL,
+          f"tetpair chained apply vs apply_raw, {where}: rel {chained} > "
+          f"{TETPAIR_RTOL}")
+    out = {"level": level, "cells": storage.cells_per_shard,
+           "global_dofs": sp.num_global_dofs(), "block": list(sp.block_shape),
+           "paired_block": [eng.Cp, eng.N, eng.N * eng.P],
+           "paired_slots": eng.Cp * eng.N * eng.N * eng.P,
+           "apply_full_rel_err": full, "chained_rel_err": chained,
+           "setup_s": setup_s}
+    return out, (sp, op, eng, x)
+
+
+def tetpair_profile(eng, st, applies: int = 3) -> dict:
+    """torch.profiler over chained apply_ex: device time by kernel and the
+    device idle share of the window (1 - device kernel time / host wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        st = eng.apply_ex(st)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(applies):
+            st = eng.apply_ex(st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    b6_ms = sum(r[1] for r in rows if "pair_apply_kernel" in r[0])
+    rows.sort(key=lambda r: -r[1])
+    return {"applies": applies, "wall_ms_per_apply": wall_ms / applies,
+            "device_ms_per_apply": device_ms / applies,
+            "b6_ms_per_apply": b6_ms / applies,
+            "exchange_ms_per_apply": (device_ms - b6_ms) / applies,
+            "device_kernels_per_apply": sum(r[2] for r in rows) / applies,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "top": [{"name": k[:80], "ms_per_apply": v / applies,
+                     "count": c} for k, v, c in rows[:10]]}
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -350,6 +499,7 @@ def main() -> int:
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
     from hyteg_tpu_torch.kernels import stream as p1
+    from hyteg_tpu_torch.kernels import tetpair as tk
     from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
     from hyteg_tpu_torch.primitives.storage import CellStorage
     from hyteg_tpu_torch.structured import gmg as box_gmg
@@ -424,6 +574,65 @@ def main() -> int:
         "vcycle": median_ms(lambda: stack.gmg.cycle(x, b), 20),
     }
     del stack, sp, op, A, E, elm, x, b
+    torch.cuda.empty_cache()
+
+    # -- the paired-tet engine (B6, B7, B8): bench_tet's path ----------------
+    storages = {"cube": storage, "shell": tetpair_storage("shell")}
+    tp_checks = []
+    for i, (mesh, level, pitch) in enumerate(TETPAIR_CHECKS):
+        tp_checks.append(check_tetpair_kernels(storages[mesh], level, pitch,
+                                               device, seed=30 + i))
+        emit("tetpair_kernels_vs_plain", card=card, mesh=mesh, **tp_checks[-1])
+    for name, tag in (("pair_apply", "b6_"), ("pair_install", "b7_"),
+                      ("pair_extract", "b8_")):
+        errs[name] = max(v for c in tp_checks for k, v in c.items()
+                         if k.startswith(tag) and k.endswith("_max_abs_err"))
+
+    tk.pair_apply.launches = 0
+    tk.pair_install.launches = 0
+    tk.pair_extract.launches = 0
+    for i, (mesh, level) in enumerate(TETPAIR_CASES):
+        res, objs = tetpair_apply(storages[mesh], level, device, seed=40 + i)
+        emit("tetpair_apply", card=card, mesh=mesh, **res)
+        if (mesh, level) == ("cube", TETPAIR_TIME_LEVEL):
+            tp_res, (sp, op, eng, x) = res, objs
+        del objs
+        torch.cuda.empty_cache()
+    tp_launches = {name: getattr(tk, name).launches
+                   for name in ("pair_apply", "pair_install", "pair_extract")}
+    emit("tetpair_checks", launches=tp_launches)
+    for name, n in tp_launches.items():
+        check(n > 0, f"{name} was not launched on the paired-tet path")
+    launches.update(tp_launches)
+
+    # timings at level 7, on the engine's own state
+    N, P = eng.N, eng.P
+    st = eng.lift(x)
+    faces = (st.xf, st.yf, st.zf, st.df)
+    fo = tk.pair_apply(st.u, eng.W, *faces, N, P)[1:]
+    t.update({
+        "pair_apply": median_ms(
+            lambda: tk.pair_apply(st.u, eng.W, *faces, N, P), 10, batch=10),
+        "pair_apply_plain": median_ms(
+            lambda: tk.pair_apply_torch(st.u, eng.W, *faces, N, P), 5),
+        "pair_install": median_ms(
+            lambda: tk.pair_install(st.u, *faces, N, P), 10, batch=10),
+        "pair_install_plain": median_ms(
+            lambda: tk.pair_install_torch(st.u, *faces, N, P), 10),
+        "pair_extract": median_ms(
+            lambda: tk.pair_extract(st.u, N, P), 10, batch=10),
+        "pair_extract_plain": median_ms(
+            lambda: tk.pair_extract_torch(st.u, N, P), 10),
+        "tetpair_exchange_faces": median_ms(
+            lambda: eng.exchange_faces(*fo), 10, batch=10),
+        "tetpair_apply_ex": median_ms(lambda: eng.apply_ex(st), 10, batch=10),
+        "tetpair_apply_full": median_ms(lambda: eng.apply_full(x), 10),
+        "tetpair_classic_apply_raw": median_ms(lambda: op.apply_raw(x), 10,
+                                               batch=10),
+    })
+    emit("tetpair_profile", card=card, level=TETPAIR_TIME_LEVEL,
+         **tetpair_profile(eng, st))
+    del sp, op, eng, x, st, faces, fo
     torch.cuda.empty_cache()
 
     # -- the structured box path (B1) -----------------------------------------
@@ -505,7 +714,8 @@ def main() -> int:
 
     # -- the stream-copy probe (P1): the card's bandwidth ceiling -------------
     sizes = {"box_level7": box_dofs[7], "box_level9": box_dofs[9],
-             "tet_level7_block": math.prod(tet_block)}
+             "tet_level7_block": math.prod(tet_block),
+             "tetpair_level7_block": tp_res["paired_slots"]}
     p1_errs, p1_t = stream_probe(sizes, device)
     launches["stream_scale"] = p1.stream_scale.launches
     errs["stream_scale"] = max(p1_errs.values())
@@ -526,6 +736,9 @@ def main() -> int:
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
             "apply_raw": tet_dofs, "vcycle": tet_dofs}
+    dofs.update({k: tp_res["global_dofs"] for k in t
+                 if k.startswith(("pair_", "tetpair_"))})
+    b6_gbps = 8 * tp_res["paired_slots"] / (t["pair_apply"] * 1e-3) / 1e9
     for k in t:
         for lv in (7, 9):
             if k.startswith("box_") and f"level{lv}" in k:
@@ -534,14 +747,18 @@ def main() -> int:
          tet_block=tet_block, box_dofs=box_dofs, ms=t,
          gdofs_per_s={k: dofs[k] / (v * 1e-3) / 1e9 for k, v in t.items()
                       if k in dofs and "vcycle" not in k},
-         stream_gb_per_s=gbps,
+         stream_gb_per_s=gbps, tetpair_paired_block=tp_res["paired_block"],
+         b6_gb_per_s_at_8_bytes_per_slot=b6_gbps,
+         b6_share_of_p1=b6_gbps / gbps["tetpair_level7_block"],
          method="CUDA events after 1-3 warm-up calls; kernels and applies: "
                 "median of 5-10 runs of 5-10 back-to-back calls; plain "
                 "versions and V-cycles: median of 3-20 single calls")
 
     timed = {"p1_const_apply": "p1_const_apply",
              "p1_diagonal_local": "p1_diagonal_local",
-             "box_apply": "box_apply_level7", "stream_scale": "stream_scale"}
+             "box_apply": "box_apply_level7", "stream_scale": "stream_scale",
+             "pair_apply": "pair_apply", "pair_install": "pair_install",
+             "pair_extract": "pair_extract"}
     extra = {"box_apply": {"max_abs_err_bf16": errs_bf16}}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -45,6 +45,24 @@ def box_block_from_reference(block: np.ndarray, device="cpu",
                         device=device)
 
 
+def pair_weights_from_reference(W: np.ndarray, device="cpu") -> torch.Tensor:
+    """(Cp, 120, 7) paired-tet coefficient matrices (the JAX package's
+    ``tetpair.plan.weight_matrix``) -> f32 tensor for ``pair_apply``."""
+    return torch.tensor(np.asarray(W, dtype=np.float32), dtype=torch.float32,
+                        device=device)
+
+
+def pair_state_from_reference(u, xf, yf, zf, df, device="cpu"):
+    """The five arrays of a JAX ``tetpair.engine.PairState`` -> the port's
+    ``PairState`` (same layouts: blocks (Cp, N, L), faces (Cp, 2, L),
+    (Cp, 2, N, P), (Cp, 2, N, N), (Cp, 2, L))."""
+    from .tetpair.engine import PairState
+
+    return PairState(*(torch.tensor(np.asarray(a, dtype=np.float32),
+                                    dtype=torch.float32, device=device)
+                       for a in (u, xf, yf, zf, df)))
+
+
 def lane_weights_from_reference(w_vecs: np.ndarray,
                                 device="cpu") -> torch.Tensor:
     """(3, 15, Y*Z) box lane-weight vectors -> f32 tensor for

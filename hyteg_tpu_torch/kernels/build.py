@@ -41,6 +41,13 @@ SIGNATURES = {
     "hyteg_box_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
     # src, dst, n, stream
     "hyteg_stream_scale": [_P, _P, ctypes.c_longlong, _P],
+    # u, W, xf, yf, zf, df, dst, xfo, yfo, zfo, dfo, Cp, N, P, dirs,
+    # tail_a, tail_b, stream
+    "hyteg_pair_apply": [_P] * 11 + [_I, _I, _I, _P, _I, _I, _P],
+    # u, xf, yf, zf, df, out, Cp, N, P, stream
+    "hyteg_pair_install": [_P] * 6 + [_I, _I, _I, _P],
+    # u, xfo, yfo, zfo, dfo, Cp, N, P, stream
+    "hyteg_pair_extract": [_P] * 5 + [_I, _I, _I, _P],
 }
 
 

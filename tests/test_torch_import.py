@@ -46,7 +46,13 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.structured.gmg",
               "hyteg_tpu_torch.kernels.box_stencil",
               "hyteg_tpu_torch.kernels.stream",
-              "hyteg_tpu_torch.interop"):
+              "hyteg_tpu_torch.interop",
+              "hyteg_tpu_torch.tetpair",
+              "hyteg_tpu_torch.tetpair.plan",
+              "hyteg_tpu_torch.tetpair.ifc",
+              "hyteg_tpu_torch.tetpair.small",
+              "hyteg_tpu_torch.tetpair.engine",
+              "hyteg_tpu_torch.kernels.tetpair"):
         assert m in MODULES
 
 
