@@ -18,12 +18,23 @@ read just after:
   lift / apply_ex / lower gated against the classic apply (B2) on the
   unit cube at levels 6 and 7 and on the 1920-cell spherical shell at
   level 5, with a torch.profiler breakdown of chained applies at level 7;
+- the variable-coefficient P1 operator (kernel B4, and B3 with a
+  coefficient) at level 7: B4 in the three averaging modes, B4 with k = 1
+  against B2, and the operator's symmetry and positivity;
+- the P2 path (kernel B5): bench_vcycle.py's bench_p2 GMG stack on the
+  unit cube at P2 level 6, 16,974,593 DoFs, gated at a residual rate of
+  0.6, with a torch.profiler breakdown of one V-cycle; the manufactured
+  P2 Poisson solve at levels 3-5; the P2 coefficient apply at level 6;
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
-events. Prints one JSON line per phase; the last line is
+events, and each kernel's least time on the card (its bytes over the
+data-sheet memory rate or its f32 operations over the f32 peak) and,
+where one exists, a single PyTorch call computing the same function.
+Prints one JSON line per phase; the line before the last is
+{"kernels": [...]}, and the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Refuses to run
 without CUDA. Imports nothing of JAX.
@@ -39,6 +50,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 MESH_N = 2            # mesh_unit_cube(2): 48 macro-tets
 CHECK_LEVELS = (4, 7)
@@ -74,6 +86,25 @@ TETPAIR_TIME_LEVEL = 7
 SHELL = (2, 2, 0.55, 1.0)  # mesh_spherical_shell: 1920 macro-tets
 B6_RTOL = 1e-5        # f32, 15-term sums taken in another order
 TETPAIR_RTOL = 1e-5   # bench_tet's gate (hyteg_tpu/core/benchgate.py:20)
+# the P2 path (bench_vcycle.py's bench_p2: make_p2_gmg on the unit cube,
+# min level 1, 20 coarse CG iterations, V(3,3), Chebyshev order 4)
+P2_LEVEL = 6          # 16,974,593 DoFs; node block (48, 129, 16641)
+P2_CHECKS = (3, P2_LEVEL)  # B5 vs plain, pitch 129 (padding lanes at 3)
+P2_MIN_LEVEL = 1
+P2_COARSE_ITERS = 20
+P2_CYCLES = 4
+P2_RATE_MAX = 0.6     # bench_vcycle.py's gate (:21-31)
+P2_MANUFACTURED = (3, 4, 5)  # error drop gated from 3 to 4; 5 reported
+P2_MANUFACTURED_CYCLES = 8
+P2_ERR_DROP_MIN = 5.0  # O(h^3) predicts 8
+B5_RTOL = 1e-5        # f32, 65-term sums taken in another order
+# the variable-coefficient P1 operator (kernel B4)
+B4_CHECKS = (4, 7)    # P1 levels, pitch 129
+B4_RTOL = 1e-5        # f32, 96-term sums and coefficient means reordered
+SYM_RTOL = 1e-4       # <w, A v> against <v, A w>
+# the card's data-sheet peaks: H100 SXM
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 REPLACES = {
     "p1_const_apply": ("hyteg_tpu_torch/csrc/p1_const_stencil.cu",
                        "hyteg_tpu/kernels/p1_const_stencil.py:746"),
@@ -89,6 +120,24 @@ REPLACES = {
                      "hyteg_tpu/tetpair/kernel.py:337"),
     "pair_extract": ("hyteg_tpu_torch/csrc/tetpair.cu",
                      "hyteg_tpu/tetpair/kernel.py:381"),
+    "p1_apply_local": ("hyteg_tpu_torch/csrc/p1_apply.cu",
+                       "hyteg_tpu/kernels/p1_stencil.py:222"),
+    "p2_const_apply": ("hyteg_tpu_torch/csrc/p2_const_stencil.cu",
+                       "hyteg_tpu/kernels/p2_const_stencil.py:432"),
+}
+# the one PyTorch call timed beside each kernel (library_ms), or why none
+LIBRARY_CALLS = {
+    "p1_const_apply": "F.conv3d grouped per cell, interior stencil (equal to "
+                      "B2 on interior points only), cuDNN TF32 off",
+    "p1_diagonal_local": None,  # no library call builds an FE diagonal
+    "box_apply": "F.conv3d, an interior lane's 15 weights (equal to B1 on "
+                 "interior points only), cuDNN TF32 off",
+    "stream_scale": "torch.mul(src, 2.0, out=dst)",
+    "pair_apply": None,    # a fused install + apply + extract: no such call
+    "pair_install": None,  # a masked select chain over face planes
+    "pair_extract": None,  # strided face-plane copies
+    "p1_apply_local": None,  # per-element coefficient means: no conv form
+    "p2_const_apply": None,  # weights vary with node parity: no conv form
 }
 
 
@@ -488,6 +537,287 @@ def tetpair_profile(eng, st, applies: int = 3) -> dict:
                      "count": c} for k, v, c in rows[:10]]}
 
 
+def gate_residuals(res, what: str, max_rate: float, min_cycles: int = 4,
+                   floor_rel: float = 1e-6) -> float:
+    """bench_vcycle's convergence gate (hyteg_tpu/core/benchgate.py:44):
+    residuals decrease and their mean rate is <= max_rate over the cycles
+    before the f32 round-off floor (floor_rel of the first). Returns the
+    rate."""
+    check(len(res) > min_cycles and all(math.isfinite(r) for r in res),
+          f"{what}: too few or non-finite residuals {res}")
+    floor = floor_rel * res[0]
+    end = next((i for i, r in enumerate(res) if r <= floor), len(res) - 1)
+    window = res[: max(end, min_cycles) + 1]
+    for a, b in zip(window, window[1:]):
+        check(b < a or a <= floor,
+              f"{what}: residuals not decreasing before the floor {res}")
+    rate = (window[-1] / window[0]) ** (1.0 / (len(window) - 1))
+    check(rate <= max_rate, f"{what}: mean rate {rate} > {max_rate}")
+    return rate
+
+
+def tet_points(n: int) -> int:
+    """Micro-vertices of one refined tet with n intervals per edge (the
+    base positions of a class with margin m are tet_points(n - m))."""
+    return (n + 1) * (n + 2) * (n + 3) // 6 if n >= 0 else 0
+
+
+def bound(nbytes: float, flops: float, bytes_per_s: float = PEAK_BYTES_PER_S
+          ) -> tuple[float, str, float, float]:
+    """Least time for the work on the card (ms) and what binds it: bytes
+    (each input read once, each output written once) over the memory rate,
+    by default the data sheet's, or f32 operations over the f32 peak.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    t_b, t_f = nbytes / bytes_per_s, flops / PEAK_F32_FLOPS
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations",
+            nbytes, flops)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def conv3d_stencil(weights, dirs) -> torch.Tensor:
+    """(G, 1, 3, 3, 3) conv3d kernels from (G, n_s) weights on directions
+    in {-1, 0, 1}^3 (cross-correlation: k[d + 1] multiplies u[p + d])."""
+    k = torch.zeros((weights.shape[0], 27), dtype=torch.float32,
+                    device=weights.device)
+    idx = [(int(d[0]) + 1) * 9 + (int(d[1]) + 1) * 3 + int(d[2]) + 1
+           for d in dirs]
+    k[:, idx] = weights.float()
+    return k.reshape(-1, 1, 3, 3, 3)
+
+
+def p2_space_op(storage, level: int, kind: str, device):
+    from hyteg_tpu_torch.functions.p2 import P2Space
+    from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
+
+    sp = P2Space(storage, level, device=device, pitch=PITCH)
+    return sp, P2ElementwiseOperator(sp, kind)
+
+
+def check_p2_kernels(storage, level: int, device, seed: int) -> dict:
+    """Kernel B5 against its plain version (Laplace and mass) at one P2
+    level with pitch 129, and at the path's level also against the
+    independent general formulation p2_apply_local."""
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.operators.p2_elementwise import p2_apply_local
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"level": level, "pitch": PITCH}
+    for kind in ("laplace", "mass"):
+        sp, op = p2_space_op(storage, level, kind, device)
+        out.update(block=list(sp.block_shape),
+                   global_dofs=sp.num_global_dofs())
+        x = torch.randn(sp.block_shape, generator=gen, device=device)
+        x *= sp.vertex_mask_t
+        args = (op.stencil_folded, level, PITCH)
+        y = b5.p2_const_apply(x, *args)
+        y_ref = b5.p2_const_apply_torch(x, *args)
+        err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
+        check(math.isfinite(err) and err <= B5_RTOL * scale,
+              f"B5 {kind} level {level}: max|dy| {err} > {B5_RTOL} * {scale}")
+        check(not y[:, ~sp.vertex_mask_t.bool()].any().item(),
+              f"B5 {kind} level {level}: nonzero outside the tet / padding")
+        out[f"b5_{kind}_max_abs_err"] = err
+        out[f"b5_{kind}_max_abs"] = scale
+        del y_ref
+        if level == P2_LEVEL:
+            y_gen = p2_apply_local(x, op.elmats, level, 3, PITCH)
+            err, scale = max_abs_diff(y, y_gen), y_gen.abs().max().item()
+            check(math.isfinite(err) and err <= B5_RTOL * scale,
+                  f"B5 {kind} level {level} vs p2_apply_local: max|dy| "
+                  f"{err} > {B5_RTOL} * {scale}")
+            out[f"b5_{kind}_vs_general_max_abs_err"] = err
+            del y_gen
+        del sp, op, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def p2_gmg(storage, device) -> tuple[dict, object, tuple]:
+    """The P2 path: bench_vcycle's bench_p2 stack at level 6, a seeded
+    random rhs made consistent across interface replicas and restricted to
+    the solved rows, P2_CYCLES V-cycles from 0 under bench_vcycle's gate."""
+    from hyteg_tpu_torch.solvers.templates import make_p2_gmg
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stack = make_p2_gmg(storage, min_level=P2_MIN_LEVEL, max_level=P2_LEVEL,
+                        coarse_iters=P2_COARSE_ITERS, device=device)
+    sp = stack.space()
+    gen = torch.Generator(device=device).manual_seed(0)
+    b = torch.randn(sp.block_shape, generator=gen, device=device)
+    b = stack.residual(torch.zeros_like(b),
+                       sp.exchange_rep(b * sp.vertex_mask_t))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = torch.zeros_like(b)
+    res = [stack.residual_norm(x, b).item()]
+    t0 = time.perf_counter()
+    for _ in range(P2_CYCLES):
+        x = stack.gmg.cycle(x, b)
+        res.append(stack.residual_norm(x, b).item())
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    rate = gate_residuals(res, f"P2 V-cycle level {P2_LEVEL}", P2_RATE_MAX)
+    out = {"level": P2_LEVEL, "global_dofs": sp.num_global_dofs(),
+           "block": list(sp.block_shape), "residuals": res,
+           "mean_rate": rate, "setup_s": setup_s,
+           "solve_s_incl_residual_norms": solve_s,
+           "eigs": stack.eigs}
+    return out, stack, (x, b)
+
+
+def p2_cycle_profile(stack, x, b) -> dict:
+    """torch.profiler over one P2 V-cycle after warm-up: device time by
+    kernel (B5, matrix products of the transfers, the rest), the idle share
+    of the window (1 - device kernel time / host wall), and CUDA-event
+    times of every level's restriction and prolongation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        stack.gmg.cycle(x, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stack.gmg.cycle(x, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    b5_ms = sum(r[1] for r in rows if "p2_const_apply_kernel" in r[0])
+    gemm_ms = sum(r[1] for r in rows if "gemm" in r[0].lower()
+                  or "gemv" in r[0].lower())
+    rows.sort(key=lambda r: -r[1])
+    transfer_ms = {}
+    for l, tr in stack.transfers.items():
+        rf = stack.spaces[l].zeros()
+        rc = stack.spaces[l - 1].zeros()
+        transfer_ms[l] = {
+            "restrict": median_ms(lambda: tr.restrict(rf, stack.sds[l],
+                                                      stack.sds[l - 1]), 3),
+            "prolongate": median_ms(lambda: tr.prolongate(rc), 3)}
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "b5_ms": b5_ms,
+            "b5_launches": sum(r[2] for r in rows
+                               if "p2_const_apply_kernel" in r[0]),
+            "transfer_gemm_ms": gemm_ms,
+            "other_device_ms": device_ms - b5_ms - gemm_ms,
+            "device_kernels": sum(r[2] for r in rows),
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "transfer_ms_by_fine_level": transfer_ms,
+            "transfer_ms_per_cycle": sum(v["restrict"] + v["prolongate"]
+                                         for v in transfer_ms.values()),
+            "top": [{"name": k[:80], "ms": v, "count": c}
+                    for k, v, c in rows[:12]]}
+
+
+def p2_manufactured(storage, level: int, device) -> dict:
+    """The sin sin sin Poisson solve of the JAX package's
+    tests/test_p2_transfer.py:62-91 on the P2 stack: b = M f, Dirichlet
+    values of u; max nodal error after P2_MANUFACTURED_CYCLES cycles."""
+    from hyteg_tpu_torch.core.types import BoundaryCondition, DoFType, FLAG_INNER
+    from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
+    from hyteg_tpu_torch.solvers.templates import make_p2_gmg
+
+    stack = make_p2_gmg(storage, min_level=P2_MIN_LEVEL, max_level=level,
+                        coarse_iters=P2_COARSE_ITERS, device=device)
+    sp, bc = stack.space(), BoundaryCondition.all_dirichlet()
+    mass = P2ElementwiseOperator(sp, "mass")
+    x = sp.interpolate(sol, sp.zeros(), DoFType.DIRICHLET, bc)
+    f = sp.interpolate(lambda p: 3 * math.pi ** 2 * sol(p), sp.zeros(),
+                       DoFType.ALL, bc)
+    b = sp.restore_rows(mass.apply_raw(f), sp.zeros(), FLAG_INNER, bc)
+    res = [stack.residual_norm(x, b).item()]
+    for _ in range(P2_MANUFACTURED_CYCLES):
+        x = stack.gmg.cycle(x, b)
+        res.append(stack.residual_norm(x, b).item())
+    u = sp.interpolate(sol, sp.zeros(), DoFType.ALL, bc)
+    err = ((x - u).abs() * sp.vertex_mask_t).max().item()
+    check(all(math.isfinite(r) for r in res) and math.isfinite(err),
+          f"P2 manufactured level {level}: non-finite residual or error")
+    return {"level": level, "global_dofs": sp.num_global_dofs(),
+            "residuals": res, "max_nodal_error": err}
+
+
+def coeff_field(sp, device, gen, kind: str) -> torch.Tensor:
+    """k = 1 + x + 0.5 y (the JAX package's tests/test_operator.py:189) or
+    a seeded random k in [0.5, 1.5), on the tet's nodes."""
+    if kind == "linear":
+        p = sp.coords()
+        k = 1.0 + p[..., 0] + 0.5 * p[..., 1]
+    else:
+        k = 0.5 + torch.rand(sp.block_shape, generator=gen, device=device)
+    return (k * sp.vertex_mask_t).contiguous()
+
+
+def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
+    """Kernel B4 against its plain version in the three averaging modes and
+    for two coefficients, and with k = 1 against B2, at one P1 level
+    (pitch 129)."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b4
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.averaging import MODES
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+
+    sp = P1Space(storage, level, device=device, pitch=PITCH)
+    op = P1ElementwiseOperator(sp, forms.laplace_form)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(sp.block_shape, generator=gen, device=device)
+    x *= sp.vertex_mask_t
+    out = {"level": level, "block": list(sp.block_shape)}
+    for ck in ("linear", "random"):
+        k = coeff_field(sp, device, gen, ck)
+        for mode in MODES:
+            y = b4.p1_apply_local(x, op.elmats, level, 3, PITCH, k, mode)
+            y_ref = b4.p1_apply_local_torch(x, op.elmats, level, 3, PITCH, k,
+                                            mode)
+            err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
+            check(math.isfinite(err) and err <= B4_RTOL * scale,
+                  f"B4 {ck} {mode} level {level}: max|dy| {err} > "
+                  f"{B4_RTOL} * {scale}")
+            check(not y[:, ~sp.vertex_mask_t.bool()].any().item(),
+                  f"B4 {ck} {mode} level {level}: nonzero outside the tet")
+            out[f"b4_{ck}_{mode}_max_abs_err"] = err
+            out[f"b4_{ck}_{mode}_max_abs"] = scale
+            del y, y_ref
+    ones = sp.vertex_mask_t.expand(sp.block_shape).contiguous()
+    y = b4.p1_apply_local(x, op.elmats, level, 3, PITCH, ones)
+    y2 = b2.p1_const_apply(x, op.stencil, op.stencil_face, level, 3, PITCH)
+    err, scale = max_abs_diff(y, y2), y2.abs().max().item()
+    check(math.isfinite(err) and err <= B4_RTOL * scale,
+          f"B4 k=1 vs B2 level {level}: max|dy| {err} > {B4_RTOL} * {scale}")
+    out["b4_unit_vs_b2_max_abs_err"] = err
+    return out
+
+
+def symmetric_positive(sp, apply, seed: int, what: str) -> dict:
+    """<w, A v> against <v, A w> within SYM_RTOL and <v, A v> > 0, for
+    consistent random v, w (the JAX package's
+    tests/test_p2_transfer.py:94-123)."""
+    from hyteg_tpu_torch.core.types import DoFType
+
+    gen = torch.Generator(device=sp.device).manual_seed(seed)
+    v, w = (sp.exchange_rep(torch.randn(sp.block_shape, generator=gen,
+                                        device=sp.device) * sp.vertex_mask_t)
+            for _ in range(2))
+    Av = apply(v)
+    quad = sp.dot(v, Av, DoFType.ALL).item()
+    s1 = sp.dot(w, Av, DoFType.ALL).item()
+    del Av
+    s2 = sp.dot(v, apply(w), DoFType.ALL).item()
+    rel = abs(s1 - s2) / max(abs(s1), 1e-30)
+    check(math.isfinite(quad) and quad > 0, f"{what}: <v, A v> = {quad}")
+    check(math.isfinite(rel) and rel <= SYM_RTOL,
+          f"{what}: <w,Av> {s1} vs <v,Aw> {s2}: rel {rel} > {SYM_RTOL}")
+    return {"v_A_v": quad, "w_A_v": s1, "v_A_w": s2, "symmetry_rel": rel}
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -498,13 +828,24 @@ def main() -> int:
     from hyteg_tpu_torch.kernels import box_stencil as b1
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p1_stencil as b4
     from hyteg_tpu_torch.kernels import stream as p1
     from hyteg_tpu_torch.kernels import tetpair as tk
     from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
     from hyteg_tpu_torch.primitives.storage import CellStorage
     from hyteg_tpu_torch.structured import gmg as box_gmg
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.indexing import micro
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.structured import kuhn
 
     device = torch.device("cuda", 0)
+    # importing hyteg_tpu_torch switched TF32 off, so the library calls
+    # timed beside the kernels run in full f32
+    check(not (torch.backends.cudnn.allow_tf32
+               or torch.backends.cuda.matmul.allow_tf32), "TF32 is on")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -573,8 +914,130 @@ def main() -> int:
         "apply_raw": median_ms(lambda: op.apply_raw(x), 10, batch=10),
         "vcycle": median_ms(lambda: stack.gmg.cycle(x, b), 20),
     }
-    del stack, sp, op, A, E, elm, x, b
+    # bounds, and the nearest single library call: a grouped conv3d with the
+    # interior stencil (equal to B2 on interior points only)
+    C = sp.C_loc
+    bounds = {
+        "p1_const_apply": bound(2 * nbytes(x) + nbytes(A, E),
+                                30 * C * tet_points(sp.n)),
+        "p1_diagonal_local": bound(nbytes(elm) + nbytes(x), 4 * C * sum(
+            tet_points(sp.n - int(m)) for m in micro.base_margin(3)))}
+    xv = x.view(1, C, sp.N, sp.N, sp.pitch)
+    kern = conv3d_stencil(A.sum(-1), micro.stencil_directions(3))
+    lib_ms = {"p1_const_apply": median_ms(
+        lambda: F.conv3d(xv, kern, padding=1, groups=C), 10, batch=10)}
+    del stack, sp, op, A, E, elm, x, b, xv, kern
     torch.cuda.empty_cache()
+
+    # -- the variable-coefficient P1 operator (B4; B3 with a coefficient) ----
+    b4_checks = []
+    for i, lv in enumerate(B4_CHECKS):
+        b4_checks.append(check_coeff_kernels(storage, lv, device, seed=50 + i))
+        emit("coeff_kernels_vs_plain", card=card, **b4_checks[-1])
+        torch.cuda.empty_cache()
+    errs["p1_apply_local"] = max(v for c in b4_checks for k, v in c.items()
+                                 if k.endswith("_max_abs_err"))
+    lv = B4_CHECKS[-1]
+    sp = P1Space(storage, lv, device=device, pitch=PITCH)
+    op = P1ElementwiseOperator(sp, forms.laplace_form)
+    k = coeff_field(sp, device, None, "linear")
+    b3.p1_diagonal_local.launches = 0
+    b4.p1_apply_local.launches = 0
+    sym = symmetric_positive(sp, lambda v: op.apply_raw(v, coeff=k), 60,
+                             f"P1 coefficient operator level {lv}")
+    dinv = op.inverse_diagonal(coeff=k)[:, sp.vertex_mask_t.bool()]
+    coeff_launches = {"p1_apply_local": b4.p1_apply_local.launches,
+                      "p1_diagonal_local": b3.p1_diagonal_local.launches}
+    emit("coeff_operator", card=card, level=lv, coefficient="1 + x + 0.5 y",
+         **sym, inv_diag_min=dinv.min().item(), inv_diag_max=dinv.max().item(),
+         launches=coeff_launches)
+    check(bool(torch.isfinite(dinv).all()) and dinv.min().item() > 0,
+          "the inverse diagonal with a coefficient is not finite and positive")
+    for name, n in coeff_launches.items():
+        check(n > 0, f"{name} was not launched on the coefficient path")
+    launches["p1_apply_local"] = coeff_launches["p1_apply_local"]
+    launches["p1_diagonal_local"] += coeff_launches["p1_diagonal_local"]
+    x = sp.exchange_rep(torch.randn(
+        sp.block_shape, device=device,
+        generator=torch.Generator(device=device).manual_seed(61))
+        * sp.vertex_mask_t)
+    elm = op.elmats
+    t["p1_apply_local"] = median_ms(
+        lambda: b4.p1_apply_local(x, elm, lv, 3, PITCH, k), 10, batch=10)
+    t["p1_apply_local_plain"] = median_ms(
+        lambda: b4.p1_apply_local_torch(x, elm, lv, 3, PITCH, k), 3, warmup=1)
+    t["p1_apply_local_no_coeff"] = median_ms(
+        lambda: b4.p1_apply_local(x, elm, lv, 3, PITCH), 10, batch=10)
+    t["apply_raw_coeff"] = median_ms(lambda: op.apply_raw(x, coeff=k), 10,
+                                     batch=10)
+    # per element: 16 multiply-adds, the 4-term mean and 4 scalings
+    bounds["p1_apply_local"] = bound(
+        2 * nbytes(x) + nbytes(k, elm), 40 * sp.C_loc * sum(
+            tet_points(sp.n - int(m)) for m in micro.base_margin(3)))
+    del sp, op, k, dinv, x, elm
+    torch.cuda.empty_cache()
+
+    # -- the P2 path (B5): bench_vcycle's bench_p2 at level 6 ----------------
+    p2_checks = []
+    for i, lv in enumerate(P2_CHECKS):
+        p2_checks.append(check_p2_kernels(storage, lv, device, seed=70 + i))
+        emit("p2_kernels_vs_plain", card=card, **p2_checks[-1])
+    errs["p2_const_apply"] = max(v for c in p2_checks for k, v in c.items()
+                                 if k.endswith("_max_abs_err"))
+    b5.p2_const_apply.launches = 0
+    p2res, stack, (x, b) = p2_gmg(storage, device)
+    launches["p2_const_apply"] = b5.p2_const_apply.launches
+    p2res["launches"] = {"p2_const_apply": launches["p2_const_apply"]}
+    check(launches["p2_const_apply"] > 0,
+          "p2_const_apply was not launched on the P2 path")
+    p2res["ms_per_vcycle"] = median_ms(lambda: stack.gmg.cycle(x, b), 3,
+                                       warmup=1)
+    p2res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    p2res["peak_gb"] = p2res["peak_bytes"] / 1e9
+    n0 = b5.p2_const_apply.launches
+    stack.gmg.cycle(x, b)
+    p2res["b5_launches_per_vcycle"] = b5.p2_const_apply.launches - n0
+    emit("p2_gmg", card=card, **p2res)
+    emit("p2_profile", card=card, level=P2_LEVEL,
+         **p2_cycle_profile(stack, x, b))
+    sp, op = stack.space(), stack.operators[P2_LEVEL]
+    W = op.stencil_folded
+    t["p2_const_apply"] = median_ms(
+        lambda: b5.p2_const_apply(x, W, P2_LEVEL, PITCH), 10, batch=10)
+    t["p2_const_apply_plain"] = median_ms(
+        lambda: b5.p2_const_apply_torch(x, W, P2_LEVEL, PITCH), 3, warmup=1)
+    t["p2_apply_raw"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
+    t["p2_vcycle"] = p2res["ms_per_vcycle"]
+    row, K0 = b5._row_index(P2_LEVEL, PITCH, torch.float32, device)
+    hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
+    b5_flops = 2 * ((W != 0).sum(-1).double() @ hist).sum().item()
+    bounds["p2_const_apply"] = bound(2 * nbytes(x) + nbytes(W), b5_flops)
+    # the P2 coefficient apply (plain torch in both packages) at level 6
+    ones = sp.vertex_mask_t.expand(sp.block_shape).contiguous()
+    rel1 = rel_err(op.apply_raw(x), op.apply_raw(x, coeff=ones))
+    check(math.isfinite(rel1) and rel1 <= B5_RTOL,
+          f"P2 coefficient apply at k = 1 vs B5: rel {rel1} > {B5_RTOL}")
+    k = coeff_field(sp, device, torch.Generator(device=device).manual_seed(80),
+                    "random")
+    sym = symmetric_positive(sp, lambda v: op.apply_raw(v, coeff=k), 81,
+                             f"P2 coefficient operator level {P2_LEVEL}")
+    t["p2_apply_raw_coeff"] = median_ms(lambda: op.apply_raw(x, coeff=k), 3,
+                                        warmup=1)
+    emit("p2_coeff", card=card, level=P2_LEVEL, unit_coeff_vs_b5_rel=rel1,
+         **sym, apply_raw_coeff_ms=t["p2_apply_raw_coeff"])
+    del stack, sp, op, W, x, b, row, K0, hist, ones, k
+    torch.cuda.empty_cache()
+    man = {}
+    for lv in P2_MANUFACTURED:
+        man[lv] = p2_manufactured(storage, lv, device)
+        emit("p2_manufactured", card=card, **man[lv])
+        torch.cuda.empty_cache()
+    lo, hi = P2_MANUFACTURED[:2]
+    drop = man[lo]["max_nodal_error"] / man[hi]["max_nodal_error"]
+    emit("p2_checks", error_drop=drop, error_drop_levels=[lo, hi])
+    check(drop >= P2_ERR_DROP_MIN,
+          f"P2 nodal error dropped {drop}x from level {lo} to {hi}, < "
+          f"{P2_ERR_DROP_MIN}x")
 
     # -- the paired-tet engine (B6, B7, B8): bench_tet's path ----------------
     storages = {"cube": storage, "shell": tetpair_storage("shell")}
@@ -630,6 +1093,13 @@ def main() -> int:
         "tetpair_classic_apply_raw": median_ms(lambda: op.apply_raw(x), 10,
                                                batch=10),
     })
+    # B8 only copies face planes out of the block: its least bytes are
+    # those planes, read once and written once
+    bounds["pair_apply"] = bound(
+        nbytes(st.u, eng.W, *faces) + nbytes(st.u, *fo),
+        30 * 2 * eng.Cp * tet_points(N - 1))
+    bounds["pair_install"] = bound(2 * nbytes(st.u) + nbytes(*faces), 0)
+    bounds["pair_extract"] = bound(2 * nbytes(*tk.pair_extract(st.u, N, P)), 0)
     emit("tetpair_profile", card=card, level=TETPAIR_TIME_LEVEL,
          **tetpair_profile(eng, st))
     del sp, op, eng, x, st, faces, fo
@@ -674,7 +1144,16 @@ def main() -> int:
             lambda: box_gmg.vcycle(levels, u, b), 10),
     }
     box_dofs = {7: lvl.domain.num_dofs()}
-    del levels, lvl, u, ub, b
+    # the library call: conv3d with an interior lane's 15 weights (equal to
+    # B1 on interior points only)
+    X, Y, Z = lvl.domain.dims
+    wv = lvl.op.w_vecs
+    bounds["box_apply"] = bound(2 * nbytes(u) + nbytes(wv), 30 * u.numel())
+    kern = conv3d_stencil(wv[0, :, Z + 1][None], kuhn.stencil_dirs())
+    uv = u.view(1, 1, X, Y, Z)
+    lib_ms["box_apply"] = median_ms(lambda: F.conv3d(uv, kern, padding=1), 10,
+                                    batch=10)
+    del levels, lvl, u, ub, b, wv, kern, uv
     torch.cuda.empty_cache()
 
     # 1e9 DoFs on one card: set-up, 6 cycles, then the time of a cycle
@@ -758,13 +1237,30 @@ def main() -> int:
              "p1_diagonal_local": "p1_diagonal_local",
              "box_apply": "box_apply_level7", "stream_scale": "stream_scale",
              "pair_apply": "pair_apply", "pair_install": "pair_install",
-             "pair_extract": "pair_extract"}
+             "pair_extract": "pair_extract",
+             "p1_apply_local": "p1_apply_local",
+             "p2_const_apply": "p2_const_apply"}
+    n = sizes["box_level9"]
+    bounds["stream_scale"] = bound(8 * n, n)
+    lib_ms["stream_scale"] = t["stream_scale_plain"]
+    # the same bound against P1's rate measured on the kernel's block size
+    p1_size = {"box_apply": "box_level7", "stream_scale": "box_level9",
+               "pair_apply": "tetpair_level7_block",
+               "pair_install": "tetpair_level7_block",
+               "pair_extract": "tetpair_level7_block"}
     extra = {"box_apply": {"max_abs_err_bf16": errs_bf16}}
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": errs[name], "ms": t[timed[name]],
-                "plain_ms": t[timed[name] + "_plain"], **extra.get(name, {})}
-               for name, (src, rep) in REPLACES.items()]
+    kernels = []
+    for name, (src, rep) in REPLACES.items():
+        ms, by, nb, fl = bounds[name]
+        p1_rate = gbps[p1_size.get(name, "tet_level7_block")] * 1e9
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": t[timed[name]], "plain_ms": t[timed[name] + "_plain"],
+            "bound_ms": ms, "bound_by": by, "bytes": nb, "operations": fl,
+            "bound_ms_at_p1_rate": bound(nb, fl, p1_rate)[0],
+            "library_ms": lib_ms.get(name),
+            "library_call": LIBRARY_CALLS[name], **extra.get(name, {})})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

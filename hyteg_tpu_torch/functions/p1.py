@@ -114,9 +114,10 @@ class P1Function:
 
 class P1Space:
     """Binds (storage, level, device): static masks, slot maps, exchanges
-    and reductions. 3D, one shard."""
+    and reductions. 3D, one shard. ``device`` has no default: a caller
+    names the card or the CPU."""
 
-    def __init__(self, storage: CellStorage, level: int, device="cpu",
+    def __init__(self, storage: CellStorage, level: int, *, device,
                  dtype=torch.float32, pitch: int | None = None):
         if storage.dim != 3:
             raise NotImplementedError(

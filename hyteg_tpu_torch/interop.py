@@ -1,9 +1,10 @@
 """Carry state over from the JAX package (hyteg_tpu) as numpy arrays.
 
-Both packages lay a P1 block out as (C, N, N*pitch) and a box block as
-(X, Y*Z), with the same lane maps, so no conversion repacks: these
-functions only change the array type, dtype and device, and copy (an
-array read from JAX is read-only).
+Both packages lay a P1 block out as (C, N, N*pitch), a P2 block (on the
+level-(L+1) node grid) as (C, M, M*pitch) and a box block as (X, Y*Z),
+with the same lane maps, so no conversion repacks: these functions only
+change the array type, dtype and device, and copy (an array read from JAX
+is read-only).
 They let a test run both packages on identical operators (element
 matrices, eigenvalue bounds) and identical states.
 """
@@ -16,20 +17,22 @@ import torch
 
 def elmats_from_reference(elmats: np.ndarray, device="cpu",
                           dtype=torch.float32) -> torch.Tensor:
-    """(C, 6, 4, 4) element matrices -> tensor for
-    ``P1ElementwiseOperator(space, form, elmats=...)`` or
-    ``make_p1_gmg(..., elmats={level: ...})``."""
+    """(C, 6, 4, 4) P1 or (C, 6, 10, 10) P2 element matrices -> tensor for
+    ``P1ElementwiseOperator(space, form, elmats=...)``,
+    ``P2ElementwiseOperator(space, kind, elmats=...)``, or
+    ``make_p1_gmg`` / ``make_p2_gmg(..., elmats={level: ...})``."""
     return torch.tensor(np.asarray(elmats), dtype=dtype, device=device)
 
 
 def block_from_reference(block: np.ndarray, device="cpu",
                          dtype=torch.float32) -> torch.Tensor:
-    """A (C, N, N*pitch) state block -> tensor on ``device``."""
+    """A (C, N, N*pitch) P1 or (C, M, M*pitch) P2 block (a state, or a
+    nodal coefficient field) -> tensor on ``device``."""
     return torch.tensor(np.asarray(block), dtype=dtype, device=device)
 
 
 def block_to_numpy(block: torch.Tensor) -> np.ndarray:
-    """A P1 or box block tensor -> numpy on the host (bf16 as f32, which
+    """A P1, P2 or box block tensor -> numpy on the host (bf16 as f32, which
     numpy lacks)."""
     block = block.detach().cpu()
     if block.dtype == torch.bfloat16:

@@ -48,6 +48,10 @@ SIGNATURES = {
     "hyteg_pair_install": [_P] * 6 + [_I, _I, _I, _P],
     # u, xfo, yfo, zfo, dfo, Cp, N, P, stream
     "hyteg_pair_extract": [_P] * 5 + [_I, _I, _I, _P],
+    # src, coeff, elmats, dst, C, N, pitch, mode, stream
+    "hyteg_p1_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, W, dst, C, M, pitch, dirs, stream
+    "hyteg_p2_const_apply": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

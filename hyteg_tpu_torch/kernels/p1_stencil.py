@@ -1,15 +1,21 @@
-"""P1 partial diagonal / lumped row sum from element matrices (kernel B3).
+"""The general elementwise P1 apply (kernel B4) and the P1 partial
+diagonal / lumped row sum (kernel B3), from element matrices.
 
-Torch counterpart of the diagonal path of hyteg_tpu/kernels/p1_stencil.py
-and of hyteg_tpu/operators/p1_elementwise.py::_p1_diag_local: for every
-micro-tet congruence class t and vertex a, each valid element base q
-(x+y+z <= n - margin_t) adds elMat[t,a,a] (or the row sum when lumped) to
-the slot q + off[t,a], optionally scaled by the mean of a nodal
-coefficient over the element's vertices.
+Torch counterpart of hyteg_tpu/kernels/p1_stencil.py, of
+hyteg_tpu/operators/p1_elementwise.py::p1_apply_local and of its
+``_p1_diag_local``. For every micro-tet congruence class t and vertex a,
+each valid element base q (x+y+z <= n - margin_t) adds
 
-``p1_diagonal_local`` launches the CUDA kernel ``csrc/p1_diag.cu`` for a
-CUDA tensor and runs the plain version ``p1_diagonal_local_torch`` for a
-CPU tensor.
+  * apply:    sum_b elMat[t,a,b] * src[q + off[t,b]]
+  * diagonal: elMat[t,a,a] (or the row sum when lumped)
+
+to the slot q + off[t,a], optionally scaled by the arithmetic, harmonic
+or geometric mean of a nodal coefficient over the element's vertices.
+
+``p1_apply_local`` and ``p1_diagonal_local`` launch the CUDA kernels
+``csrc/p1_apply.cu`` and ``csrc/p1_diag.cu`` for a CUDA tensor and run
+the plain versions ``p1_apply_local_torch`` and
+``p1_diagonal_local_torch`` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -32,6 +38,71 @@ def _class_masks(level: int, dim: int, pitch: int, dtype, device) -> tuple:
                         dtype=dtype, device=device)
         for t in range(micro.num_classes(dim))
     )
+
+
+def p1_apply_local_torch(src, elmats, level: int, dim: int, pitch: int,
+                         coeff=None, coeff_avg: str = "arithmetic"):
+    """Plain-torch per-cell apply, scatter form with zero-filled shifts
+    (the ``unroll=True`` form of the JAX package's p1_apply_local; partial
+    sums on interface rows):
+    dst[q + off_a] += mean_t(coeff) * sum_b elMat[t,a,b] * src[q + off_b]."""
+    N = (1 << level) + 1
+    pitch = N if dim == 2 else pitch
+    offs = micro.offsets(dim)
+    T, nv = offs.shape[0], offs.shape[1]
+    masks = _class_masks(level, dim, pitch, src.dtype, src.device)
+    dst = torch.zeros_like(src)
+    for t in range(T):
+        reads = [flat.shift_read(src, offs[t, b], pitch, dim)
+                 for b in range(nv)]
+        if coeff is not None:
+            scale = coeff_average([flat.shift_read(coeff, offs[t, b], pitch,
+                                                   dim) for b in range(nv)],
+                                  coeff_avg)
+        for a in range(nv):
+            acc = elmats[:, t, a, 0].reshape(-1, 1, 1) * reads[0]
+            for b in range(1, nv):
+                acc = acc + elmats[:, t, a, b].reshape(-1, 1, 1) * reads[b]
+            if coeff is not None:
+                acc = acc * scale
+            dst = dst + flat.shift_write(acc * masks[t], offs[t, a], pitch,
+                                         dim)
+    return dst
+
+
+def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
+                   coeff=None, coeff_avg: str = "arithmetic"):
+    """Per-cell elementwise apply on the flat layout (partial sums on
+    interface rows), with an optional nodal coefficient.
+
+    src, coeff: (C, N, N*pitch); elmats: (C, 6, 4, 4). A CPU tensor runs
+    the plain version; a CUDA tensor launches kernel B4 (csrc/p1_apply.cu)
+    and counts the launch in ``p1_apply_local.launches``."""
+    if src.device.type == "cpu":
+        return p1_apply_local_torch(src, elmats, level, dim, pitch, coeff,
+                                    coeff_avg)
+    if dim != 3:
+        raise NotImplementedError("the CUDA kernel is 3D only")
+    if coeff_avg not in MODES:
+        raise ValueError(f"unknown averaging mode {coeff_avg!r}")
+    N = (1 << level) + 1
+    C = src.shape[0]
+    offs, _ = _kernel_tables()
+    _check_cuda_input("src", src, (C, N, N * pitch))
+    _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
+    if coeff is not None:
+        _check_cuda_input("coeff", coeff, (C, N, N * pitch))
+    dst = torch.empty_like(src)
+    rc = build.library().hyteg_p1_apply(
+        src.data_ptr(), None if coeff is None else coeff.data_ptr(),
+        elmats.data_ptr(), dst.data_ptr(), C, N, pitch,
+        MODES.index(coeff_avg), build.current_stream())
+    build.check_launch(rc, "p1_apply_local")
+    p1_apply_local.launches += 1
+    return dst
+
+
+p1_apply_local.launches = 0
 
 
 def p1_diagonal_local_torch(elmats, level: int, dim: int, pitch: int,

@@ -5,8 +5,10 @@ For each micro-element congruence class t the local element matrix is
 constant over an affine macro-cell, so with coeff=None the apply
 collapses into the 15-point constant stencil (kernel B2,
 kernels/p1_const_stencil.py) and the diagonal into kernel B3
-(kernels/p1_stencil.py). The general elementwise apply with a nodal
-coefficient is kernel B4, which is not ported yet.
+(kernels/p1_stencil.py). With a nodal coefficient the apply is the
+general elementwise kernel B4 (kernels/p1_stencil.py), each element
+scaled by the operator's ``coeff_avg`` mean of the coefficient over its
+vertices.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..functions.p1 import P1Function, P1Space
 from ..indexing import micro
 from ..kernels.p1_const_stencil import (face_weights_full, p1_const_apply,
                                         stencil_weights)
-from ..kernels.p1_stencil import p1_diagonal_local
+from ..kernels.p1_stencil import p1_apply_local, p1_diagonal_local
 
 
 def compute_elmats(space: P1Space, form, cell_vertices: torch.Tensor) -> torch.Tensor:
@@ -69,11 +71,10 @@ class P1ElementwiseOperator(nn.Module):
 
     def _apply_local(self, x, coeff=None):
         """Per-cell partial apply (no exchange)."""
-        if coeff is not None:
-            raise NotImplementedError(
-                "variable-coefficient apply is the general elementwise "
-                "kernel, not ported yet (ROADMAP B4)")
         sp = self.space
+        if coeff is not None:
+            return p1_apply_local(x, self.elmats, sp.level, sp.dim, sp.pitch,
+                                  coeff, self.coeff_avg)
         return p1_const_apply(x, self.stencil, self.stencil_face, sp.level,
                               sp.dim, sp.pitch)
 

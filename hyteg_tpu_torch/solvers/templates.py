@@ -1,5 +1,5 @@
-"""Canned P1 GMG solver stack; torch counterpart of
-hyteg_tpu/solvers/templates.py (space_kind="p1", one shard).
+"""Canned P1 and P2 GMG solver stacks; torch counterpart of
+hyteg_tpu/solvers/templates.py (one shard).
 
 Wires spaces, operators, transfers, smoothers and the coarse solver into
 a ready GeometricMultigridSolver on one device.
@@ -20,7 +20,8 @@ from ..operators.transfer import P1Transfer
 from ..primitives.storage import CellStorage
 from .gmg import GeometricMultigridSolver, GMGLevel
 from .krylov import cg_solve_fixed
-from .smoothers import chebyshev_smooth, jacobi_smooth, p1_stencil_eig_fourier
+from .smoothers import (chebyshev_smooth, estimate_spectral_radius,
+                        jacobi_smooth, p1_stencil_eig_fourier)
 
 
 @dataclasses.dataclass
@@ -70,32 +71,55 @@ def make_p1_gmg(
     eigs: dict[int, float] | None = None,
     elmats: dict | None = None,
     dtype=torch.float32,
-    device="cpu",
+    *,
+    device,
+    space_kind: str = "p1",
 ) -> P1GMGStack:
-    """GMG stack for a scalar P1 operator on ``device`` (reference
-    pattern: tutorials/FA.01_GeometricMultigrid +
-    GeometricMultigridSolver.hpp:39).
+    """GMG stack for a scalar P1 (or, with ``space_kind="p2"``, P2)
+    operator on ``device``, which has no default (reference pattern:
+    tutorials/FA.01_GeometricMultigrid + GeometricMultigridSolver.hpp:39).
 
     ``eigs`` (level -> lambda_max(D^-1 A) bound) and ``elmats`` (level ->
-    (C, 6, 4, 4) element matrices) may be carried over from another stack,
-    e.g. the JAX package's (see interop.py); by default the eigenvalue
-    bound is the host-side Fourier symbol bound of each level's stencil.
+    (C, 6, 4, 4) or, for P2, (C, 6, 10, 10) element matrices) may be
+    carried over from another stack, e.g. the JAX package's (see
+    interop.py). By default the P1 eigenvalue bound is the host-side
+    Fourier symbol bound of each level's stencil, and the P2 one 25 power
+    iterations from a random start drawn from a torch.Generator seeded
+    with the level. P2 levels take no separate residual callable, as in the
+    JAX package. For P2, ``form`` is the kind ('laplace' or 'mass'); a
+    callable means 'laplace'.
     """
     if not flag & DoFType.INNER:
         raise ValueError("the solved rows must include INNER")
     bc = bc or BoundaryCondition.all_dirichlet()
     lrange = range(min_level, max_level + 1)
-    # one lane pitch across all levels -> grid transfers are pure stride-2
+    elm = lambda l: None if elmats is None else elmats[l]
+    # one lane pitch across all levels -> grid transfers are pure strided
     # slicing on the flat layout (see indexing/flat.py)
-    pitch = (1 << max_level) + 1
-    spaces = {l: P1Space(storage, l, device=device, dtype=dtype, pitch=pitch)
-              for l in lrange}
+    if space_kind == "p1":
+        pitch = (1 << max_level) + 1
+        spaces = {l: P1Space(storage, l, device=device, dtype=dtype,
+                             pitch=pitch) for l in lrange}
+        ops = {l: P1ElementwiseOperator(spaces[l], form, elmats=elm(l))
+               for l in lrange}
+        transfers = {l: P1Transfer(spaces[l - 1], spaces[l])
+                     for l in range(min_level + 1, max_level + 1)}
+    elif space_kind == "p2":
+        from ..functions.p2 import P2Space
+        from ..operators.p2_elementwise import P2ElementwiseOperator
+        from ..operators.p2_transfer import P2Transfer
+
+        pitch = (1 << (max_level + 1)) + 1
+        kind = form if isinstance(form, str) else "laplace"
+        spaces = {l: P2Space(storage, l, device=device, dtype=dtype,
+                             pitch=pitch) for l in lrange}
+        ops = {l: P2ElementwiseOperator(spaces[l], kind, elmats=elm(l))
+               for l in lrange}
+        transfers = {l: P2Transfer(spaces[l - 1], spaces[l])
+                     for l in range(min_level + 1, max_level + 1)}
+    else:
+        raise ValueError(f"unknown space_kind {space_kind!r}")
     sds = {l: spaces[l].shard_data(0, bc) for l in lrange}
-    ops = {l: P1ElementwiseOperator(spaces[l], form,
-                                    elmats=None if elmats is None else elmats[l])
-           for l in lrange}
-    transfers = {l: P1Transfer(spaces[l - 1], spaces[l])
-                 for l in range(min_level + 1, max_level + 1)}
     inv_diags = {l: ops[l].inverse_diagonal(sd=sds[l]) for l in lrange}
 
     def make_apply(l):
@@ -107,10 +131,18 @@ def make_p1_gmg(
     applies = {l: make_apply(l) for l in lrange}
     dots = {l: make_dot(l) for l in lrange}
 
-    if smoother == "chebyshev" and eigs is None:
+    if smoother == "chebyshev" and eigs is None and space_kind == "p1":
         # analytic symbol bound of lambda_max(D^-1 A) per level
         eigs = {l: p1_stencil_eig_fourier(ops[l].stencil, spaces[l].dim)
                 for l in lrange}
+    elif smoother == "chebyshev" and eigs is None:
+        gen = torch.Generator(device=spaces[min_level].device)
+        eigs = {}
+        for l in lrange:
+            gen.manual_seed(l)
+            eigs[l] = float(estimate_spectral_radius(
+                applies[l], inv_diags[l], dots[l], spaces[l].block_shape,
+                num_iter=25, generator=gen, dtype=dtype))
 
     # every restore below writes in place into a tensor the step just made
     def make_smooth(l):
@@ -168,7 +200,7 @@ def make_p1_gmg(
             zeros=(lambda l=l: spaces[l].zeros()),
             restrict=make_restrict(l) if l > min_level else None,
             prolongate_add=make_prolongate_add(l) if l > min_level else None,
-            residual=make_residual(l),
+            residual=make_residual(l) if space_kind == "p1" else None,
         )
 
     def coarse_solve(b, x0):
@@ -179,3 +211,12 @@ def make_p1_gmg(
         levels, coarse_solve, min_level, max_level, pre_smooth, post_smooth)
     return P1GMGStack(storage, spaces, ops, transfers, inv_diags, sds, gmg,
                       flag, eigs)
+
+
+def make_p2_gmg(storage: CellStorage, min_level: int, max_level: int,
+                form: str = "laplace", *, device, **kwargs) -> P1GMGStack:
+    """P2 GMG stack with quadratic transfers on ``device`` (reference
+    pattern: P2 multigrid with P2toP2Quadratic P/R,
+    GeometricMultigridSolver)."""
+    return make_p1_gmg(storage, min_level, max_level, form=form,
+                       device=device, space_kind="p2", **kwargs)

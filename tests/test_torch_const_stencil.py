@@ -60,7 +60,8 @@ def _mesh(mod, name):
 @functools.lru_cache(maxsize=None)
 def _spaces(name, level, pitch):
     return (JSpace(JStorage(_mesh(jmi, name)), level, pitch=pitch),
-            P1Space(CellStorage(_mesh(tmi, name)), level, pitch=pitch))
+            P1Space(CellStorage(_mesh(tmi, name)), level, device="cpu",
+                    pitch=pitch))
 
 
 def _setup(name, level, pitch=None, form="laplace", seed=0):
@@ -193,11 +194,15 @@ def test_operator_computes_same_elmats():
 
 
 def test_apply_with_coefficient_is_not_ported():
+    """The coefficient apply, once unported, is kernel B4 now: with k = 1
+    the operator's coefficient apply (B4's plain version) equals its
+    constant-stencil apply (B2's)."""
     _, tsp, _, x = _setup("cube1", 2)
     op = P1ElementwiseOperator(tsp, tforms.laplace_form)
-    xt = interop.block_from_reference(x)
-    with pytest.raises(NotImplementedError, match="B4"):
-        op.apply_raw(xt, coeff=torch.ones_like(xt))
+    xt = tsp.exchange_rep(interop.block_from_reference(x))
+    ref = op.apply_raw(xt)
+    _assert_close(op.apply_raw(xt, coeff=torch.ones_like(xt)), ref,
+                  ref.abs().max().item(), 1e-5)
 
 
 def test_wrappers_reject_non_cpu_non_cuda_tensors():

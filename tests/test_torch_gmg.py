@@ -84,8 +84,8 @@ def _transfer_pair(name, clevel):
     pitch = (1 << (clevel + 1)) + 1
     js, ts = JStorage(_mesh(jmi, name)), CellStorage(_mesh(tmi, name))
     jc, jf = JSpace(js, clevel, pitch=pitch), JSpace(js, clevel + 1, pitch=pitch)
-    tc, tf = (P1Space(ts, clevel, pitch=pitch),
-              P1Space(ts, clevel + 1, pitch=pitch))
+    tc, tf = (P1Space(ts, clevel, device="cpu", pitch=pitch),
+              P1Space(ts, clevel + 1, device="cpu", pitch=pitch))
     return JTransfer(jc, jf), P1Transfer(tc, tf)
 
 
@@ -111,7 +111,8 @@ def test_restrict_matches_jax(name, clevel):
 def test_transfer_with_mismatched_pitch_matches_jax():
     js, ts = JStorage(jmi.mesh_unit_cube(1)), CellStorage(tmi.mesh_unit_cube(1))
     jtr = JTransfer(JSpace(js, 1), JSpace(js, 2))
-    ttr = P1Transfer(P1Space(ts, 1), P1Space(ts, 2))
+    ttr = P1Transfer(P1Space(ts, 1, device="cpu"),
+                     P1Space(ts, 2, device="cpu"))
     uc = _rand(jtr.coarse.block_shape, jtr.coarse.vertex_mask, 5)
     _close(ttr.prolongate(T(uc)), jax.jit(jtr.prolongate)(jnp.asarray(uc)),
            1e-6)
@@ -171,7 +172,7 @@ class OpPair:
 @pytest.fixture(scope="module")
 def ops():
     jsp = JSpace(JStorage(jmi.mesh_unit_cube(1)), 2)
-    tsp = P1Space(CellStorage(tmi.mesh_unit_cube(1)), 2)
+    tsp = P1Space(CellStorage(tmi.mesh_unit_cube(1)), 2, device="cpu")
     jop = JOp(jsp, jforms.laplace_form)
     top = P1ElementwiseOperator(tsp, tforms.laplace_form,
                                 elmats=interop.elmats_from_reference(
@@ -270,7 +271,7 @@ def gmg_slice():
     tstack = make_p1_gmg(
         CellStorage(tmi.mesh_unit_cube(1)), 0, 3, eigs=eigs,
         elmats={l: interop.elmats_from_reference(np.asarray(op.elmats))
-                for l, op in jstack.operators.items()})
+                for l, op in jstack.operators.items()}, device="cpu")
     # x0 and b as __graft_entry__.entry() builds them
     sp, bc = jstack.space(), jt.BoundaryCondition.all_dirichlet()
     mass = JOp(sp, jforms.mass_form)

@@ -52,7 +52,12 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.tetpair.ifc",
               "hyteg_tpu_torch.tetpair.small",
               "hyteg_tpu_torch.tetpair.engine",
-              "hyteg_tpu_torch.kernels.tetpair"):
+              "hyteg_tpu_torch.kernels.tetpair",
+              "hyteg_tpu_torch.operators.quadrature",
+              "hyteg_tpu_torch.functions.p2",
+              "hyteg_tpu_torch.operators.p2_elementwise",
+              "hyteg_tpu_torch.operators.p2_transfer",
+              "hyteg_tpu_torch.kernels.p2_const_stencil"):
         assert m in MODULES
 
 

@@ -55,7 +55,7 @@ class Pair:
 def pair(request):
     name, level = request.param
     jsp = JSpace(JStorage(_mesh(jmi, name)), level)
-    tsp = P1Space(CellStorage(_mesh(tmi, name)), level)
+    tsp = P1Space(CellStorage(_mesh(tmi, name)), level, device="cpu")
     rng = np.random.default_rng(level)
     mask = jsp.vertex_mask[None]
     x = (rng.standard_normal(jsp.block_shape) * mask).astype(np.float32)

@@ -112,7 +112,8 @@ def _case(name, level, pitch, form="laplace"):
                  pitch=pitch)
     jop = JOp(jsp, FORMS[form][0])
     elm = np.asarray(jop.elmats)
-    tsp = P1Space(CellStorage(MESHES[name](tmi)), level, pitch=pitch)
+    tsp = P1Space(CellStorage(MESHES[name](tmi)), level, device="cpu",
+                  pitch=pitch)
     top = P1ElementwiseOperator(tsp, FORMS[form][1],
                                 elmats=interop.elmats_from_reference(elm))
     x = _rand(jsp.block_shape, level) * jsp.vertex_mask[None]
@@ -395,7 +396,7 @@ def test_shell_apply_matches_classic(form):
 
 
 def test_engine_rejects_odd_cell_count():
-    sp = P1Space(CellStorage(tmi.mesh_single_tet()), 2)
+    sp = P1Space(CellStorage(tmi.mesh_single_tet()), 2, device="cpu")
     op = P1ElementwiseOperator(sp, tforms.laplace_form)
     with pytest.raises(ValueError, match="even macro-cell count"):
         TetPairEngine(sp, op.elmats)
