@@ -28,6 +28,10 @@ read just after:
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
+- the dissection probes (kernels P2): box_variant and tet_stripped
+  checked against their plain versions, then every ladder of
+  ``python -m hyteg_tpu_torch.probes`` (the B1 and B2 ladders at the
+  profiling scripts' shapes and at the port's main-path blocks).
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -44,13 +48,14 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
-import subprocess
 import sys
 import time
 
 import torch
 import torch.nn.functional as F
+
+from hyteg_tpu_torch.core.benchtime import card as smi_card
+from hyteg_tpu_torch.core.benchtime import median_ms
 
 MESH_N = 2            # mesh_unit_cube(2): 48 macro-tets
 CHECK_LEVELS = (4, 7)
@@ -102,6 +107,17 @@ B5_RTOL = 1e-5        # f32, 65-term sums taken in another order
 B4_CHECKS = (4, 7)    # P1 levels, pitch 129
 B4_RTOL = 1e-5        # f32, 96-term sums and coefficient means reordered
 SYM_RTOL = 1e-4       # <w, A v> against <v, A w>
+# the dissection probes (kernels P2): (m, level, rows) of the box checks
+# and (level, pitch) of the tet checks (None: the space's own pitch N) —
+# padding lanes first, then the timed jax and main shapes. rows: None
+# compares the whole block; (head, tail) runs the kernel on the whole
+# level-9 block and the plain version on its first head and last tail
+# rows (x is never shifted, so rows are independent; the last 65 of 1025
+# rows hold the last whole 64-row tile and the 1-row tail tile)
+PROBE_BOX_CHECKS = (((2, 1, 1), 3, None), ((2, 2, 2), 7, None),
+                    ((2, 2, 2), 9, (64, 65)))
+PROBE_TET_CHECKS = ((4, PITCH), (6, None), (7, None))
+PROBE_RTOL = 1e-6     # f32, <= 15 terms in the same order, FMA contraction
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -124,6 +140,10 @@ REPLACES = {
                        "hyteg_tpu/kernels/p1_stencil.py:222"),
     "p2_const_apply": ("hyteg_tpu_torch/csrc/p2_const_stencil.cu",
                        "hyteg_tpu/kernels/p2_const_stencil.py:432"),
+    "box_variant": ("hyteg_tpu_torch/csrc/stripped_stencil.cu",
+                    "scripts/prof_r5.py:111"),
+    "tet_stripped": ("hyteg_tpu_torch/csrc/stripped_stencil.cu",
+                     "scripts/prof_r5b.py:122, scripts/kernel_probe.py:101"),
 }
 # the one PyTorch call timed beside each kernel (library_ms), or why none
 LIBRARY_CALLS = {
@@ -138,6 +158,10 @@ LIBRARY_CALLS = {
     "pair_extract": None,  # strided face-plane copies
     "p1_apply_local": None,  # per-element coefficient means: no conv form
     "p2_const_apply": None,  # weights vary with node parity: no conv form
+    "box_variant": "nn.Conv1d(1, 1, 2Z+3, padding=Z+1, padding_mode="
+                   "'circular', bias=False), the taps' unit weights summed at "
+                   "lane offsets ls + Z + 1, the X rows as the batch",
+    "tet_stripped": None,  # a mask after a circular conv is no single call
 }
 
 
@@ -148,27 +172,6 @@ def emit(phase: str, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def median_ms(fn, runs: int, warmup: int = 3, batch: int = 1) -> float:
-    """Median over ``runs`` of the device time of one call, from CUDA
-    events around ``batch`` back-to-back calls (divided by ``batch``),
-    after ``warmup`` calls. A batch keeps the host's launch overhead out
-    of a short kernel's time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / batch)
-    return statistics.median(times)
 
 
 def sol(p):
@@ -577,6 +580,20 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def masked_read_slots(N: int, pitch: int, mask: str, n_taps: int,
+                      device) -> int:
+    """Slots of one cell that tet_stripped reads under a mask: the mask's
+    slots moved by each of the first n_taps directions, cyclically (a slot
+    outside the mask returns before any load)."""
+    from hyteg_tpu_torch.kernels import probes as p2
+
+    M = p2.tet_mask(N, pitch, mask, device).bool()
+    read = torch.zeros_like(M)
+    for dx, dy, dz in p2.tet_dirs()[:n_taps].tolist():
+        read |= torch.roll(M, (dx, dy * pitch + dz), dims=(0, 1))
+    return int(read.sum())
+
+
 def conv3d_stencil(weights, dirs) -> torch.Tensor:
     """(G, 1, 3, 3, 3) conv3d kernels from (G, n_s) weights on directions
     in {-1, 0, 1}^3 (cross-correlation: k[d + 1] multiplies u[p + d])."""
@@ -818,6 +835,127 @@ def symmetric_positive(sp, apply, seed: int, what: str) -> dict:
     return {"v_A_v": quad, "w_A_v": s1, "v_A_w": s2, "symmetry_rel": rel}
 
 
+def check_probe_kernels(storage, device, seed: int) -> dict:
+    """Kernels P2 against their plain versions on the card, in every
+    setting the probes time: box_variant at PROBE_BOX_CHECKS with random
+    per-lane weights, tet_stripped at PROBE_TET_CHECKS with unit and with
+    the operator's interior weights, on unmasked blocks (so the padding
+    lanes hold values)."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import probes as p2
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.probes import prof_r5, prof_r5b
+    from hyteg_tpu_torch.structured import BoxDomain
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {"box": [], "tet": []}
+
+    def held(y, ref, what):
+        err, scale = max_abs_diff(y, ref), ref.abs().max().item()
+        check(math.isfinite(err) and scale > 0 and err <= PROBE_RTOL * scale,
+              f"{what}: max|dy| {err} > {PROBE_RTOL} * {scale}")
+        return err
+
+    for m, level, rows in PROBE_BOX_CHECKS:
+        dom = BoxDomain(m, level, device=device)
+        X, Z = dom.block_shape[0], dom.dims[2]
+        u = torch.randn(dom.block_shape, generator=gen, device=device)
+        w = 0.5 + torch.rand((p2.N_DIRS, dom.L), generator=gen,
+                             device=device)
+        idx = (slice(None) if rows is None else torch.cat([
+            torch.arange(rows[0], device=device),
+            torch.arange(X - rows[1], X, device=device)]))
+        u_rows = u[idx]
+        for shift, n_taps, tag, _ in prof_r5.BOX_VARIANTS:
+            err = held(p2.box_variant(u, w, Z, shift, n_taps)[idx],
+                       p2.box_variant_torch(u_rows, w, Z, shift, n_taps),
+                       f"box_variant {tag} {dom.block_shape}")
+            out["box"].append({"block": list(dom.block_shape),
+                               "rows_compared": X if rows is None
+                               else sum(rows),
+                               "variant": tag, "max_abs_err": err})
+        del u, w, u_rows
+        torch.cuda.empty_cache()
+    for level, pitch in PROBE_TET_CHECKS:
+        sp = P1Space(storage, level, device=device, pitch=pitch)
+        x = torch.randn(sp.block_shape, generator=gen, device=device)
+        ones = torch.ones((sp.C_loc, p2.N_DIRS), device=device)
+        W = P1ElementwiseOperator(sp, forms.laplace_form).stencil.sum(-1)
+        settings = [(n, mask, tag, ones) for n, mask, tag, _ in
+                    prof_r5b.FMA_SETTINGS + prof_r5b.MAPPING_SETTINGS]
+        settings.append((15, "k0", "stripped (kernel_probe C)",
+                         W.contiguous()))
+        for n_taps, mask, tag, w in settings:
+            args = (x, w, p2.tet_dirs(), n_taps, sp.pitch, mask)
+            err = held(p2.tet_stripped(*args), p2.tet_stripped_torch(*args),
+                       f"tet_stripped {tag} {sp.block_shape}")
+            out["tet"].append({"block": list(sp.block_shape),
+                               "pitch": sp.pitch, "setting": tag,
+                               "max_abs_err": err})
+        del sp, x, ones, W
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_kernel_rows(device, ladder_rows) -> tuple[dict, dict, dict]:
+    """The kernels line's numbers of P2: each kernel's ms at its headline
+    setting (from the ladder), its plain version's ms on a block of the
+    same shape and seed, its bound's bytes and operations and the library
+    call's ms. Returns (ms, bound inputs (bytes, operations), library ms).
+    box_variant: rolls + 15 taps at box level 7 (the jax shape);
+    tet_stripped: kernel_probe's stripped kernel (interior weights, K0) on
+    the tet level-7 block with pitch 129 (the main shape)."""
+    from hyteg_tpu_torch.kernels import probes as p2
+    from hyteg_tpu_torch.probes import box_setup, tet_setup
+
+    def row(shape_set, probe):
+        (r,) = [r for r in ladder_rows
+                if r["shape_set"] == shape_set and r["probe"] == probe]
+        return r
+
+    ms, work, lib = {}, {}, {}
+    box = box_setup(7, device=device)
+    u = box.u
+    X, L = u.shape
+    Z = box.dom.dims[2]
+    w = torch.ones((p2.N_DIRS, L), device=device)
+    ms["box_variant"] = row("jax", "box variant rolls+15fma")["ms"]
+    ms["box_variant_plain"] = median_ms(
+        lambda: p2.box_variant_torch(u, w, Z, True, 15), 3, warmup=1)
+    work["box_variant"] = (2 * nbytes(u) + nbytes(w), 30 * u.numel())
+    # the library call: a circular conv over each row with the 15 unit
+    # weights summed at their lane offsets (uniform over lanes, so equal)
+    conv = torch.nn.Conv1d(1, 1, 2 * Z + 3, padding=Z + 1,
+                           padding_mode="circular", bias=False,
+                           device=device).requires_grad_(False)
+    conv.weight.zero_()
+    for _, ls in p2.box_tap_order(Z):
+        conv.weight[0, 0, ls + Z + 1] += 1.0
+    uv = u.view(X, 1, L)
+    ref = p2.box_variant(u, w, Z, True, 15)
+    lib_err = max_abs_diff(conv(uv).view(X, L), ref)
+    check(lib_err <= 1e-4 * ref.abs().max().item(),
+          f"the circular conv differs from box_variant by {lib_err}")
+    lib["box_variant"] = median_ms(lambda: conv(uv), 10, batch=10)
+    del box, u, w, conv, uv, ref
+    tet = tet_setup(7, device=device)
+    x, sp = tet.x, tet.space
+    W = tet.op.stencil.sum(-1).contiguous()
+    ms["tet_stripped"] = row("main", "C  stripped whole-cell 15pt")["ms"]
+    ms["tet_stripped_plain"] = median_ms(
+        lambda: p2.tet_stripped_torch(x, W, p2.tet_dirs(), 15, sp.pitch,
+                                      "k0"), 3, warmup=1)
+    # the work this run's data needs: 15 multiply-adds on the K0 slots,
+    # reads of the slots they touch, the whole y written
+    read = sp.C_loc * masked_read_slots(sp.N, sp.pitch, "k0", 15, device)
+    work["tet_stripped"] = (read * x.element_size() + nbytes(x, W),
+                            30 * sp.C_loc * tet_points(sp.n))
+    del tet, x, sp, W
+    torch.cuda.empty_cache()
+    return ms, work, lib
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -847,11 +985,7 @@ def main() -> int:
     check(not (torch.backends.cudnn.allow_tf32
                or torch.backends.cuda.matmul.allow_tf32), "TF32 is on")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = smi_card()
     print(card, flush=True)
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
@@ -1211,6 +1345,35 @@ def main() -> int:
                 "back-to-back calls")
     check(p1.stream_scale.launches > 0, "stream_scale was not launched")
 
+    # -- the dissection probes (P2): the B1 and B2 ladders ------------------
+    from hyteg_tpu_torch import probes
+    from hyteg_tpu_torch.kernels import probes as p2
+
+    p2_checks = check_probe_kernels(storage, device, seed=90)
+    emit("probe_kernels_vs_plain", card=card, rtol=PROBE_RTOL, **p2_checks)
+    for name, part in (("box_variant", "box"), ("tet_stripped", "tet")):
+        errs[name] = max(c["max_abs_err"] for c in p2_checks[part])
+    p2.box_variant.launches = 0
+    p2.tet_stripped.launches = 0
+    ladder_rows = []
+    for shape_set in probes.SHAPE_SETS:
+        ladder_rows += probes.ladder(shape_set, device=device, card=card)
+    for r in ladder_rows:
+        emit("probe", **r)
+    for line in probes.summary(ladder_rows):
+        emit("probe_ladder", card=card, **line)
+    p2_launches = {"box_variant": p2.box_variant.launches,
+                   "tet_stripped": p2.tet_stripped.launches}
+    emit("probe_checks", launches=p2_launches)
+    for name, n in p2_launches.items():
+        check(n > 0, f"{name} was not launched on the dissection path")
+    launches.update(p2_launches)
+    p2_ms, p2_work, p2_lib = probe_kernel_rows(device, ladder_rows)
+    t.update(p2_ms)
+    lib_ms.update(p2_lib)
+    for name, (nb, fl) in p2_work.items():
+        bounds[name] = bound(nb, fl)
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -1239,7 +1402,8 @@ def main() -> int:
              "pair_apply": "pair_apply", "pair_install": "pair_install",
              "pair_extract": "pair_extract",
              "p1_apply_local": "p1_apply_local",
-             "p2_const_apply": "p2_const_apply"}
+             "p2_const_apply": "p2_const_apply",
+             "box_variant": "box_variant", "tet_stripped": "tet_stripped"}
     n = sizes["box_level9"]
     bounds["stream_scale"] = bound(8 * n, n)
     lib_ms["stream_scale"] = t["stream_scale_plain"]
@@ -1247,7 +1411,8 @@ def main() -> int:
     p1_size = {"box_apply": "box_level7", "stream_scale": "box_level9",
                "pair_apply": "tetpair_level7_block",
                "pair_install": "tetpair_level7_block",
-               "pair_extract": "tetpair_level7_block"}
+               "pair_extract": "tetpair_level7_block",
+               "box_variant": "box_level7"}
     extra = {"box_apply": {"max_abs_err_bf16": errs_bf16}}
     kernels = []
     for name, (src, rep) in REPLACES.items():

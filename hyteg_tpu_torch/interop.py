@@ -6,7 +6,10 @@ with the same lane maps, so no conversion repacks: these functions only
 change the array type, dtype and device, and copy (an array read from JAX
 is read-only).
 They let a test run both packages on identical operators (element
-matrices, eigenvalue bounds) and identical states.
+matrices, eigenvalue bounds) and identical states. ``device`` is a
+required keyword of every function that carries state across: a caller
+that builds a CUDA space gets its weights on the card, never silently on
+the CPU.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 
-def elmats_from_reference(elmats: np.ndarray, device="cpu",
+def elmats_from_reference(elmats: np.ndarray, *, device,
                           dtype=torch.float32) -> torch.Tensor:
     """(C, 6, 4, 4) P1 or (C, 6, 10, 10) P2 element matrices -> tensor for
     ``P1ElementwiseOperator(space, form, elmats=...)``,
@@ -24,7 +27,7 @@ def elmats_from_reference(elmats: np.ndarray, device="cpu",
     return torch.tensor(np.asarray(elmats), dtype=dtype, device=device)
 
 
-def block_from_reference(block: np.ndarray, device="cpu",
+def block_from_reference(block: np.ndarray, *, device,
                          dtype=torch.float32) -> torch.Tensor:
     """A (C, N, N*pitch) P1 or (C, M, M*pitch) P2 block (a state, or a
     nodal coefficient field) -> tensor on ``device``."""
@@ -40,7 +43,7 @@ def block_to_numpy(block: torch.Tensor) -> np.ndarray:
     return block.numpy()
 
 
-def box_block_from_reference(block: np.ndarray, device="cpu",
+def box_block_from_reference(block: np.ndarray, *, device,
                              dtype=torch.float32) -> torch.Tensor:
     """An (X, Y*Z) BoxDomain block -> tensor on ``device``. Both packages
     use lane = y*Z + z, so nothing is repacked."""
@@ -48,14 +51,14 @@ def box_block_from_reference(block: np.ndarray, device="cpu",
                         device=device)
 
 
-def pair_weights_from_reference(W: np.ndarray, device="cpu") -> torch.Tensor:
+def pair_weights_from_reference(W: np.ndarray, *, device) -> torch.Tensor:
     """(Cp, 120, 7) paired-tet coefficient matrices (the JAX package's
     ``tetpair.plan.weight_matrix``) -> f32 tensor for ``pair_apply``."""
     return torch.tensor(np.asarray(W, dtype=np.float32), dtype=torch.float32,
                         device=device)
 
 
-def pair_state_from_reference(u, xf, yf, zf, df, device="cpu"):
+def pair_state_from_reference(u, xf, yf, zf, df, *, device):
     """The five arrays of a JAX ``tetpair.engine.PairState`` -> the port's
     ``PairState`` (same layouts: blocks (Cp, N, L), faces (Cp, 2, L),
     (Cp, 2, N, P), (Cp, 2, N, N), (Cp, 2, L))."""
@@ -66,8 +69,7 @@ def pair_state_from_reference(u, xf, yf, zf, df, device="cpu"):
                        for a in (u, xf, yf, zf, df)))
 
 
-def lane_weights_from_reference(w_vecs: np.ndarray,
-                                device="cpu") -> torch.Tensor:
+def lane_weights_from_reference(w_vecs: np.ndarray, *, device) -> torch.Tensor:
     """(3, 15, Y*Z) box lane-weight vectors -> f32 tensor for
     ``box_apply`` (the kernel takes f32 weights whatever the block dtype)."""
     return torch.tensor(np.asarray(w_vecs, dtype=np.float32),

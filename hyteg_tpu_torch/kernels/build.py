@@ -52,6 +52,10 @@ SIGNATURES = {
     "hyteg_p1_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # src, W, dst, C, M, pitch, dirs, stream
     "hyteg_p2_const_apply": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # u, w, y, X, L, Z, shift, n_taps, stream
+    "hyteg_box_variant": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # u, w, y, C, N, pitch, dirs, n_taps, mask, stream
+    "hyteg_tet_stripped": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
 }
 
 

@@ -16,7 +16,7 @@ as row-class lane vectors (3, L) — row class 0 for the interior rows,
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -45,13 +45,14 @@ def rowclass_mul(v: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
 class BoxDomain:
     """Structured grid of mx*my*mz unit cubes at refinement ``level``,
     physically spanning [0, ax] x [0, ay] x [0, az], with its fields on
-    ``device`` in ``dtype``."""
+    ``device`` in ``dtype``. ``device`` is a required keyword: the box
+    path runs where the caller says, never on a default."""
 
     m: tuple[int, int, int]
     level: int
     extent: tuple[float, float, float] = (1.0, 1.0, 1.0)
     dtype: torch.dtype = torch.float32
-    device: torch.device | str = "cpu"
+    device: torch.device | str = field(kw_only=True)
 
     @property
     def dims(self) -> tuple[int, int, int]:
@@ -83,7 +84,7 @@ class BoxDomain:
     def coarse(self) -> "BoxDomain":
         assert self.level > 0
         return BoxDomain(self.m, self.level - 1, self.extent, self.dtype,
-                         self.device)
+                         device=self.device)
 
     # -- coordinates / fields -------------------------------------------------
 

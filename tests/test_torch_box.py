@@ -56,11 +56,11 @@ BF16_ULP = 2.0 ** -8
 def _ops(m, ext, level, form):
     """(JAX domain, JAX operator, port domain, port operator built from
     the JAX element matrices)."""
-    jd, td = JDomain(m, level, ext), BoxDomain(m, level, ext)
+    jd, td = JDomain(m, level, ext), BoxDomain(m, level, ext, device="cpu")
     jo = JOp(jd, FORMS[form][0])
     to = BoxStencilOperator(td, FORMS[form][1],
                             elmats=interop.elmats_from_reference(
-                                np.asarray(jo.elmats)))
+                                np.asarray(jo.elmats), device="cpu"))
     return jd, jo, td, to
 
 
@@ -117,7 +117,7 @@ def test_lane_weights_match(m, ext, level, form):
 
 @pytest.mark.parametrize("m,ext,level", APPLY_CASES + [((1, 2, 3), (1.0, 1.0, 1.0), 1)])
 def test_domain_matches(m, ext, level):
-    jd, td = JDomain(m, level, ext), BoxDomain(m, level, ext)
+    jd, td = JDomain(m, level, ext), BoxDomain(m, level, ext, device="cpu")
     assert td.dims == jd.dims and td.h == jd.h
     assert td.block_shape == jd.block_shape and td.num_dofs() == jd.num_dofs()
     assert td.coarse().dims == jd.coarse().dims
@@ -153,6 +153,39 @@ def test_domain_matches(m, ext, level):
     assert td.zeros().shape == td.block_shape
 
 
+def test_domain_needs_a_device():
+    """No default device: the box path runs where the caller says."""
+    with pytest.raises(TypeError):
+        BoxDomain((1, 1, 1), 2)
+    td = BoxDomain((1, 1, 1), 2, device="cpu")
+    assert td.coarse().device == "cpu" and td.coarse().level == 1
+    assert td.zeros().device.type == "cpu"
+
+
+INTEROP_CALLS = {
+    "elmats_from_reference": (np.zeros((6, 6, 4, 4)),),
+    "block_from_reference": (np.zeros((6, 5, 25)),),
+    "box_block_from_reference": (np.zeros((5, 25)),),
+    "pair_weights_from_reference": (np.zeros((3, 120, 7)),),
+    "pair_state_from_reference": tuple(np.zeros((2, 2, 4)) for _ in range(5)),
+    "lane_weights_from_reference": (np.zeros((3, 15, 25)),),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INTEROP_CALLS))
+def test_interop_needs_a_device(name):
+    fn, args = getattr(interop, name), INTEROP_CALLS[name]
+    with pytest.raises(TypeError):
+        fn(*args)
+    with pytest.raises(TypeError):  # not positionally either
+        fn(*args, "cpu")
+    out = fn(*args, device="cpu")
+    if name == "pair_state_from_reference":
+        out = (out.u, out.xf, out.yf, out.zf, out.df)
+    for t in (out if isinstance(out, tuple) else (out,)):
+        assert t.device.type == "cpu" and t.dtype == torch.float32
+
+
 # ---------------------------------------------------------------------------
 # kernel B1, plain version, and the operator
 # ---------------------------------------------------------------------------
@@ -164,7 +197,7 @@ def test_plain_apply_matches_xla(m, ext, level, form):
     jd, jo, td, to = _ops(m, ext, level, form)
     u = _rand(jd.block_shape, level)
     ref = np.asarray(jo._apply_xla(jnp.asarray(u)))
-    ut = interop.box_block_from_reference(u)
+    ut = interop.box_block_from_reference(u, device="cpu")
     _close(tk.box_apply_torch(ut, to.w_vecs, td.dims), ref)
     _close(to.apply_raw(ut), ref)  # a CPU tensor takes the plain version
     _close(to._apply_torch(ut), ref)
@@ -183,7 +216,7 @@ def test_plain_apply_matches_pallas_interpret(m, ext, level, form):
     u = _rand(jd.block_shape, 10 + level)
     ref = np.asarray(box_apply_pallas(jnp.asarray(u), jo.w_vecs, jd.dims,
                                       interpret=True))
-    _close(tk.box_apply_torch(interop.box_block_from_reference(u),
+    _close(tk.box_apply_torch(interop.box_block_from_reference(u, device="cpu"),
                               to.w_vecs, td.dims), ref)
 
 
@@ -191,7 +224,7 @@ def _bf16_case(m, ext, level, form, seed):
     jd, jo, td, to = _ops(m, ext, level, form)
     ub = jnp.asarray(_rand(jd.block_shape, seed)).astype(jnp.bfloat16)
     u32 = np.asarray(ub.astype(jnp.float32))  # the bf16 values, exactly
-    ut = interop.box_block_from_reference(u32, dtype=torch.bfloat16)
+    ut = interop.box_block_from_reference(u32, dtype=torch.bfloat16, device="cpu")
     return jd, jo, td, to, ub, u32, ut
 
 
@@ -246,7 +279,7 @@ def test_diagonal_and_dirichlet_match(m, ext, level, form):
 
 
 def test_wrappers_reject_non_cpu_non_cuda_tensors():
-    td = BoxDomain((1, 1, 1), 1)
+    td = BoxDomain((1, 1, 1), 1, device="cpu")
     w = torch.empty((3, 15, td.L), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tk.box_apply(torch.empty(td.block_shape, device="meta"), w, td.dims)
@@ -273,7 +306,7 @@ def test_box_block_round_trip(dtype):
     u = jnp.asarray(_rand(jd.block_shape, 4))
     if dtype == torch.bfloat16:
         u = u.astype(jnp.bfloat16)
-    t = interop.box_block_from_reference(np.asarray(u), dtype=dtype)
+    t = interop.box_block_from_reference(np.asarray(u), dtype=dtype, device="cpu")
     assert t.dtype == dtype and t.shape == jd.block_shape
     back = interop.block_to_numpy(t)
     np.testing.assert_array_equal(back, np.asarray(u.astype(jnp.float32)))
@@ -286,7 +319,7 @@ def test_box_block_round_trip(dtype):
 
 def test_lane_weights_round_trip():
     jd, jo, td, to = _ops((2, 1, 1), (1.0, 1.0, 1.0), 2, "laplace")
-    w = interop.lane_weights_from_reference(np.asarray(jo.w_vecs))
+    w = interop.lane_weights_from_reference(np.asarray(jo.w_vecs), device="cpu")
     assert w.dtype == torch.float32 and w.shape == (3, 15, td.L)
     np.testing.assert_array_equal(interop.block_to_numpy(w),
                                   np.asarray(jo.w_vecs))

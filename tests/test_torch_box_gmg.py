@@ -32,7 +32,7 @@ from hyteg_tpu_torch.structured import gmg, transfer
 
 torch.set_num_threads(1)
 
-T = interop.box_block_from_reference
+T = functools.partial(interop.box_block_from_reference, device="cpu")
 N_ = interop.block_to_numpy
 
 
@@ -60,7 +60,7 @@ TRANSFER_CASES = [((2, 1, 1), 2), ((1, 2, 1), 2), ((1, 1, 1), 1),
 @pytest.mark.parametrize("m,level", TRANSFER_CASES)
 def test_transfers_match_jax(m, level):
     jc, jf = JDomain(m, level), JDomain(m, level + 1)
-    tc, tf = BoxDomain(m, level), BoxDomain(m, level + 1)
+    tc, tf = BoxDomain(m, level, device="cpu"), BoxDomain(m, level + 1, device="cpu")
     uc, vf = _rand(jc.block_shape, level), _rand(jf.block_shape, 10 + level)
     ref = np.asarray(jtr.prolongate(jnp.asarray(uc), jc, jf))
     _close(transfer.prolongate(T(uc), tc, tf), ref, 1e-6)
@@ -70,7 +70,7 @@ def test_transfers_match_jax(m, level):
 
 @pytest.mark.parametrize("m,level", TRANSFER_CASES)
 def test_restriction_is_transpose(m, level):
-    tc, tf = BoxDomain(m, level), BoxDomain(m, level + 1)
+    tc, tf = BoxDomain(m, level, device="cpu"), BoxDomain(m, level + 1, device="cpu")
     uc = T(_rand(tc.block_shape, 1))
     vf = T(_rand(tf.block_shape, 2))
     lhs = torch.sum(transfer.prolongate(uc, tc, tf) * vf).item()
@@ -79,7 +79,8 @@ def test_restriction_is_transpose(m, level):
 
 
 def test_prolongation_exact_on_linears():
-    coarse, fine = BoxDomain((1, 2, 1), 2), BoxDomain((1, 2, 1), 3)
+    coarse = BoxDomain((1, 2, 1), 2, device="cpu")
+    fine = BoxDomain((1, 2, 1), 3, device="cpu")
     lin = lambda x, y, z: 1.0 + 2.0 * x - 0.5 * y + 3.0 * z
     uf = transfer.prolongate(coarse.interpolate(lin), coarse, fine)
     np.testing.assert_allclose(N_(uf), N_(fine.interpolate(lin)),
@@ -108,7 +109,7 @@ def test_transfer_directions_are_the_box_diagonals():
 def _hierarchies(m, level, min_level):
     """JAX levels, and port levels with the JAX package's bounds."""
     jl = jgmg.build_hierarchy(JDomain(m, level), min_level=min_level)
-    tl = gmg.build_hierarchy(BoxDomain(m, level), min_level=min_level)
+    tl = gmg.build_hierarchy(BoxDomain(m, level, device="cpu"), min_level=min_level)
     for j, t in zip(jl, tl):
         t.eig_max = j.eig_max
     return jl, tl
@@ -120,19 +121,21 @@ def test_eig_max_fourier_matches(m, level, form):
     jf, tf = {"laplace": (jforms.laplace_form, tforms.laplace_form),
               "mass": (jforms.mass_form, tforms.mass_form)}[form]
     ref = jgmg.eig_max_fourier(JOp(JDomain(m, level), jf))
-    got = gmg.eig_max_fourier(BoxStencilOperator(BoxDomain(m, level), tf))
+    got = gmg.eig_max_fourier(
+        BoxStencilOperator(BoxDomain(m, level, device="cpu"), tf))
     assert abs(got - ref) <= 1e-6 * abs(ref)
 
 
 def test_estimate_eig_max_matches():
     ref = jgmg.estimate_eig_max(JOp(JDomain((1, 1, 1), 2)))
-    got = gmg.estimate_eig_max(BoxStencilOperator(BoxDomain((1, 1, 1), 2)))
+    got = gmg.estimate_eig_max(
+        BoxStencilOperator(BoxDomain((1, 1, 1), 2, device="cpu")))
     assert abs(got - ref) <= 1e-4 * abs(ref)
 
 
 def test_hierarchy_matches():
     jl = jgmg.build_hierarchy(JDomain((2, 1, 1), 3), min_level=1)
-    tl = gmg.build_hierarchy(BoxDomain((2, 1, 1), 3), min_level=1)
+    tl = gmg.build_hierarchy(BoxDomain((2, 1, 1), 3, device="cpu"), min_level=1)
     assert [t.domain.level for t in tl] == [j.domain.level for j in jl]
     for j, t in zip(jl, tl):
         assert abs(t.eig_max - j.eig_max) <= 1e-6 * j.eig_max
@@ -195,7 +198,7 @@ def _jsolve(level, cycles=8, g=None):
 
 
 def _tsolve(level, cycles=8, g=None):
-    dom = BoxDomain((1, 1, 1), level)
+    dom = BoxDomain((1, 1, 1), level, device="cpu")
     levels = gmg.build_hierarchy(dom)
     ex = lambda x, y, z: (torch.sin(np.pi * x) * torch.sin(np.pi * y)
                           * torch.sin(np.pi * z))

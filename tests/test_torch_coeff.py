@@ -75,9 +75,10 @@ def test_plain_apply_matches_jax(name, level, pitch, form, mode):
     co = None if mode is None else k
     jc = None if co is None else jnp.asarray(co)
     got = tk.p1_apply_local(
-        interop.block_from_reference(x), interop.elmats_from_reference(elm),
+        interop.block_from_reference(x, device="cpu"),
+        interop.elmats_from_reference(elm, device="cpu"),
         level, 3, tsp.pitch,
-        None if co is None else interop.block_from_reference(co),
+        None if co is None else interop.block_from_reference(co, device="cpu"),
         mode or "arithmetic")
     for unroll in (False, True):
         ref = np.asarray(jop.p1_apply_local(
@@ -95,11 +96,12 @@ def test_operator_with_coefficient_matches_jax(name, level, pitch, mode):
     jo = jop.P1ElementwiseOperator(jsp, jforms.laplace_form,
                                    elmats=jnp.asarray(elm), coeff_avg=mode)
     to = P1ElementwiseOperator(tsp, tforms.laplace_form,
-                               elmats=interop.elmats_from_reference(elm),
+                               elmats=interop.elmats_from_reference(elm, device="cpu"),
                                coeff_avg=mode)
-    kt = interop.block_from_reference(k)
+    kt = interop.block_from_reference(k, device="cpu")
     ref = np.asarray(jo.apply_raw(jnp.asarray(x), coeff=jnp.asarray(k)))
-    _assert_close(to.apply_raw(interop.block_from_reference(x), coeff=kt),
+    _assert_close(to.apply_raw(interop.block_from_reference(x, device="cpu"),
+                               coeff=kt),
                   ref, np.abs(ref).max(), 1e-5)
     ref = np.asarray(jo.inverse_diagonal(coeff=jnp.asarray(k)))
     _assert_close(to.inverse_diagonal(coeff=kt), ref, np.abs(ref).max(), 1e-6)
@@ -108,8 +110,8 @@ def test_operator_with_coefficient_matches_jax(name, level, pitch, mode):
 def test_unit_coefficient_equals_constant_stencil():
     """B4 with k = 1 is B2's operator (plain versions)."""
     jsp, tsp, elm, x, _ = _setup("cube1", 3, 17, seed=4)
-    et = interop.elmats_from_reference(elm)
-    xt = interop.block_from_reference(x)
+    et = interop.elmats_from_reference(elm, device="cpu")
+    xt = interop.block_from_reference(x, device="cpu")
     ones = tsp.vertex_mask_t.expand(tsp.block_shape).contiguous()
     got = tk.p1_apply_local(xt, et, 3, 3, tsp.pitch, ones)
     ref = tk2.p1_const_apply(xt, tk2.stencil_weights(et, 3),
@@ -119,7 +121,7 @@ def test_unit_coefficient_equals_constant_stencil():
 
 def test_wrapper_rejects_non_cpu_non_cuda_tensors():
     _, tsp, elm, _, _ = _setup("cube1", 2, None)
-    et = interop.elmats_from_reference(elm).to("meta")
+    et = interop.elmats_from_reference(elm, device="cpu").to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         tk.p1_apply_local(torch.empty(tsp.block_shape, device="meta"), et, 2,
                           3, tsp.pitch)
@@ -175,9 +177,9 @@ def host_kernel(tmp_path_factory):
 def test_kernel_point_math_matches_plain(host_kernel, name, level, pitch,
                                          form):
     _, tsp, elm, x, k = _setup(name, level, pitch, form, seed=20 + level)
-    et = interop.elmats_from_reference(elm)
-    xt = interop.block_from_reference(x)
-    kt = interop.block_from_reference(k)
+    et = interop.elmats_from_reference(elm, device="cpu")
+    xt = interop.block_from_reference(x, device="cpu")
+    kt = interop.block_from_reference(k, device="cpu")
     for co, mode in [(None, "arithmetic")] + [(kt, m) for m in MODES]:
         ref = tk.p1_apply_local_torch(xt, et, level, 3, tsp.pitch, co, mode)
         out = torch.empty_like(xt)

@@ -93,7 +93,7 @@ APPLY_CASES = ([("tet", l, None) for l in (1, 2, 3, 4)]
 @pytest.mark.parametrize("name,level,pitch", APPLY_CASES)
 def test_stencil_tables_match(name, level, pitch, form):
     _, _, elm, _ = _setup(name, level, pitch, form)
-    et = interop.elmats_from_reference(elm)
+    et = interop.elmats_from_reference(elm, device="cpu")
     for jf, tf in ((jk.stencil_weights, tk.stencil_weights),
                    (jk.face_weights_full, tk.face_weights_full)):
         ref = np.asarray(jf(jnp.asarray(elm), 3))
@@ -108,8 +108,8 @@ def test_plain_apply_matches_xla(name, level, pitch, form):
         jnp.asarray(elm), 3)
     ref = np.asarray(_xla_apply(jnp.asarray(x), A, level=level, dim=3,
                                 pitch=jsp.pitch, E=E))
-    et = interop.elmats_from_reference(elm)
-    got = tk.p1_const_apply(interop.block_from_reference(x),
+    et = interop.elmats_from_reference(elm, device="cpu")
+    got = tk.p1_const_apply(interop.block_from_reference(x, device="cpu"),
                             tk.stencil_weights(et, 3),
                             tk.face_weights_full(et, 3), level, 3, tsp.pitch)
     _assert_close(got, ref, np.abs(ref).max(), 1e-5)
@@ -125,8 +125,8 @@ def test_plain_apply_matches_pallas_interpret(name, level, pitch):
         jnp.asarray(elm), 3)
     ref = np.asarray(jk.p1_const_apply_pallas(
         jnp.asarray(x), A, E, level, 3, jsp.pitch, interpret=True))
-    et = interop.elmats_from_reference(elm)
-    got = tk.p1_const_apply_torch(interop.block_from_reference(x),
+    et = interop.elmats_from_reference(elm, device="cpu")
+    got = tk.p1_const_apply_torch(interop.block_from_reference(x, device="cpu"),
                                   tk.stencil_weights(et, 3), level, 3,
                                   tsp.pitch, E=tk.face_weights_full(et, 3))
     _assert_close(got, ref, np.abs(ref).max(), 1e-5)
@@ -152,8 +152,8 @@ def test_plain_diagonal_matches_jax(form, lumped, mode):
         ref = jop._p1_diag_local(*args, lambda e, t, a: e[:, t, a, :].sum(-1),
                                  mode)
     got = tk3.p1_diagonal_local(
-        interop.elmats_from_reference(elm), 3, 3, tsp.pitch, lumped,
-        None if coeff is None else interop.block_from_reference(coeff),
+        interop.elmats_from_reference(elm, device="cpu"), 3, 3, tsp.pitch, lumped,
+        None if coeff is None else interop.block_from_reference(coeff, device="cpu"),
         mode or "arithmetic")
     ref = np.asarray(ref)
     _assert_close(got, ref, max(np.abs(ref).max(), np.abs(elm).max()), 1e-6)
@@ -170,8 +170,8 @@ def test_operator_matches_jax(name, level, pitch, form):
     jo = jop.P1ElementwiseOperator(jsp, FORMS[form][0],
                                    elmats=jnp.asarray(elm))
     to = P1ElementwiseOperator(tsp, FORMS[form][1],
-                               elmats=interop.elmats_from_reference(elm))
-    xt = interop.block_from_reference(x)
+                               elmats=interop.elmats_from_reference(elm, device="cpu"))
+    xt = interop.block_from_reference(x, device="cpu")
     ref = np.asarray(jo.apply_raw(jnp.asarray(x)))
     _assert_close(to.apply_raw(xt), ref, np.abs(ref).max(), 1e-5)
     ref = np.asarray(jo.apply_inner(jnp.asarray(x), None, J_FLAG_INNER))
@@ -199,7 +199,7 @@ def test_apply_with_coefficient_is_not_ported():
     constant-stencil apply (B2's)."""
     _, tsp, _, x = _setup("cube1", 2)
     op = P1ElementwiseOperator(tsp, tforms.laplace_form)
-    xt = tsp.exchange_rep(interop.block_from_reference(x))
+    xt = tsp.exchange_rep(interop.block_from_reference(x, device="cpu"))
     ref = op.apply_raw(xt)
     _assert_close(op.apply_raw(xt, coeff=torch.ones_like(xt)), ref,
                   ref.abs().max().item(), 1e-5)
@@ -207,7 +207,7 @@ def test_apply_with_coefficient_is_not_ported():
 
 def test_wrappers_reject_non_cpu_non_cuda_tensors():
     _, tsp, elm, x = _setup("cube1", 1)
-    et = interop.elmats_from_reference(elm).to("meta")
+    et = interop.elmats_from_reference(elm, device="cpu").to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         tk.p1_const_apply(torch.empty(tsp.block_shape, device="meta"),
                           tk.stencil_weights(et, 3),
@@ -302,10 +302,10 @@ def host_kernels(tmp_path_factory):
 def test_kernel_point_math_matches_plain(host_kernels, name, level, pitch,
                                          form):
     _, tsp, elm, x = _setup(name, level, pitch, form, seed=30 + level)
-    et = interop.elmats_from_reference(elm)
+    et = interop.elmats_from_reference(elm, device="cpu")
     A = tk.stencil_weights(et, 3).contiguous()
     E = tk.face_weights_full(et, 3).contiguous()
-    xt = interop.block_from_reference(x)
+    xt = interop.block_from_reference(x, device="cpu")
     ref = tk.p1_const_apply_torch(xt, A, level, 3, tsp.pitch, E=E)
     out = torch.empty_like(xt)
     dirs, gmask = tk._kernel_tables()
@@ -319,7 +319,7 @@ def test_kernel_point_math_matches_plain(host_kernels, name, level, pitch,
     rng = np.random.default_rng(level)
     coeff = interop.block_from_reference(
         (rng.uniform(0.5, 2.0, tsp.block_shape)
-         * tsp.vertex_mask[None]).astype(np.float32))
+         * tsp.vertex_mask[None]).astype(np.float32), device="cpu")
     for lumped in (False, True):
         for co, mode in [(None, "arithmetic")] + [(coeff, m) for m in MODES]:
             ref = tk3.p1_diagonal_local_torch(et, level, 3, tsp.pitch, lumped,

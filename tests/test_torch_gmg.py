@@ -15,6 +15,7 @@ different summation orders dominate.
 """
 
 import dataclasses
+import functools
 import math
 
 import jax
@@ -50,7 +51,7 @@ from hyteg_tpu_torch.solvers.templates import make_p1_gmg
 
 torch.set_num_threads(1)
 
-T = interop.block_from_reference
+T = functools.partial(interop.block_from_reference, device="cpu")
 N_ = interop.block_to_numpy
 
 
@@ -176,7 +177,7 @@ def ops():
     jop = JOp(jsp, jforms.laplace_form)
     top = P1ElementwiseOperator(tsp, tforms.laplace_form,
                                 elmats=interop.elmats_from_reference(
-                                    np.asarray(jop.elmats)))
+                                    np.asarray(jop.elmats), device="cpu"))
     # consistent replicas (exchange_rep), b zero on the Dirichlet rows
     b = jsp.exchange_rep(jnp.asarray(_rand(jsp.block_shape, jsp.vertex_mask, 1)))
     b = np.asarray(jsp.restore_rows(b, jnp.zeros_like(b), jt.FLAG_INNER))
@@ -270,7 +271,7 @@ def gmg_slice():
             for l, op in jstack.operators.items()}
     tstack = make_p1_gmg(
         CellStorage(tmi.mesh_unit_cube(1)), 0, 3, eigs=eigs,
-        elmats={l: interop.elmats_from_reference(np.asarray(op.elmats))
+        elmats={l: interop.elmats_from_reference(np.asarray(op.elmats), device="cpu")
                 for l, op in jstack.operators.items()}, device="cpu")
     # x0 and b as __graft_entry__.entry() builds them
     sp, bc = jstack.space(), jt.BoundaryCondition.all_dirichlet()

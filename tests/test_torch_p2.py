@@ -162,14 +162,14 @@ def test_general_apply_matches(name, level, pitch, kind):
     jsp, tsp = _spaces(name, level, pitch)
     elm = _elmats(name, level, pitch, kind)
     x, k = _block(jsp, level), _block(jsp, 7, lo=0.5)
-    et = interop.elmats_from_reference(elm)
+    et = interop.elmats_from_reference(elm, device="cpu")
     for co in (None, k):
         ref = np.asarray(jop.p2_apply_local(
             jnp.asarray(x), jnp.asarray(elm), level, 3, jsp.pitch,
             None if co is None else jnp.asarray(co)))
         got = top.p2_apply_local(
-            interop.block_from_reference(x), et, level, 3, tsp.pitch,
-            None if co is None else interop.block_from_reference(co))
+            interop.block_from_reference(x, device="cpu"), et, level, 3, tsp.pitch,
+            None if co is None else interop.block_from_reference(co, device="cpu"))
         _assert_close(got, ref, np.abs(ref).max(), 1e-5)
 
 
@@ -180,14 +180,14 @@ def test_stencil_weights_and_plain_apply_match_xla(name, level, pitch, kind):
     elm = _elmats(name, level, pitch, kind)
     A = jk.p2_stencil_weights(jnp.asarray(elm), 3)
     E = jk.p2_face_weights(jnp.asarray(elm), 3)
-    et = interop.elmats_from_reference(elm)
+    et = interop.elmats_from_reference(elm, device="cpu")
     At, Et = tk.p2_stencil_weights(et, 3), tk.p2_face_weights(et, 3)
     _assert_close(At, np.asarray(A), np.abs(np.asarray(A)).max(), 1e-6)
     _assert_close(Et, np.asarray(E), np.abs(np.asarray(E)).max(), 1e-6)
     x = _block(jsp, 10 + level)
     ref = np.asarray(jk.p2_const_apply_xla(jnp.asarray(x), A, E, level, 3,
                                            jsp.pitch))
-    got = tk.p2_const_apply(interop.block_from_reference(x),
+    got = tk.p2_const_apply(interop.block_from_reference(x, device="cpu"),
                             tk.p2_folded_weights(At, Et), level, tsp.pitch)
     _assert_close(got, ref, np.abs(ref).max(), 1e-5)
     assert not got[:, ~tsp.vertex_mask_t.bool()].any()
@@ -203,10 +203,10 @@ def test_plain_apply_matches_pallas_interpret(name, level, pitch):
     x = _block(jsp, 20 + level)
     ref = np.asarray(jk.p2_const_apply_pallas(jnp.asarray(x), A, E, level, 3,
                                               jsp.pitch, interpret=True))
-    et = interop.elmats_from_reference(elm)
+    et = interop.elmats_from_reference(elm, device="cpu")
     W = tk.p2_folded_weights(tk.p2_stencil_weights(et, 3),
                              tk.p2_face_weights(et, 3))
-    got = tk.p2_const_apply_torch(interop.block_from_reference(x), W, level,
+    got = tk.p2_const_apply_torch(interop.block_from_reference(x, device="cpu"), W, level,
                                   tsp.pitch)
     _assert_close(got, ref, np.abs(ref).max(), 1e-5)
 
@@ -214,7 +214,8 @@ def test_plain_apply_matches_pallas_interpret(name, level, pitch):
 def test_folded_weights_keep_structural_zeros():
     """Kernel B5 skips zero weights: every (parity, direction) pair with
     no element-matrix entry must fold to an exact 0 in every row."""
-    elm = interop.elmats_from_reference(_elmats("cube1", 2, None, "laplace"))
+    elm = interop.elmats_from_reference(
+        _elmats("cube1", 2, None, "laplace"), device="cpu")
     W = tk.p2_folded_weights(tk.p2_stencil_weights(elm, 3),
                              tk.p2_face_weights(elm, 3))
     nzm, _ = tk._nz_tables(3)
@@ -232,10 +233,10 @@ def test_operator_matches_jax(name, level, pitch, kind):
     elm = _elmats(name, level, pitch, kind)
     jo = jop.P2ElementwiseOperator(jsp, kind, elmats=jnp.asarray(elm))
     to = top.P2ElementwiseOperator(tsp, kind,
-                                   elmats=interop.elmats_from_reference(elm))
+                                   elmats=interop.elmats_from_reference(elm, device="cpu"))
     x = np.asarray(jsp.exchange_rep(jnp.asarray(_block(jsp, 30))))
     k = _block(jsp, 31, lo=0.5)
-    xt, kt = (interop.block_from_reference(a) for a in (x, k))
+    xt, kt = (interop.block_from_reference(a, device="cpu") for a in (x, k))
     for co, cot in ((None, None), (jnp.asarray(k), kt)):
         ref = np.asarray(jo.apply_raw(jnp.asarray(x), coeff=co))
         _assert_close(to.apply_raw(xt, coeff=cot), ref, np.abs(ref).max(),
@@ -261,7 +262,8 @@ def test_operator_computes_same_elmats_and_buffers():
 
 def test_wrapper_rejects_non_cpu_non_cuda_tensors():
     _, tsp = _spaces("cube1", 1, None)
-    elm = interop.elmats_from_reference(_elmats("cube1", 1, None, "laplace"))
+    elm = interop.elmats_from_reference(
+        _elmats("cube1", 1, None, "laplace"), device="cpu")
     W = tk.p2_folded_weights(tk.p2_stencil_weights(elm, 3),
                              tk.p2_face_weights(elm, 3))
     with pytest.raises(ValueError, match="CUDA"):
@@ -328,10 +330,10 @@ def host_kernel(tmp_path_factory):
 def test_kernel_point_math_matches_plain(host_kernel, name, level, pitch,
                                          kind):
     jsp, tsp = _spaces(name, level, pitch)
-    et = interop.elmats_from_reference(_elmats(name, level, pitch, kind))
+    et = interop.elmats_from_reference(_elmats(name, level, pitch, kind), device="cpu")
     A, E = tk.p2_stencil_weights(et, 3), tk.p2_face_weights(et, 3)
     W = tk.p2_folded_weights(A, E)
-    xt = interop.block_from_reference(_block(jsp, 50 + level))
+    xt = interop.block_from_reference(_block(jsp, 50 + level), device="cpu")
     ref = tk.p2_const_apply_torch(xt, W, level, tsp.pitch)
     out = torch.empty_like(xt)
     host_kernel.p2_apply(xt.data_ptr(), W.data_ptr(), out.data_ptr(),

@@ -71,7 +71,7 @@ def _close(got: torch.Tensor, ref, rtol=RTOL):
 
 
 def _t(a):
-    return interop.block_from_reference(a)
+    return interop.block_from_reference(a, device="cpu")
 
 
 def test_level_maps_equal(pair):

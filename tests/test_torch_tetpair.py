@@ -115,7 +115,7 @@ def _case(name, level, pitch, form="laplace"):
     tsp = P1Space(CellStorage(MESHES[name](tmi)), level, device="cpu",
                   pitch=pitch)
     top = P1ElementwiseOperator(tsp, FORMS[form][1],
-                                elmats=interop.elmats_from_reference(elm))
+                                elmats=interop.elmats_from_reference(elm, device="cpu"))
     x = _rand(jsp.block_shape, level) * jsp.vertex_mask[None]
     x = np.asarray(jsp.exchange_rep(jnp.asarray(x), jsp.resolve_sd(None)))
     return types.SimpleNamespace(
@@ -182,7 +182,7 @@ def test_plan_masks_match(level, pitch):
 def test_weight_matrix_matches(name, form):
     c = _case(name, 2, None, form)
     ref = jplan.weight_matrix(c.elm)
-    got = tplan.weight_matrix(interop.elmats_from_reference(c.elm))
+    got = tplan.weight_matrix(interop.elmats_from_reference(c.elm, device="cpu"))
     assert got.dtype == torch.float32
     _assert_close(got, ref, 1e-6)
 
@@ -192,7 +192,7 @@ def test_pack_unpack_match(name, level, pitch):
     c = _case(name, level, pitch)
     u = _rand(c.jsp.block_shape, 3)  # values outside the tets too
     jp = jplan.pack_blocks(jnp.asarray(u), c.N, c.P)
-    tp = tplan.pack_blocks(interop.block_from_reference(u), c.N, c.P)
+    tp = tplan.pack_blocks(interop.block_from_reference(u, device="cpu"), c.N, c.P)
     _assert_equal(tp, jp)
     _assert_equal(tplan.unpack_blocks(tp, c.N, c.P),
                   jplan.unpack_blocks(jp, c.N, c.P))
@@ -201,7 +201,7 @@ def test_pack_unpack_match(name, level, pitch):
 @pytest.mark.parametrize("name,level,pitch", CASES)
 def test_lift_lower_round_trip(name, level, pitch):
     c = _case(name, level, pitch)
-    x = interop.block_from_reference(c.x)
+    x = interop.block_from_reference(c.x, device="cpu")
     st = c.teng.lift(x)
     _assert_equal(c.teng.lower(st) * torch.as_tensor(c.mask), x)
     jst = c.jeng.lift(jnp.asarray(c.x))
@@ -333,7 +333,7 @@ def test_pair_apply_matches_pallas(name, level, pitch):
                          *(jnp.asarray(a) for a in state[1:]), c.N, c.P,
                          interpret=True)
     got = tk.pair_apply(torch.tensor(state[0]),
-                        interop.pair_weights_from_reference(W),
+                        interop.pair_weights_from_reference(W, device="cpu"),
                         *(torch.tensor(a) for a in state[1:]), c.N, c.P)
     scale = np.abs(_np(ref[0])).max()
     for g, r in zip(got, ref):
@@ -344,7 +344,7 @@ def test_pair_state_from_reference():
     c = _case("cube1", 2, None)
     jst = c.jeng.lift(jnp.asarray(c.x))
     st = interop.pair_state_from_reference(jst.u, jst.xf, jst.yf, jst.zf,
-                                           jst.df)
+                                           jst.df, device="cpu")
     for f in ("u", "xf", "yf", "zf", "df"):
         _assert_equal(getattr(st, f), getattr(jst, f))
     _assert_equal(c.teng.lower(st) * torch.as_tensor(c.mask),
@@ -359,7 +359,7 @@ def test_pair_state_from_reference():
 @pytest.mark.parametrize("name,level,pitch", CASES)
 def test_apply_full_matches(name, level, pitch):
     c = _case(name, level, pitch)
-    x = interop.block_from_reference(c.x)
+    x = interop.block_from_reference(c.x, device="cpu")
     got = _np(c.teng.apply_full(x)) * c.mask
     ref_j = np.asarray(c.jeng.apply_full(jnp.asarray(c.x))) * c.mask
     ref_t = _np(c.top.apply_raw(x)) * c.mask
@@ -372,7 +372,7 @@ def test_apply_full_matches(name, level, pitch):
                          [("cube1", 3, None), ("cube2", 3, 13)])
 def test_chained_apply_matches(name, level, pitch):
     c = _case(name, level, pitch)
-    x = interop.block_from_reference(c.x)
+    x = interop.block_from_reference(c.x, device="cpu")
     got = _np(c.teng.lower(c.teng.apply_ex(c.teng.apply_ex(c.teng.lift(x)))))
     ref_t = _np(c.top.apply_raw(c.top.apply_raw(x))) * c.mask
     jst = c.jeng.apply_ex(c.jeng.apply_ex(c.jeng.lift(jnp.asarray(c.x))))
@@ -387,7 +387,7 @@ def test_shell_apply_matches_classic(form):
     """1920 curved cells: reads that leave the block meet effective
     weights of up to ~5e-10 there, not exactly 0."""
     c = _case("shell", 2, None, form)
-    x = interop.block_from_reference(c.x)
+    x = interop.block_from_reference(c.x, device="cpu")
     got = _np(c.teng.apply_full(x)) * c.mask
     ref = _np(c.top.apply_raw(x)) * c.mask
     _assert_close(got, ref, 2e-6)
