@@ -31,7 +31,16 @@ read just after:
 - the dissection probes (kernels P2): box_variant and tet_stripped
   checked against their plain versions, then every ladder of
   ``python -m hyteg_tpu_torch.probes`` (the B1 and B2 ladders at the
-  profiling scripts' shapes and at the port's main-path blocks).
+  profiling scripts' shapes and at the port's main-path blocks);
+- the 2D arm on macro-faces (the 2D forms of B2, B3, B4 and B5): the
+  kernels against their plain versions on the 12-face annulus at level 4
+  and on the 32-face rectangle mesh_rectangle(nx=4, ny=4) at P1 level 11
+  / P2 level 10; the P1 GMG solve of sin(pi x) sin(pi y) at level 11,
+  67,125,249 DoFs, its rate gated on A x = 0 from a random start, with a
+  torch.profiler breakdown of one V-cycle; the P1 coefficient operator at
+  level 11; the P2 GMG stack at P2 level 10, 67,125,249 DoFs, gated on a
+  seeded rhs and on A x = 0, with a breakdown of one V-cycle; the
+  manufactured P2 solve at levels 1-3.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -118,6 +127,29 @@ PROBE_BOX_CHECKS = (((2, 1, 1), 3, None), ((2, 2, 2), 7, None),
                     ((2, 2, 2), 9, (64, 65)))
 PROBE_TET_CHECKS = ((4, PITCH), (6, None), (7, None))
 PROBE_RTOL = 1e-6     # f32, <= 15 terms in the same order, FMA contraction
+# the 2D arm: macro-faces, blocks (C, N, N) with lane = z
+RECT_2D = {"nx": 4, "ny": 4}      # mesh_rectangle: 32 macro-faces
+ANNULUS_2D = (0.5, 1.0, 6, 1)     # mesh_annulus: 12 faces, all weights general
+LEVEL_2D = 11         # N = 2049: (32, 2049, 2049) f32 = 537 MB, 67,125,249 DoFs
+P2_LEVEL_2D = 10      # the same node grid and DoF count
+# (mesh, P1 level, P2 level) of the 2D kernels-vs-plain checks
+KERNEL_CHECKS_2D = (("annulus", 4, 4), ("rect", LEVEL_2D, P2_LEVEL_2D))
+B4_CHECKS_2D = (("annulus", 4), ("rect", LEVEL_2D))
+# f32 puts a floor under a 2D solve's nodal error and residual that rises
+# with the level (b ~ h^2 against A x rounded at |x| ~ 1): the O(h^2) drop
+# is gated from level 5 to 6, level 7 reports where the floor begins, and
+# the level-11 rate is gated on A x = 0 from a random start (no floor)
+ERR_LEVELS_2D = (5, 6, 7)
+HOMOGENEOUS_CYCLES = 6   # rates over cycles 1-4 and 3-6, both gated
+P2_CYCLES_2D = 8
+# bench_vcycle's f32 floor for its gate is 1e-6 of r0 on the 3D level-6 P2
+# grid (256 intervals per edge); the floor grows with the condition number,
+# as h^-2, so on the 2D level-10 grid (8192 intervals) it is 1e-6 * 32^2.
+# The level-10 rate itself is gated on A x = 0 (homogeneous_rates), which
+# has no floor
+P2_FLOOR_REL_2D = 1e-3
+P2_MANUFACTURED_2D = (1, 2, 3)  # drop gated 1 -> 2; 3 sits at the f32 floor
+P2_MANUFACTURED_MIN_2D = 0
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -144,6 +176,14 @@ REPLACES = {
                     "scripts/prof_r5.py:111"),
     "tet_stripped": ("hyteg_tpu_torch/csrc/stripped_stencil.cu",
                      "scripts/prof_r5b.py:122, scripts/kernel_probe.py:101"),
+    "p1_const_apply_2d": ("hyteg_tpu_torch/csrc/p1_const_stencil.cu",
+                          "hyteg_tpu/kernels/p1_const_stencil.py:746 (dim 2)"),
+    "p1_diagonal_local_2d": ("hyteg_tpu_torch/csrc/p1_tri.cu",
+                             "hyteg_tpu/kernels/p1_stencil.py:303 (dim 2)"),
+    "p1_apply_local_2d": ("hyteg_tpu_torch/csrc/p1_tri.cu",
+                          "hyteg_tpu/kernels/p1_stencil.py:222 (dim 2)"),
+    "p2_const_apply_2d": ("hyteg_tpu_torch/csrc/p2_const_stencil.cu",
+                          "hyteg_tpu/kernels/p2_const_stencil.py:432 (dim 2)"),
 }
 # the one PyTorch call timed beside each kernel (library_ms), or why none
 LIBRARY_CALLS = {
@@ -162,6 +202,12 @@ LIBRARY_CALLS = {
                    "'circular', bias=False), the taps' unit weights summed at "
                    "lane offsets ls + Z + 1, the X rows as the batch",
     "tet_stripped": None,  # a mask after a circular conv is no single call
+    "p1_const_apply_2d": "F.conv2d grouped per face, interior 7-point "
+                         "stencil (equal to B2-2D on interior points only), "
+                         "cuDNN TF32 off",
+    "p1_diagonal_local_2d": None,  # no library call builds an FE diagonal
+    "p1_apply_local_2d": None,  # per-element coefficient means: no conv form
+    "p2_const_apply_2d": None,  # weights vary with node parity: no conv form
 }
 
 
@@ -174,13 +220,24 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def sol(p):
-    return (torch.sin(math.pi * p[..., 0]) * torch.sin(math.pi * p[..., 1])
-            * torch.sin(math.pi * p[..., 2]))
+def exact(dim: int):
+    """u = prod_i sin(pi x_i) over the first dim coordinates, and f =
+    dim pi^2 u (-laplace u = f, u = 0 on the unit square's or cube's
+    boundary)."""
+    def u(p):
+        out = torch.sin(math.pi * p[..., 0])
+        for i in range(1, dim):
+            out = out * torch.sin(math.pi * p[..., i])
+        return out
+
+    return u, lambda p: dim * math.pi ** 2 * u(p)
 
 
-def check_kernels(storage, level: int, device, seed: int) -> dict:
-    """Kernels B2 and B3 against their plain versions at one level."""
+def check_kernels(storage, level: int, device, seed: int,
+                  with_coeff: bool) -> dict:
+    """Kernels B2 and B3 against their plain versions at one level (3D
+    with pitch 129, or 2D); B3 also with a coefficient in the three means
+    when ``with_coeff``."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
@@ -189,6 +246,7 @@ def check_kernels(storage, level: int, device, seed: int) -> dict:
     from hyteg_tpu_torch.operators.p1_elementwise import compute_elmats
 
     sp = P1Space(storage, level, device=device, pitch=PITCH)
+    dim, pitch = sp.dim, sp.pitch
     gen = torch.Generator(device=device).manual_seed(seed)
     outside = ~sp.vertex_mask_t.bool()
     out = {"level": level, "block": list(sp.block_shape),
@@ -197,12 +255,12 @@ def check_kernels(storage, level: int, device, seed: int) -> dict:
     for name, form in (("laplace", forms.laplace_form),
                        ("mass", forms.mass_form)):
         elm = compute_elmats(sp, form, cv).contiguous()
-        A = b2.stencil_weights(elm, 3).contiguous()
-        E = b2.face_weights_full(elm, 3).contiguous()
+        A = b2.stencil_weights(elm, dim).contiguous()
+        E = b2.face_weights_full(elm, dim).contiguous()
         x = torch.randn(sp.block_shape, generator=gen, device=device)
         x *= sp.vertex_mask_t
-        y = b2.p1_const_apply(x, A, E, level, 3, PITCH)
-        y_ref = b2.p1_const_apply_torch(x, A, level, 3, PITCH, E=E)
+        y = b2.p1_const_apply(x, A, E, level, dim, pitch)
+        y_ref = b2.p1_const_apply_torch(x, A, level, dim, pitch, E=E)
         err = (y - y_ref).abs().max().item()
         scale = y_ref.abs().max().item()
         check(math.isfinite(err) and err <= B2_RTOL * scale,
@@ -215,7 +273,7 @@ def check_kernels(storage, level: int, device, seed: int) -> dict:
         # B3: diagonal (Laplace and mass), lumped (mass; Laplace row sums
         # vanish), and the coefficient modes at the small level only
         cases = [(False, None, "arithmetic"), (True, None, "arithmetic")]
-        if level == CHECK_LEVELS[0]:
+        if with_coeff:
             co = torch.rand(sp.block_shape, generator=gen, device=device)
             co = (0.5 + 1.5 * co) * sp.vertex_mask_t
             cases += [(lumped, co, m) for lumped in (False, True)
@@ -223,8 +281,8 @@ def check_kernels(storage, level: int, device, seed: int) -> dict:
         for lumped, co, mode in cases:
             if lumped and name == "laplace":
                 continue
-            d = b3.p1_diagonal_local(elm, level, 3, PITCH, lumped, co, mode)
-            d_ref = b3.p1_diagonal_local_torch(elm, level, 3, PITCH, lumped,
+            d = b3.p1_diagonal_local(elm, level, dim, pitch, lumped, co, mode)
+            d_ref = b3.p1_diagonal_local_torch(elm, level, dim, pitch, lumped,
                                                co, mode)
             err = (d - d_ref).abs().max().item()
             scale = d_ref.abs().max().item()
@@ -245,17 +303,19 @@ def manufactured(stack):
     from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
 
     sp, bc = stack.space(), BoundaryCondition.all_dirichlet()
+    sol, rhs = exact(sp.dim)
     mass = P1ElementwiseOperator(sp, forms.mass_form)
     x0 = sp.interpolate(sol, sp.zeros(), DoFType.DIRICHLET, bc)
-    f = sp.interpolate(lambda p: 3 * math.pi ** 2 * sol(p), sp.zeros(),
-                       DoFType.ALL, bc)
+    f = sp.interpolate(rhs, sp.zeros(), DoFType.ALL, bc)
     b = sp.restore_rows(mass.apply_raw(f), sp.zeros(), FLAG_INNER, bc)
     u = sp.interpolate(sol, sp.zeros(), DoFType.ALL, bc)
     return x0, b, u
 
 
-def solve(storage, level: int, device) -> tuple[dict, object, tuple]:
-    """The main path: GMG stack set-up plus N_CYCLES V-cycles."""
+def solve(storage, level: int, device,
+          gate_rate: bool = True) -> tuple[dict, object, tuple]:
+    """The main path: GMG stack set-up plus N_CYCLES V-cycles (the rate
+    over cycles 1-4 gated at RATE_MAX when ``gate_rate``)."""
     from hyteg_tpu_torch.solvers.templates import make_p1_gmg
 
     t0 = time.perf_counter()
@@ -277,7 +337,8 @@ def solve(storage, level: int, device) -> tuple[dict, object, tuple]:
     rate = (res[4] / res[0]) ** 0.25
     check(all(math.isfinite(r) for r in res) and math.isfinite(err),
           f"level {level}: non-finite residual or solution")
-    check(rate <= RATE_MAX, f"level {level}: residual rate {rate} > {RATE_MAX}")
+    check(not gate_rate or rate <= RATE_MAX,
+          f"level {level}: residual rate {rate} > {RATE_MAX}")
     out = {"level": level, "global_dofs": sp.num_global_dofs(),
            "residuals": res, "rate_cycles_1_4": rate, "max_nodal_error": err,
            "setup_s": setup_s, "solve_s_incl_residual_norms": solve_s,
@@ -613,22 +674,23 @@ def p2_space_op(storage, level: int, kind: str, device):
     return sp, P2ElementwiseOperator(sp, kind)
 
 
-def check_p2_kernels(storage, level: int, device, seed: int) -> dict:
+def check_p2_kernels(storage, level: int, device, seed: int,
+                     vs_general: bool) -> dict:
     """Kernel B5 against its plain version (Laplace and mass) at one P2
-    level with pitch 129, and at the path's level also against the
-    independent general formulation p2_apply_local."""
+    level (3D with pitch 129, or 2D), and when ``vs_general`` also against
+    the independent general formulation p2_apply_local."""
     from hyteg_tpu_torch.kernels import p2_const_stencil as b5
     from hyteg_tpu_torch.operators.p2_elementwise import p2_apply_local
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    out = {"level": level, "pitch": PITCH}
+    out = {"level": level}
     for kind in ("laplace", "mass"):
         sp, op = p2_space_op(storage, level, kind, device)
-        out.update(block=list(sp.block_shape),
+        out.update(block=list(sp.block_shape), pitch=sp.pitch,
                    global_dofs=sp.num_global_dofs())
         x = torch.randn(sp.block_shape, generator=gen, device=device)
         x *= sp.vertex_mask_t
-        args = (op.stencil_folded, level, PITCH)
+        args = (op.stencil_folded, level, sp.pitch, sp.dim)
         y = b5.p2_const_apply(x, *args)
         y_ref = b5.p2_const_apply_torch(x, *args)
         err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
@@ -639,8 +701,8 @@ def check_p2_kernels(storage, level: int, device, seed: int) -> dict:
         out[f"b5_{kind}_max_abs_err"] = err
         out[f"b5_{kind}_max_abs"] = scale
         del y_ref
-        if level == P2_LEVEL:
-            y_gen = p2_apply_local(x, op.elmats, level, 3, PITCH)
+        if vs_general:
+            y_gen = p2_apply_local(x, op.elmats, level, sp.dim, sp.pitch)
             err, scale = max_abs_diff(y, y_gen), y_gen.abs().max().item()
             check(math.isfinite(err) and err <= B5_RTOL * scale,
                   f"B5 {kind} level {level} vs p2_apply_local: max|dy| "
@@ -652,15 +714,17 @@ def check_p2_kernels(storage, level: int, device, seed: int) -> dict:
     return out
 
 
-def p2_gmg(storage, device) -> tuple[dict, object, tuple]:
-    """The P2 path: bench_vcycle's bench_p2 stack at level 6, a seeded
+def p2_gmg(storage, device, level: int = P2_LEVEL, cycles: int = P2_CYCLES,
+           floor_rel: float = 1e-6) -> tuple[dict, object, tuple]:
+    """The P2 path: bench_vcycle's bench_p2 stack (level 6 in 3D), a seeded
     random rhs made consistent across interface replicas and restricted to
-    the solved rows, P2_CYCLES V-cycles from 0 under bench_vcycle's gate."""
+    the solved rows, ``cycles`` V-cycles from 0 under bench_vcycle's gate
+    with its f32 round-off floor at ``floor_rel`` of the first residual."""
     from hyteg_tpu_torch.solvers.templates import make_p2_gmg
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stack = make_p2_gmg(storage, min_level=P2_MIN_LEVEL, max_level=P2_LEVEL,
+    stack = make_p2_gmg(storage, min_level=P2_MIN_LEVEL, max_level=level,
                         coarse_iters=P2_COARSE_ITERS, device=device)
     sp = stack.space()
     gen = torch.Generator(device=device).manual_seed(0)
@@ -672,44 +736,29 @@ def p2_gmg(storage, device) -> tuple[dict, object, tuple]:
     x = torch.zeros_like(b)
     res = [stack.residual_norm(x, b).item()]
     t0 = time.perf_counter()
-    for _ in range(P2_CYCLES):
+    for _ in range(cycles):
         x = stack.gmg.cycle(x, b)
         res.append(stack.residual_norm(x, b).item())
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    rate = gate_residuals(res, f"P2 V-cycle level {P2_LEVEL}", P2_RATE_MAX)
-    out = {"level": P2_LEVEL, "global_dofs": sp.num_global_dofs(),
+    rate = gate_residuals(res, f"P2 V-cycle level {level}", P2_RATE_MAX,
+                          floor_rel=floor_rel)
+    out = {"level": level, "global_dofs": sp.num_global_dofs(),
            "block": list(sp.block_shape), "residuals": res,
-           "mean_rate": rate, "setup_s": setup_s,
+           "mean_rate": rate, "gate_floor_rel": floor_rel, "setup_s": setup_s,
            "solve_s_incl_residual_norms": solve_s,
            "eigs": stack.eigs}
     return out, stack, (x, b)
 
 
-def p2_cycle_profile(stack, x, b) -> dict:
-    """torch.profiler over one P2 V-cycle after warm-up: device time by
-    kernel (B5, matrix products of the transfers, the rest), the idle share
-    of the window (1 - device kernel time / host wall), and CUDA-event
-    times of every level's restriction and prolongation."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        stack.gmg.cycle(x, b)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        stack.gmg.cycle(x, b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(r[1] for r in rows)
-    b5_ms = sum(r[1] for r in rows if "p2_const_apply_kernel" in r[0])
-    gemm_ms = sum(r[1] for r in rows if "gemm" in r[0].lower()
-                  or "gemv" in r[0].lower())
-    rows.sort(key=lambda r: -r[1])
+def p2_cycle_profile(stack, x, b, cycle_ms: float) -> dict:
+    """cycle_profile of one P2 V-cycle (B5 in 3D or 2D and the transfers'
+    matrix products by name), plus CUDA-event times of every level's
+    restriction and prolongation."""
+    prof = cycle_profile(stack, x, b, cycle_ms,
+                         {"b5": ("p2_const_apply_kernel",
+                                 "p2_const_apply_2d_kernel"),
+                          "transfer_gemm": ("gemm", "gemv")})
     transfer_ms = {}
     for l, tr in stack.transfers.items():
         rf = stack.spaces[l].zeros()
@@ -718,35 +767,27 @@ def p2_cycle_profile(stack, x, b) -> dict:
             "restrict": median_ms(lambda: tr.restrict(rf, stack.sds[l],
                                                       stack.sds[l - 1]), 3),
             "prolongate": median_ms(lambda: tr.prolongate(rc), 3)}
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "b5_ms": b5_ms,
-            "b5_launches": sum(r[2] for r in rows
-                               if "p2_const_apply_kernel" in r[0]),
-            "transfer_gemm_ms": gemm_ms,
-            "other_device_ms": device_ms - b5_ms - gemm_ms,
-            "device_kernels": sum(r[2] for r in rows),
-            "idle_share": 1.0 - device_ms / wall_ms,
-            "transfer_ms_by_fine_level": transfer_ms,
+    return {**prof, "transfer_ms_by_fine_level": transfer_ms,
             "transfer_ms_per_cycle": sum(v["restrict"] + v["prolongate"]
-                                         for v in transfer_ms.values()),
-            "top": [{"name": k[:80], "ms": v, "count": c}
-                    for k, v, c in rows[:12]]}
+                                         for v in transfer_ms.values())}
 
 
-def p2_manufactured(storage, level: int, device) -> dict:
-    """The sin sin sin Poisson solve of the JAX package's
+def p2_manufactured(storage, level: int, device,
+                    min_level: int = P2_MIN_LEVEL) -> dict:
+    """The sin sin (sin) Poisson solve of the JAX package's
     tests/test_p2_transfer.py:62-91 on the P2 stack: b = M f, Dirichlet
     values of u; max nodal error after P2_MANUFACTURED_CYCLES cycles."""
     from hyteg_tpu_torch.core.types import BoundaryCondition, DoFType, FLAG_INNER
     from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
     from hyteg_tpu_torch.solvers.templates import make_p2_gmg
 
-    stack = make_p2_gmg(storage, min_level=P2_MIN_LEVEL, max_level=level,
+    stack = make_p2_gmg(storage, min_level=min_level, max_level=level,
                         coarse_iters=P2_COARSE_ITERS, device=device)
     sp, bc = stack.space(), BoundaryCondition.all_dirichlet()
+    sol, rhs = exact(sp.dim)
     mass = P2ElementwiseOperator(sp, "mass")
     x = sp.interpolate(sol, sp.zeros(), DoFType.DIRICHLET, bc)
-    f = sp.interpolate(lambda p: 3 * math.pi ** 2 * sol(p), sp.zeros(),
-                       DoFType.ALL, bc)
+    f = sp.interpolate(rhs, sp.zeros(), DoFType.ALL, bc)
     b = sp.restore_rows(mass.apply_raw(f), sp.zeros(), FLAG_INNER, bc)
     res = [stack.residual_norm(x, b).item()]
     for _ in range(P2_MANUFACTURED_CYCLES):
@@ -762,7 +803,7 @@ def p2_manufactured(storage, level: int, device) -> dict:
 
 def coeff_field(sp, device, gen, kind: str) -> torch.Tensor:
     """k = 1 + x + 0.5 y (the JAX package's tests/test_operator.py:189) or
-    a seeded random k in [0.5, 1.5), on the tet's nodes."""
+    a seeded random k in [0.5, 1.5), on the simplex's nodes."""
     if kind == "linear":
         p = sp.coords()
         k = 1.0 + p[..., 0] + 0.5 * p[..., 1]
@@ -773,8 +814,8 @@ def coeff_field(sp, device, gen, kind: str) -> torch.Tensor:
 
 def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
     """Kernel B4 against its plain version in the three averaging modes and
-    for two coefficients, and with k = 1 against B2, at one P1 level
-    (pitch 129)."""
+    for two coefficients, and with k = 1 against B2, at one P1 level (3D
+    with pitch 129, or 2D)."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b4
@@ -783,6 +824,7 @@ def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
     from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
 
     sp = P1Space(storage, level, device=device, pitch=PITCH)
+    dim, pitch = sp.dim, sp.pitch
     op = P1ElementwiseOperator(sp, forms.laplace_form)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(sp.block_shape, generator=gen, device=device)
@@ -791,8 +833,8 @@ def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
     for ck in ("linear", "random"):
         k = coeff_field(sp, device, gen, ck)
         for mode in MODES:
-            y = b4.p1_apply_local(x, op.elmats, level, 3, PITCH, k, mode)
-            y_ref = b4.p1_apply_local_torch(x, op.elmats, level, 3, PITCH, k,
+            y = b4.p1_apply_local(x, op.elmats, level, dim, pitch, k, mode)
+            y_ref = b4.p1_apply_local_torch(x, op.elmats, level, dim, pitch, k,
                                             mode)
             err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
             check(math.isfinite(err) and err <= B4_RTOL * scale,
@@ -804,8 +846,8 @@ def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
             out[f"b4_{ck}_{mode}_max_abs"] = scale
             del y, y_ref
     ones = sp.vertex_mask_t.expand(sp.block_shape).contiguous()
-    y = b4.p1_apply_local(x, op.elmats, level, 3, PITCH, ones)
-    y2 = b2.p1_const_apply(x, op.stencil, op.stencil_face, level, 3, PITCH)
+    y = b4.p1_apply_local(x, op.elmats, level, dim, pitch, ones)
+    y2 = b2.p1_const_apply(x, op.stencil, op.stencil_face, level, dim, pitch)
     err, scale = max_abs_diff(y, y2), y2.abs().max().item()
     check(math.isfinite(err) and err <= B4_RTOL * scale,
           f"B4 k=1 vs B2 level {level}: max|dy| {err} > {B4_RTOL} * {scale}")
@@ -956,6 +998,282 @@ def probe_kernel_rows(device, ladder_rows) -> tuple[dict, dict, dict]:
     return ms, work, lib
 
 
+def tri_points(n: int) -> int:
+    """Micro-vertices of one refined triangle with n intervals per edge
+    (the base positions of a class with margin m are tri_points(n - m))."""
+    return (n + 1) * (n + 2) // 2 if n >= 0 else 0
+
+
+def conv2d_stencil(weights, dirs) -> torch.Tensor:
+    """(G, 1, 3, 3) conv2d kernels from (G, n_s) weights on directions in
+    {-1, 0, 1}^2 (cross-correlation: k[d + 1] multiplies u[p + d])."""
+    k = torch.zeros((weights.shape[0], 9), dtype=torch.float32,
+                    device=weights.device)
+    idx = [(int(d[0]) + 1) * 3 + int(d[1]) + 1 for d in dirs]
+    k[:, idx] = weights.float()
+    return k.reshape(-1, 1, 3, 3)
+
+
+def homogeneous_rates(stack, device, seed: int,
+                      max_rate: float = RATE_MAX) -> dict:
+    """The V-cycle on A x = 0 from a seeded random x0 (replicas consistent,
+    0 on Dirichlet rows): the residual A x shrinks with x, so f32 puts no
+    floor under it. Rates over cycles 1-4 and over cycles 3-6 (after the
+    rough part of x0 is gone), both gated at ``max_rate``."""
+    sp = stack.space()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(sp.block_shape, generator=gen, device=device)
+    x = stack.residual(torch.zeros_like(x), sp.exchange_rep(x * sp.vertex_mask_t))
+    b = torch.zeros_like(x)
+    res = [stack.residual_norm(x, b).item()]
+    for _ in range(HOMOGENEOUS_CYCLES):
+        x = stack.gmg.cycle(x, b)
+        res.append(stack.residual_norm(x, b).item())
+    rates = {"rate_cycles_1_4": (res[4] / res[0]) ** 0.25,
+             "rate_cycles_3_6": (res[6] / res[2]) ** 0.25}
+    check(all(math.isfinite(r) for r in res),
+          f"homogeneous solve: non-finite residuals {res}")
+    for name, r in rates.items():
+        check(r <= max_rate, f"homogeneous solve {name} {r} > {max_rate}")
+    return {"residuals": res, **rates}
+
+
+def cycle_profile(stack, x, b, cycle_ms: float, kernels: dict) -> dict:
+    """torch.profiler over one V-cycle after two warm-up cycles: device
+    time, the idle share of the cycle (1 - device kernel time /
+    ``cycle_ms``, the cycle's CUDA-event time from the same run: the
+    profiled window's host wall, reported beside it, carries the
+    profiler's own overhead), the ms and launches of each group in
+    ``kernels`` (name -> substrings, any of which in the lower-cased CUDA
+    symbol puts a kernel in it), and the top 12 by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        stack.gmg.cycle(x, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stack.gmg.cycle(x, b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    mine = {}
+    for name, tags in kernels.items():
+        sel = [r for r in rows if any(t in r[0].lower() for t in tags)]
+        mine[name] = {"ms": sum(r[1] for r in sel),
+                      "launches": sum(r[2] for r in sel)}
+    rows.sort(key=lambda r: -r[1])
+    return {"cycle_ms": cycle_ms, "profiled_wall_ms": wall_ms,
+            "device_ms": device_ms, "idle_share": 1.0 - device_ms / cycle_ms,
+            "device_kernels": sum(r[2] for r in rows), "kernels": mine,
+            "other_device_ms": device_ms - sum(v["ms"] for v in mine.values()),
+            "top": [{"name": k[:80], "ms": v, "count": c}
+                    for k, v, c in rows[:12]]}
+
+
+def run_2d(device, card: str) -> dict:
+    """The 2D arm on macro-faces: phases kernels_2d, gmg_2d, coeff_2d and
+    p2_gmg_2d, each with its kernels' 2D launch counts set to 0 just
+    before its main run (gmg_2d: the level-11 solve, after the small
+    error-drop solves) and read just after. Returns the kernels line's inputs:
+    launches, max_abs_err, ms and plain ms, the work of each bound
+    (bytes, operations), library ms, and the 2D block's element count."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.indexing import micro
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b34
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_annulus, mesh_rectangle
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    storages = {"rect": CellStorage(mesh_rectangle(**RECT_2D)),
+                "annulus": CellStorage(mesh_annulus(*ANNULUS_2D))}
+    errs, launches, t, work, lib = {}, {}, {}, {}, {}
+
+    # -- kernels_2d: B2-2D, B3-2D, B5-2D against their plain versions ------
+    p1c, p2c = [], []
+    for i, (mesh, lv, lv2) in enumerate(KERNEL_CHECKS_2D):
+        p1c.append(check_kernels(storages[mesh], lv, device, seed=100 + i,
+                                 with_coeff=True))
+        torch.cuda.empty_cache()
+        p2c.append(check_p2_kernels(storages[mesh], lv2, device, seed=110 + i,
+                                    vs_general=lv2 == P2_LEVEL_2D))
+        torch.cuda.empty_cache()
+        emit("kernels_2d", card=card, mesh=mesh, p1=p1c[-1], p2=p2c[-1])
+    for name, checks, tag in (("p1_const_apply_2d", p1c, "b2_"),
+                              ("p1_diagonal_local_2d", p1c, "b3_"),
+                              ("p2_const_apply_2d", p2c, "b5_")):
+        errs[name] = max(v for c in checks for k, v in c.items()
+                         if k.startswith(tag) and k.endswith("_max_abs_err"))
+
+    # -- gmg_2d: the 2D main path (B2-2D, B3-2D) ---------------------------
+    rect = storages["rect"]
+    low = {}
+    for lv in ERR_LEVELS_2D:
+        low[lv], stack, _ = solve(rect, lv, device, gate_rate=False)
+        del stack
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b2.p1_const_apply.launches_2d = 0
+    b34.p1_diagonal_local.launches_2d = 0
+    res, stack, (x, b) = solve(rect, LEVEL_2D, device, gate_rate=False)
+    launches["p1_const_apply_2d"] = b2.p1_const_apply.launches_2d
+    launches["p1_diagonal_local_2d"] = b34.p1_diagonal_local.launches_2d
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["peak_gb"] = res["peak_bytes"] / 1e9
+    hom = homogeneous_rates(stack, device, seed=120)
+    lo, hi = ERR_LEVELS_2D[:2]
+    drop = low[lo]["max_nodal_error"] / low[hi]["max_nodal_error"]
+    for lv in ERR_LEVELS_2D:
+        emit("gmg_2d_levels", card=card, **low[lv])
+    emit("gmg_2d", card=card, mesh="mesh_rectangle(nx=4, ny=4)", **res,
+         homogeneous=hom, error_drop=drop, error_drop_levels=[lo, hi],
+         launches={k: launches[k] for k in ("p1_const_apply_2d",
+                                            "p1_diagonal_local_2d")})
+    check(res["global_dofs"] == (4 * 2 ** LEVEL_2D + 1) ** 2,
+          f"2D level {LEVEL_2D}: {res['global_dofs']} DoFs")
+    check(drop >= ERR_DROP_MIN, f"2D nodal error dropped {drop}x from level "
+          f"{lo} to {hi}, < {ERR_DROP_MIN}x")
+    for name in ("p1_const_apply_2d", "p1_diagonal_local_2d"):
+        check(launches[name] > 0, f"{name} was not launched on the 2D path")
+    sp, op = stack.space(), stack.operators[LEVEL_2D]
+    A, E, elm = op.stencil, op.stencil_face, op.elmats
+    L, C = LEVEL_2D, sp.C_loc
+    t["p1_const_apply_2d"] = median_ms(
+        lambda: b2.p1_const_apply(x, A, E, L, 2, sp.pitch), 10, batch=10)
+    t["p1_const_apply_2d_plain"] = median_ms(
+        lambda: b2.p1_const_apply_torch(x, A, L, 2, sp.pitch, E=E), 5)
+    t["p1_diagonal_local_2d"] = median_ms(
+        lambda: b34.p1_diagonal_local(elm, L, 2, sp.pitch), 10, batch=10)
+    t["p1_diagonal_local_2d_plain"] = median_ms(
+        lambda: b34.p1_diagonal_local_torch(elm, L, 2, sp.pitch), 5)
+    t["apply_raw_2d"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
+    t["vcycle_2d"] = median_ms(lambda: stack.gmg.cycle(x, b), 10)
+    margins = micro.base_margin(2)
+    work["p1_const_apply_2d"] = (2 * nbytes(x) + nbytes(A, E),
+                                 14 * C * tri_points(sp.n))
+    work["p1_diagonal_local_2d"] = (nbytes(elm) + nbytes(x), 3 * C * sum(
+        tri_points(sp.n - int(m)) for m in margins))
+    xv = x.view(1, C, sp.N, sp.N)
+    kern = conv2d_stencil(A.sum(-1), micro.stencil_directions(2))
+    lib["p1_const_apply_2d"] = median_ms(
+        lambda: F.conv2d(xv, kern, padding=1, groups=C), 10, batch=10)
+    emit("gmg_2d_timings", card=card, level=L, ms={
+        k: t[k] for k in ("apply_raw_2d", "vcycle_2d")},
+        profile=cycle_profile(stack, x, b, t["vcycle_2d"], {
+            "p1_const_apply_2d": ("p1_const_apply_2d_kernel",),
+            "p1_diagonal_local_2d": ("p1_diag_2d_kernel",)}))
+    block_elements = x.numel()
+    del stack, sp, op, A, E, elm, x, b, xv, kern
+    torch.cuda.empty_cache()
+
+    # -- coeff_2d: the P1 coefficient operator (B4-2D; B3-2D with k) -------
+    b4c = []
+    for i, (mesh, lv) in enumerate(B4_CHECKS_2D):
+        b4c.append(check_coeff_kernels(storages[mesh], lv, device,
+                                       seed=130 + i))
+        emit("coeff_2d_kernels", card=card, mesh=mesh, **b4c[-1])
+        torch.cuda.empty_cache()
+    errs["p1_apply_local_2d"] = max(v for c in b4c for k, v in c.items()
+                                    if k.endswith("_max_abs_err"))
+    sp = P1Space(rect, L, device=device)
+    op = P1ElementwiseOperator(sp, forms.laplace_form)
+    k = coeff_field(sp, device, None, "linear")
+    b34.p1_apply_local.launches_2d = 0
+    b34.p1_diagonal_local.launches_2d = 0
+    sym = symmetric_positive(sp, lambda v: op.apply_raw(v, coeff=k), 140,
+                             f"2D P1 coefficient operator level {L}")
+    dinv = op.inverse_diagonal(coeff=k)[:, sp.vertex_mask_t.bool()]
+    coeff_launches = {"p1_apply_local_2d": b34.p1_apply_local.launches_2d,
+                      "p1_diagonal_local_2d": b34.p1_diagonal_local.launches_2d}
+    emit("coeff_2d", card=card, level=L, coefficient="1 + x + 0.5 y", **sym,
+         inv_diag_min=dinv.min().item(), inv_diag_max=dinv.max().item(),
+         launches=coeff_launches)
+    check(bool(torch.isfinite(dinv).all()) and dinv.min().item() > 0,
+          "the 2D inverse diagonal with a coefficient is not finite and "
+          "positive")
+    for name, n in coeff_launches.items():
+        check(n > 0, f"{name} was not launched on the 2D coefficient path")
+    launches["p1_apply_local_2d"] = coeff_launches["p1_apply_local_2d"]
+    x = sp.exchange_rep(torch.randn(
+        sp.block_shape, device=device,
+        generator=torch.Generator(device=device).manual_seed(141))
+        * sp.vertex_mask_t)
+    elm = op.elmats
+    t["p1_apply_local_2d"] = median_ms(
+        lambda: b34.p1_apply_local(x, elm, L, 2, sp.pitch, k), 10, batch=10)
+    t["p1_apply_local_2d_plain"] = median_ms(
+        lambda: b34.p1_apply_local_torch(x, elm, L, 2, sp.pitch, k), 3,
+        warmup=1)
+    t["p1_apply_local_2d_no_coeff"] = median_ms(
+        lambda: b34.p1_apply_local(x, elm, L, 2, sp.pitch), 10, batch=10)
+    t["apply_raw_coeff_2d"] = median_ms(lambda: op.apply_raw(x, coeff=k), 10,
+                                        batch=10)
+    # per element: 9 multiply-adds, the 3-term mean and 3 scalings
+    work["p1_apply_local_2d"] = (2 * nbytes(x) + nbytes(k, elm), 24 * C * sum(
+        tri_points(sp.n - int(m)) for m in margins))
+    del sp, op, k, dinv, x, elm
+    torch.cuda.empty_cache()
+
+    # -- p2_gmg_2d: the P2 GMG stack (B5-2D) --------------------------------
+    b5.p2_const_apply.launches_2d = 0
+    p2res, stack, (x, b) = p2_gmg(rect, device, level=P2_LEVEL_2D,
+                                  cycles=P2_CYCLES_2D,
+                                  floor_rel=P2_FLOOR_REL_2D)
+    launches["p2_const_apply_2d"] = b5.p2_const_apply.launches_2d
+    p2res["homogeneous"] = homogeneous_rates(stack, device, seed=150,
+                                             max_rate=P2_RATE_MAX)
+    p2res["launches"] = {"p2_const_apply_2d": launches["p2_const_apply_2d"]}
+    check(launches["p2_const_apply_2d"] > 0,
+          "p2_const_apply_2d was not launched on the 2D P2 path")
+    check(p2res["global_dofs"] == (4 * 2 ** LEVEL_2D + 1) ** 2,
+          f"2D P2 level {P2_LEVEL_2D}: {p2res['global_dofs']} DoFs")
+    p2res["ms_per_vcycle"] = median_ms(lambda: stack.gmg.cycle(x, b), 3,
+                                       warmup=1)
+    p2res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    p2res["peak_gb"] = p2res["peak_bytes"] / 1e9
+    n0 = b5.p2_const_apply.launches_2d
+    stack.gmg.cycle(x, b)
+    p2res["b5_launches_per_vcycle"] = b5.p2_const_apply.launches_2d - n0
+    emit("p2_gmg_2d", card=card, **p2res)
+    emit("p2_profile_2d", card=card, level=P2_LEVEL_2D,
+         **p2_cycle_profile(stack, x, b, p2res["ms_per_vcycle"]))
+    sp, op = stack.space(), stack.operators[P2_LEVEL_2D]
+    W = op.stencil_folded
+    t["p2_const_apply_2d"] = median_ms(
+        lambda: b5.p2_const_apply(x, W, P2_LEVEL_2D, sp.pitch, 2), 10,
+        batch=10)
+    t["p2_const_apply_2d_plain"] = median_ms(
+        lambda: b5.p2_const_apply_torch(x, W, P2_LEVEL_2D, sp.pitch, 2), 3,
+        warmup=1)
+    t["p2_apply_raw_2d"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
+    t["p2_vcycle_2d"] = p2res["ms_per_vcycle"]
+    row, K0 = b5._row_index(P2_LEVEL_2D, 2, sp.pitch, torch.float32, device)
+    hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
+    work["p2_const_apply_2d"] = (2 * nbytes(x) + nbytes(W), 2 * (
+        (W != 0).sum(-1).double() @ hist).sum().item())
+    del stack, sp, op, W, x, b, row, K0, hist
+    torch.cuda.empty_cache()
+    man = {}
+    for lv in P2_MANUFACTURED_2D:
+        man[lv] = p2_manufactured(rect, lv, device,
+                                  min_level=P2_MANUFACTURED_MIN_2D)
+        emit("p2_manufactured_2d", card=card, **man[lv])
+    lo, hi = P2_MANUFACTURED_2D[:2]
+    drop = man[lo]["max_nodal_error"] / man[hi]["max_nodal_error"]
+    emit("p2_2d_checks", error_drop=drop, error_drop_levels=[lo, hi])
+    check(drop >= P2_ERR_DROP_MIN, f"2D P2 nodal error dropped {drop}x from "
+          f"level {lo} to {hi}, < {P2_ERR_DROP_MIN}x")
+    return {"errs": errs, "launches": launches, "ms": t, "work": work,
+            "library_ms": lib, "block_elements": block_elements}
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -999,7 +1317,8 @@ def main() -> int:
     # -- the macro-tet path (B2, B3) ------------------------------------------
     storage = CellStorage(mesh_unit_cube(MESH_N))
     for i, level in enumerate(CHECK_LEVELS):
-        checked = check_kernels(storage, level, device, seed=i)
+        checked = check_kernels(storage, level, device, seed=i,
+                                with_coeff=level == CHECK_LEVELS[0])
         emit("kernels_vs_plain", card=card, **checked)
         torch.cuda.empty_cache()
     errs = {name: max(v for k, v in checked.items()
@@ -1114,7 +1433,8 @@ def main() -> int:
     # -- the P2 path (B5): bench_vcycle's bench_p2 at level 6 ----------------
     p2_checks = []
     for i, lv in enumerate(P2_CHECKS):
-        p2_checks.append(check_p2_kernels(storage, lv, device, seed=70 + i))
+        p2_checks.append(check_p2_kernels(storage, lv, device, seed=70 + i,
+                                          vs_general=lv == P2_LEVEL))
         emit("p2_kernels_vs_plain", card=card, **p2_checks[-1])
     errs["p2_const_apply"] = max(v for c in p2_checks for k, v in c.items()
                                  if k.endswith("_max_abs_err"))
@@ -1133,7 +1453,7 @@ def main() -> int:
     p2res["b5_launches_per_vcycle"] = b5.p2_const_apply.launches - n0
     emit("p2_gmg", card=card, **p2res)
     emit("p2_profile", card=card, level=P2_LEVEL,
-         **p2_cycle_profile(stack, x, b))
+         **p2_cycle_profile(stack, x, b, p2res["ms_per_vcycle"]))
     sp, op = stack.space(), stack.operators[P2_LEVEL]
     W = op.stencil_folded
     t["p2_const_apply"] = median_ms(
@@ -1142,7 +1462,7 @@ def main() -> int:
         lambda: b5.p2_const_apply_torch(x, W, P2_LEVEL, PITCH), 3, warmup=1)
     t["p2_apply_raw"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
     t["p2_vcycle"] = p2res["ms_per_vcycle"]
-    row, K0 = b5._row_index(P2_LEVEL, PITCH, torch.float32, device)
+    row, K0 = b5._row_index(P2_LEVEL, 3, PITCH, torch.float32, device)
     hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
     b5_flops = 2 * ((W != 0).sum(-1).double() @ hist).sum().item()
     bounds["p2_const_apply"] = bound(2 * nbytes(x) + nbytes(W), b5_flops)
@@ -1172,6 +1492,9 @@ def main() -> int:
     check(drop >= P2_ERR_DROP_MIN,
           f"P2 nodal error dropped {drop}x from level {lo} to {hi}, < "
           f"{P2_ERR_DROP_MIN}x")
+
+    # -- the 2D arm (B2-2D, B3-2D, B4-2D, B5-2D) -----------------------------
+    arm2d = run_2d(device, card)
 
     # -- the paired-tet engine (B6, B7, B8): bench_tet's path ----------------
     storages = {"cube": storage, "shell": tetpair_storage("shell")}
@@ -1328,7 +1651,8 @@ def main() -> int:
     # -- the stream-copy probe (P1): the card's bandwidth ceiling -------------
     sizes = {"box_level7": box_dofs[7], "box_level9": box_dofs[9],
              "tet_level7_block": math.prod(tet_block),
-             "tetpair_level7_block": tp_res["paired_slots"]}
+             "tetpair_level7_block": tp_res["paired_slots"],
+             "face_level11_block": arm2d["block_elements"]}
     p1_errs, p1_t = stream_probe(sizes, device)
     launches["stream_scale"] = p1.stream_scale.launches
     errs["stream_scale"] = max(p1_errs.values())
@@ -1413,6 +1737,14 @@ def main() -> int:
                "pair_install": "tetpair_level7_block",
                "pair_extract": "tetpair_level7_block",
                "box_variant": "box_level7"}
+    for name, (nb, fl) in arm2d["work"].items():
+        bounds[name] = bound(nb, fl)
+        p1_size[name] = "face_level11_block"
+        timed[name] = name
+    t.update(arm2d["ms"])
+    errs.update(arm2d["errs"])
+    launches.update(arm2d["launches"])
+    lib_ms.update(arm2d["library_ms"])
     extra = {"box_apply": {"max_abs_err_bf16": errs_bf16}}
     kernels = []
     for name, (src, rep) in REPLACES.items():

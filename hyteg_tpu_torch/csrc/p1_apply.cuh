@@ -47,10 +47,11 @@ HYTEG_DEVICE float coeff_term(float r, int mode) {
   return mode == 1 ? 1.f / c : logf(c);
 }
 
-HYTEG_DEVICE float coeff_finish(float s, int mode) {
-  if (mode == 0) return s / kApplyVerts;
-  if (mode == 1) return kApplyVerts / s;
-  return expf(s / kApplyVerts);
+// The mean from the sum s of nv per-vertex terms (nv = 3 for a triangle).
+HYTEG_DEVICE float coeff_finish(float s, int mode, int nv = kApplyVerts) {
+  if (mode == 0) return s / nv;
+  if (mode == 1) return nv / s;
+  return expf(s / nv);
 }
 
 // dst[x, lane] of one cell, in gather form: for every class c and vertex

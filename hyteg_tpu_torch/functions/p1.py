@@ -1,12 +1,14 @@
 """P1 (vertex-DoF) function space on macro-cell blocks (torch counterpart
-of hyteg_tpu/functions/p1.py, single shard, 3D).
+of hyteg_tpu/functions/p1.py, single shard, 2D and 3D).
 
-DoF values live in dense masked *flat* blocks ``(C, N, N*pitch)``
-(lane = y*pitch + z; see indexing/flat.py), one block per macro-cell,
-interface DoFs replicated across adjacent cells (invariant: replicas
-equal; padding lanes z >= N stay zero). The halo exchange of the
-reference (communicate / communicateAdditively) becomes two index-map
-exchanges over precomputed slot maps:
+DoF values live in dense masked *flat* blocks, one block per macro-cell:
+``(C, N, N*pitch)`` in 3D (lane = y*pitch + z; see indexing/flat.py),
+``(C, N, N)`` in 2D, where a cell is a macro-face and the lane axis is z
+itself (no pitch, no padding lanes; the triangle x + z <= n fills half
+the block). Interface DoFs are replicated across adjacent cells
+(invariant: replicas equal; slots outside the simplex stay zero). The
+halo exchange of the reference (communicate / communicateAdditively)
+becomes two index-map exchanges over precomputed slot maps:
 
   * ``exchange_add``  — replicas <- sum of replicas (``index_add_``)
   * ``exchange_rep``  — replicas <- owner value (gather from the
@@ -43,7 +45,7 @@ class P1ShardData:
     slot_rep: torch.Tensor       # (S,) bool — representative slot of its DoF
     slot_inv_mult: torch.Tensor  # (S,) float — 1 / replica count
     slot_doftype: torch.Tensor   # (S,) int32 — DoFType under ``bc``
-    cell_vertices: torch.Tensor  # (C, nv, 3) float
+    cell_vertices: torch.Tensor  # (C, dim + 1, 3) float
     bc: BoundaryCondition
     _by_flag: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -68,7 +70,7 @@ class P1ShardData:
 class P1Function:
     """User-facing handle: per-cell DoF blocks + space + BC."""
 
-    cells: torch.Tensor  # (C, N, N*pitch)
+    cells: torch.Tensor  # (C, N, lanes)
     space: "P1Space"
     bc: BoundaryCondition
 
@@ -114,14 +116,12 @@ class P1Function:
 
 class P1Space:
     """Binds (storage, level, device): static masks, slot maps, exchanges
-    and reductions. 3D, one shard. ``device`` has no default: a caller
-    names the card or the CPU."""
+    and reductions. 2D or 3D, one shard. ``device`` has no default: a
+    caller names the card or the CPU. A 2D space ignores ``pitch`` (its
+    blocks have none), as the JAX package does."""
 
     def __init__(self, storage: CellStorage, level: int, *, device,
                  dtype=torch.float32, pitch: int | None = None):
-        if storage.dim != 3:
-            raise NotImplementedError(
-                "2D P1 spaces are not ported yet (ROADMAP A2, 2D arm)")
         if storage.num_shards != 1:
             raise NotImplementedError(
                 "multi-shard storage is not ported yet (ROADMAP A8)")
@@ -129,12 +129,12 @@ class P1Space:
         self.level = level
         self.device = torch.device(device)
         self.dtype = dtype
-        self.dim = 3
+        self.dim = storage.dim
         self.N = (1 << level) + 1
         self.n = self.N - 1
-        # lane pitch of the flat layout; GMG stacks share pitch = N_max
+        # lane pitch of the flat 3D layout; GMG stacks share pitch = N_max
         # across levels so grid transfers are pure stride-2 slicing
-        self.pitch = self.N if pitch is None else int(pitch)
+        self.pitch = self.N if (pitch is None or self.dim == 2) else int(pitch)
         assert self.pitch >= self.N
         self.maps: P1LevelMaps = storage.p1_level_maps(level, self.pitch)
         self.C_loc = storage.cells_per_shard
@@ -145,7 +145,7 @@ class P1Space:
     @property
     def lanes(self) -> int:
         """Size of the minor (lane) axis of a block."""
-        return self.N * self.pitch
+        return self.N * self.pitch if self.dim == 3 else self.N
 
     @property
     def block_shape(self):
@@ -158,11 +158,11 @@ class P1Space:
     @functools.cached_property
     def vertex_mask(self) -> np.ndarray:
         """Flat (N, lanes) bool mask of valid micro-vertices."""
-        return micro.vertex_mask_flat(self.level, 3, self.pitch)
+        return micro.vertex_mask_flat(self.level, self.dim, self.pitch)
 
     @functools.cached_property
     def interior_mask(self) -> np.ndarray:
-        return micro.interior_mask_flat(self.level, 3, self.pitch)
+        return micro.interior_mask_flat(self.level, self.dim, self.pitch)
 
     def _tensor(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
@@ -178,10 +178,14 @@ class P1Space:
         return self._tensor(self.interior_mask)
 
     def to_grid(self, u):
-        """(C, N, lanes) -> (C, N, N, pitch) view."""
+        """(C, N, lanes) -> (C, N, N, pitch) view (3D; identity in 2D)."""
+        if self.dim == 2:
+            return u
         return u.reshape(u.shape[:-1] + (self.N, self.pitch))
 
     def from_grid(self, g):
+        if self.dim == 2:
+            return g
         return g.reshape(g.shape[:-2] + (self.N * self.pitch,))
 
     def cell_vertices(self, shard: int = 0) -> np.ndarray:
@@ -328,16 +332,19 @@ class P1Space:
 
     @functools.cached_property
     def _ref_coords(self) -> torch.Tensor:
-        """(N, lanes, 3) reference coordinates (barycentric index / n);
-        zeros on padding lanes (finite garbage, masked downstream)."""
-        axes = [np.arange(self.N)] * 3
+        """(N, lanes, dim) reference coordinates (barycentric index / n);
+        zeros on 3D padding lanes (finite garbage, masked downstream)."""
+        axes = [np.arange(self.N)] * self.dim
         ref = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1) / self.n
-        return self._tensor(flat.flatten_field(ref, self.pitch, ncomp=1))
+        if self.dim == 3:
+            ref = flat.flatten_field(ref, self.pitch, ncomp=1)
+        return self._tensor(ref)
 
     def coords_from(self, cell_vertices: torch.Tensor) -> torch.Tensor:
-        """(C, N, lanes, 3) physical coordinates of every micro-vertex."""
+        """(C, N, lanes, 3) physical coordinates of every micro-vertex
+        (cell_vertices (C, dim + 1, 3); a 2D mesh keeps z = 0)."""
         v0 = cell_vertices[:, 0]
-        J = cell_vertices[:, 1:] - cell_vertices[:, :1]  # (C, 3, 3)
+        J = cell_vertices[:, 1:] - cell_vertices[:, :1]  # (C, dim, 3)
         return v0.reshape(-1, 1, 1, 3) + torch.einsum(
             "xld,cde->cxle", self._ref_coords, J)
 

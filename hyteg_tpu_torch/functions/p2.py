@@ -1,17 +1,17 @@
 """P2 (quadratic Lagrange) function space on dense node grids (torch
-counterpart of hyteg_tpu/functions/p2.py, 3D, one shard).
+counterpart of hyteg_tpu/functions/p2.py, 2D and 3D, one shard).
 
 The micro-edge midpoints of refinement level L are exactly the
 micro-vertices of level L+1, so all P2 DoFs (vertex DoFs and the 7 edge
-orientations) live on the dense level-(L+1) node grid:
+orientations, 3 in 2D) live on the dense level-(L+1) node grid:
 
     even-parity nodes  <-> vertex DoFs
     odd-parity nodes   <-> edge DoFs (parity class == edge orientation:
                            (1,0,0) = X ... (1,1,1) = XYZ)
 
-A P2 function is one (C, M, M*pitch) block with M = 2^(L+1)+1, and every
-space operation (exchanges, flags, dots, interpolation) is the level-(L+1)
-P1 space's.
+A P2 function is one (C, M, M*pitch) block ((C, M, M) in 2D) with
+M = 2^(L+1)+1, and every space operation (exchanges, flags, dots,
+interpolation) is the level-(L+1) P1 space's.
 """
 
 from __future__ import annotations
@@ -118,16 +118,18 @@ class P2Space:
 
     def _parity_grid(self, parity) -> np.ndarray:
         """(M, lanes) bool: nodes whose coordinates have this parity."""
-        grids = np.meshgrid(*([np.arange(self.M)] * 3), indexing="ij")
+        grids = np.meshgrid(*([np.arange(self.M)] * self.dim), indexing="ij")
         m = np.ones_like(grids[0], dtype=bool)
         for g, p in zip(grids, parity):
             m &= g % 2 == p
-        return flat.flatten_field(m, self.pitch) & self.vertex_mask
+        if self.dim == 3:
+            m = flat.flatten_field(m, self.pitch)
+        return m & self.vertex_mask
 
     @functools.cached_property
     def vertexdof_mask(self) -> np.ndarray:
         """(M, lanes) bool: even-parity nodes (the P1 sub-function)."""
-        return self._parity_grid((0, 0, 0))
+        return self._parity_grid((0,) * self.dim)
 
     @functools.cached_property
     def edgedof_mask(self) -> np.ndarray:
@@ -144,11 +146,15 @@ class P2Space:
                        dtype=self.dtype, pitch=self.pitch)
 
     def vertexdof_view(self, u: torch.Tensor) -> torch.Tensor:
-        """(C, N_L, N_L*pitch) P1 level-L block (same pitch): the vertex
-        DoFs of u. Stride-2 lane slicing maps coarse lane yc*P + zc to
-        fine lane 2yc*P + 2zc; lanes it aliases onto odd nodes are masked
-        off with the coarse vertex mask."""
+        """(C, N_L, N_L*pitch) P1 level-L block (same pitch; (C, N_L, N_L)
+        in 2D): the vertex DoFs of u. Stride-2 lane slicing maps coarse
+        lane yc*P + zc to fine lane 2yc*P + 2zc; lanes it aliases onto odd
+        nodes are masked off with the coarse vertex mask."""
         Nc = (1 << self.level) + 1
+        if self.dim == 2:
+            return u[:, ::2, ::2] * torch.as_tensor(
+                micro.vertex_mask_flat(self.level, 2, Nc), dtype=u.dtype,
+                device=u.device)
         P = self.pitch
         Lc, Lu = Nc * P, (Nc - 1) * P + Nc
         v = u[:, : 2 * Nc - 1 : 2, : 2 * Lu - 1 : 2]

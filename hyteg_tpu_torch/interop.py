@@ -1,8 +1,9 @@
 """Carry state over from the JAX package (hyteg_tpu) as numpy arrays.
 
-Both packages lay a P1 block out as (C, N, N*pitch), a P2 block (on the
-level-(L+1) node grid) as (C, M, M*pitch) and a box block as (X, Y*Z),
-with the same lane maps, so no conversion repacks: these functions only
+Both packages lay a P1 block out as (C, N, N*pitch) ((C, N, N) on 2D
+macro-faces), a P2 block (on the level-(L+1) node grid) as (C, M, M*pitch)
+((C, M, M) in 2D) and a box block as (X, Y*Z), with the same lane maps, so
+no conversion repacks: these functions only
 change the array type, dtype and device, and copy (an array read from JAX
 is read-only).
 They let a test run both packages on identical operators (element
@@ -20,7 +21,8 @@ import torch
 
 def elmats_from_reference(elmats: np.ndarray, *, device,
                           dtype=torch.float32) -> torch.Tensor:
-    """(C, 6, 4, 4) P1 or (C, 6, 10, 10) P2 element matrices -> tensor for
+    """(C, 6, 4, 4) P1 or (C, 6, 10, 10) P2 element matrices (2D: (C, 2,
+    3, 3) or (C, 2, 6, 6)) -> tensor for
     ``P1ElementwiseOperator(space, form, elmats=...)``,
     ``P2ElementwiseOperator(space, kind, elmats=...)``, or
     ``make_p1_gmg`` / ``make_p2_gmg(..., elmats={level: ...})``."""
@@ -29,8 +31,9 @@ def elmats_from_reference(elmats: np.ndarray, *, device,
 
 def block_from_reference(block: np.ndarray, *, device,
                          dtype=torch.float32) -> torch.Tensor:
-    """A (C, N, N*pitch) P1 or (C, M, M*pitch) P2 block (a state, or a
-    nodal coefficient field) -> tensor on ``device``."""
+    """A (C, N, N*pitch) P1 or (C, M, M*pitch) P2 block ((C, N, N) or
+    (C, M, M) in 2D; a state, or a nodal coefficient field) -> tensor on
+    ``device``."""
     return torch.tensor(np.asarray(block), dtype=dtype, device=device)
 
 

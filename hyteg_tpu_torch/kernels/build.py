@@ -35,6 +35,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # src, A, E, dst, C, N, pitch, dirs, gmask, stream
     "hyteg_p1_const_apply": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # src, A, E, dst, C, N, dirs, gmask, stream (2D)
+    "hyteg_p1_const_apply_2d": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # elmats, coeff, dst, C, N, lumped, mode, stream (2D)
+    "hyteg_p1_diag_2d": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # src, coeff, elmats, dst, C, N, mode, stream (2D)
+    "hyteg_p1_apply_2d": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # src, W, dst, C, M, dirs, stream (2D)
+    "hyteg_p2_const_apply_2d": [_P, _P, _P, _I, _I, _P, _P],
     # elmats, coeff, dst, C, N, pitch, lumped, mode, offs, margins, stream
     "hyteg_p1_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # u, w, y, X, Y, Z, bf16, stream
@@ -125,6 +133,13 @@ def check_launch(rc: int, name: str) -> None:
     runs, and a later synchronize does not report it)."""
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def count_launch(wrapper, dim: int) -> None:
+    """Add one launch to a kernel wrapper's count: ``wrapper.launches``
+    for its 3D kernel, ``wrapper.launches_2d`` for its 2D kernel."""
+    name = "launches" if dim == 3 else "launches_2d"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def current_stream() -> int:

@@ -10,9 +10,12 @@ subsets G. The resulting weights are pointwise exact, so any read whose
 target leaves the macro-tet carries a zero weight (up to rounding) —
 provided the block's padding lanes hold zeros.
 
+In 2D (macro-faces, blocks (C, N, N) with lane = z) the same scheme has 7
+directions and the edge groups {x = 0}, {z = 0} and both.
+
 ``p1_const_apply`` launches the CUDA kernel ``csrc/p1_const_stencil.cu``
-for a CUDA tensor and runs the plain version ``p1_const_apply_torch`` for
-a CPU tensor.
+(its 3D or 2D form) for a CUDA tensor and runs the plain version
+``p1_const_apply_torch`` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -285,11 +288,12 @@ def p1_const_apply_torch(src, A, level: int, dim: int, pitch: int, E=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_tables():
-    """Host int32 tables handed to the CUDA launcher: the (15, 3)
-    stencil directions and the (7,) face-group bit masks."""
-    dirs, _, _ = stencil_tables(3)
-    groups, *_ = face_tables_full(3)
+def _kernel_tables(dim: int = 3):
+    """Host int32 tables handed to the CUDA launcher: the stencil
+    directions ((15, 3) in 3D, (7, 2) in 2D) and the face-group bit masks
+    ((7,) in 3D, (3,) in 2D)."""
+    dirs, _, _ = stencil_tables(dim)
+    groups, *_ = face_tables_full(dim)
     gmask = [sum(1 << i for i in G) for G in groups]
     return (np.ascontiguousarray(dirs, dtype=np.int32),
             np.asarray(gmask, dtype=np.int32))
@@ -310,27 +314,34 @@ def _check_cuda_input(name, t, shape, dtype=torch.float32):
 def p1_const_apply(src, A, E, level: int, dim: int, pitch: int):
     """Per-cell constant-stencil apply (partial sums on interface rows).
 
-    src: (C, N, N*pitch); A: (C, 15, 2) from stencil_weights;
-    E: (C, 7, 2, 15) from face_weights_full. A CPU tensor runs the plain
-    version; a CUDA tensor launches kernel B2 (csrc/p1_const_stencil.cu)
-    and counts the launch in ``p1_const_apply.launches``."""
+    src: (C, N, N*pitch) in 3D, (C, N, N) in 2D; A: (C, n_s, 2) from
+    stencil_weights (n_s 15 or 7); E: (C, n_G, 2, n_s) from
+    face_weights_full (n_G 7 or 3). A CPU tensor runs the plain version;
+    a CUDA tensor launches kernel B2 (csrc/p1_const_stencil.cu) and counts
+    the launch in ``p1_const_apply.launches`` (3D) or
+    ``p1_const_apply.launches_2d``."""
     if src.device.type == "cpu":
         return p1_const_apply_torch(src, A, level, dim, pitch, E=E)
-    if dim != 3:
-        raise NotImplementedError("the CUDA kernel is 3D only")
     N = (1 << level) + 1
     C = src.shape[0]
-    dirs, gmask = _kernel_tables()
-    _check_cuda_input("src", src, (C, N, N * pitch))
+    dirs, gmask = _kernel_tables(dim)
+    _check_cuda_input("src", src, (C, N, N * pitch if dim == 3 else N))
     _check_cuda_input("A", A, (C, dirs.shape[0], 2))
     _check_cuda_input("E", E, (C, gmask.shape[0], 2, dirs.shape[0]))
     dst = torch.empty_like(src)
-    rc = build.library().hyteg_p1_const_apply(
-        src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
-        pitch, dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
+    lib = build.library()
+    if dim == 3:
+        rc = lib.hyteg_p1_const_apply(
+            src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
+            pitch, dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
+    else:
+        rc = lib.hyteg_p1_const_apply_2d(
+            src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
+            dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
     build.check_launch(rc, "p1_const_apply")
-    p1_const_apply.launches += 1
+    build.count_launch(p1_const_apply, dim)
     return dst
 
 
 p1_const_apply.launches = 0
+p1_const_apply.launches_2d = 0

@@ -12,10 +12,14 @@ each valid element base q (x+y+z <= n - margin_t) adds
 to the slot q + off[t,a], optionally scaled by the arithmetic, harmonic
 or geometric mean of a nodal coefficient over the element's vertices.
 
+In 2D (macro-faces, blocks (C, N, N)) the classes are the 2 micro-
+triangles (up, down) with 3 vertices each.
+
 ``p1_apply_local`` and ``p1_diagonal_local`` launch the CUDA kernels
-``csrc/p1_apply.cu`` and ``csrc/p1_diag.cu`` for a CUDA tensor and run
-the plain versions ``p1_apply_local_torch`` and
-``p1_diagonal_local_torch`` for a CPU tensor.
+``csrc/p1_apply.cu`` and ``csrc/p1_diag.cu`` (3D) or ``csrc/p1_tri.cu``
+(2D) for a CUDA tensor and run the plain versions
+``p1_apply_local_torch`` and ``p1_diagonal_local_torch`` for a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -75,34 +79,40 @@ def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
     """Per-cell elementwise apply on the flat layout (partial sums on
     interface rows), with an optional nodal coefficient.
 
-    src, coeff: (C, N, N*pitch); elmats: (C, 6, 4, 4). A CPU tensor runs
-    the plain version; a CUDA tensor launches kernel B4 (csrc/p1_apply.cu)
-    and counts the launch in ``p1_apply_local.launches``."""
+    src, coeff: (C, N, N*pitch) in 3D, (C, N, N) in 2D; elmats: (C, 6, 4,
+    4) or (C, 2, 3, 3). A CPU tensor runs the plain version; a CUDA tensor
+    launches kernel B4 (csrc/p1_apply.cu, or csrc/p1_tri.cu in 2D) and
+    counts the launch in ``p1_apply_local.launches`` (3D) or
+    ``p1_apply_local.launches_2d``."""
     if src.device.type == "cpu":
         return p1_apply_local_torch(src, elmats, level, dim, pitch, coeff,
                                     coeff_avg)
-    if dim != 3:
-        raise NotImplementedError("the CUDA kernel is 3D only")
     if coeff_avg not in MODES:
         raise ValueError(f"unknown averaging mode {coeff_avg!r}")
     N = (1 << level) + 1
     C = src.shape[0]
-    offs, _ = _kernel_tables()
-    _check_cuda_input("src", src, (C, N, N * pitch))
+    block = (C, N, N * pitch if dim == 3 else N)
+    offs = micro.offsets(dim)
+    _check_cuda_input("src", src, block)
     _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
     if coeff is not None:
-        _check_cuda_input("coeff", coeff, (C, N, N * pitch))
+        _check_cuda_input("coeff", coeff, block)
     dst = torch.empty_like(src)
-    rc = build.library().hyteg_p1_apply(
-        src.data_ptr(), None if coeff is None else coeff.data_ptr(),
-        elmats.data_ptr(), dst.data_ptr(), C, N, pitch,
-        MODES.index(coeff_avg), build.current_stream())
+    args = (src.data_ptr(), None if coeff is None else coeff.data_ptr(),
+            elmats.data_ptr(), dst.data_ptr(), C, N)
+    if dim == 3:
+        rc = build.library().hyteg_p1_apply(
+            *args, pitch, MODES.index(coeff_avg), build.current_stream())
+    else:
+        rc = build.library().hyteg_p1_apply_2d(
+            *args, MODES.index(coeff_avg), build.current_stream())
     build.check_launch(rc, "p1_apply_local")
-    p1_apply_local.launches += 1
+    build.count_launch(p1_apply_local, dim)
     return dst
 
 
 p1_apply_local.launches = 0
+p1_apply_local.launches_2d = 0
 
 
 def p1_diagonal_local_torch(elmats, level: int, dim: int, pitch: int,
@@ -145,32 +155,40 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
                       coeff_avg: str = "arithmetic"):
     """Per-cell partial (lumped) diagonal on the flat layout.
 
-    elmats: (C, 6, 4, 4); coeff: optional nodal field (C, N, N*pitch).
-    A CPU tensor runs the plain version; a CUDA tensor launches kernel B3
-    (csrc/p1_diag.cu) and counts the launch in
-    ``p1_diagonal_local.launches``."""
+    elmats: (C, 6, 4, 4) in 3D, (C, 2, 3, 3) in 2D; coeff: optional nodal
+    field (C, N, N*pitch) or (C, N, N). A CPU tensor runs the plain
+    version; a CUDA tensor launches kernel B3 (csrc/p1_diag.cu, or
+    csrc/p1_tri.cu in 2D) and counts the launch in
+    ``p1_diagonal_local.launches`` (3D) or
+    ``p1_diagonal_local.launches_2d``."""
     if elmats.device.type == "cpu":
         return p1_diagonal_local_torch(elmats, level, dim, pitch, lumped,
                                        coeff, coeff_avg)
-    if dim != 3:
-        raise NotImplementedError("the CUDA kernel is 3D only")
     if coeff_avg not in MODES:
         raise ValueError(f"unknown averaging mode {coeff_avg!r}")
     N = (1 << level) + 1
     C = elmats.shape[0]
-    offs, margins = _kernel_tables()
+    block = (C, N, N * pitch if dim == 3 else N)
+    offs = micro.offsets(dim)
     _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
     if coeff is not None:
-        _check_cuda_input("coeff", coeff, (C, N, N * pitch))
-    dst = torch.empty((C, N, N * pitch), dtype=elmats.dtype,
-                      device=elmats.device)
-    rc = build.library().hyteg_p1_diag(
-        elmats.data_ptr(), None if coeff is None else coeff.data_ptr(),
-        dst.data_ptr(), C, N, pitch, int(lumped), MODES.index(coeff_avg),
-        offs.ctypes.data, margins.ctypes.data, build.current_stream())
+        _check_cuda_input("coeff", coeff, block)
+    dst = torch.empty(block, dtype=elmats.dtype, device=elmats.device)
+    co = None if coeff is None else coeff.data_ptr()
+    if dim == 3:
+        offs, margins = _kernel_tables()
+        rc = build.library().hyteg_p1_diag(
+            elmats.data_ptr(), co, dst.data_ptr(), C, N, pitch, int(lumped),
+            MODES.index(coeff_avg), offs.ctypes.data, margins.ctypes.data,
+            build.current_stream())
+    else:
+        rc = build.library().hyteg_p1_diag_2d(
+            elmats.data_ptr(), co, dst.data_ptr(), C, N, int(lumped),
+            MODES.index(coeff_avg), build.current_stream())
     build.check_launch(rc, "p1_diagonal_local")
-    p1_diagonal_local.launches += 1
+    build.count_launch(p1_diagonal_local, dim)
     return dst
 
 
 p1_diagonal_local.launches = 0
+p1_diagonal_local.launches_2d = 0

@@ -16,23 +16,25 @@ Base validity mirrors the P1 constant stencil (kernels/p1_const_stencil.py):
     corrected by inclusion-exclusion over G <= supp2(O_A) with sign
     (-1)^(|G|+1) (the face table E).
 
-In 3D: 65 directions, 8 parities, 3 shell slots, 7 face groups. The
-JAX package keeps the tables A (C, 8, 65, 3) and E (C, 7, 8, 65, 3) and
-sums masked accumulators. Here both tables are folded once per operator
-into one weight row per node class (``p2_folded_weights``): a node's
-face set f (which of x, y, z are 0), parity and shell key
-k = min(2, 2n - S) select a row of 65 weights,
+In 3D: 65 directions, 8 parities, 3 shell slots, 7 face groups; in 2D
+(macro-faces, blocks (C, M, M)): 19 directions, 4 parities, 3 shell
+slots, 3 face groups. The JAX package keeps the tables A (C, n_par, n_s,
+3) and E (C, n_g, n_par, n_s, 3) and sums masked accumulators. Here both
+tables are folded once per operator into one weight row per node class
+(``p2_folded_weights``): a node's face set f (which coordinates are 0),
+parity and shell key k = min(2, 2n - S) select a row of n_s weights,
 
     W[f, par, k, s] = sum_{j <= k} (A[par, s, j] - sum_{G <= f} E[G, par, s, j]),
 
-and the apply is dst[p] = [p in the tet] * sum_s W[row(p), s] src[p + s].
-Reads follow ``flat.shift_read``: zero beyond the block on the x axis and
-on the flat lane axis. The weights are pointwise exact up to rounding, so
-reads that leave the tet (or alias across a lane row) meet zero weights.
+and the apply is dst[p] = [p in the simplex] * sum_s W[row(p), s] src[p + s]
+(192 rows of 65 in 3D, 48 rows of 19 in 2D). Reads follow
+``flat.shift_read``: zero beyond the block on the x axis and on the lane
+axis. The weights are pointwise exact up to rounding, so reads that leave
+the simplex (or alias across a 3D lane row) meet zero weights.
 
 ``p2_const_apply`` launches the CUDA kernel ``csrc/p2_const_stencil.cu``
-for a CUDA tensor and runs the plain version ``p2_const_apply_torch`` for
-a CPU tensor.
+(3D) or its 2D form for a CUDA tensor and runs the plain version
+``p2_const_apply_torch`` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -47,12 +49,19 @@ from ..indexing import flat, micro
 from . import build
 from .p1_const_stencil import _check_cuda_input
 
-N_FACE_SETS = 8   # subsets of the coordinate faces {x = 0, y = 0, z = 0}
 N_SHELL = 3       # shell key k = min(2, 2n - S)
 
 
 def _par_index(par) -> int:
-    return int(par[0]) * 4 + int(par[1]) * 2 + int(par[2])
+    """Parity class of a node: its coordinates' parity bits, the first
+    coordinate highest (x, y, z in 3D; x, z in 2D)."""
+    return sum(int(b) << (len(par) - 1 - i) for i, b in enumerate(par))
+
+
+def n_rows(dim: int) -> int:
+    """Folded weight rows per cell: face sets x parities x shell keys
+    (192 in 3D, 48 in 2D)."""
+    return (1 << dim) * (1 << dim) * N_SHELL
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,8 +71,6 @@ def p2_stencil_tables(dim: int):
     Returns (dirs (n_s, dim) int, rows, cols, n_par, n_j): the flat
     element-matrix entry rows[k] adds into weight slot cols[k] of the
     (n_par, n_s, n_j) table."""
-    if dim != 3:
-        raise NotImplementedError("the P2 stencil is ported for 3D only")
     from ..operators.p2_elementwise import p2_node_offsets
 
     node_offs = p2_node_offsets(dim)
@@ -166,16 +173,20 @@ def _nz_tables(dim: int):
 @functools.lru_cache(maxsize=None)
 def _mask_arrays_p2(level: int, dim: int, pitch: int):
     """Static (M, lanes) numpy float32 masks on the node grid: K0 (in the
-    tet), the shells S = 2n - m (m = 0, 1), the face indicators p_i = 0,
-    and the 8 parity masks."""
+    simplex), the shells S = 2n - m (m = 0, 1), the face indicators
+    p_i = 0, and the 2^dim parity masks. A 2D block (M, M) has no pitch."""
     n = 1 << level
     M = 2 * n + 1
-    y, z = flat.yz_maps(M, pitch)
     xs = np.arange(M)[:, None]
-    ly, lz = y[None, :], z[None, :]
-    in_z = lz < M
-    ssum = xs + ly + lz
-    coords = [np.broadcast_to(c, (M, M * pitch)) for c in (xs, ly, lz)]
+    if dim == 3:
+        y, z = flat.yz_maps(M, pitch)
+        axes = (xs, y[None, :], z[None, :])
+        in_z = axes[2] < M
+    else:
+        axes = (xs, np.arange(M)[None, :])
+        in_z = True
+    ssum = sum(axes)
+    coords = [np.broadcast_to(c, ssum.shape) for c in axes]
     K0 = ((ssum <= 2 * n) & in_z).astype(np.float32)
     shells = tuple(((ssum == 2 * n - m) & in_z).astype(np.float32)
                    for m in range(2))
@@ -190,7 +201,7 @@ def _mask_arrays_p2(level: int, dim: int, pitch: int):
 
 
 # ---------------------------------------------------------------------------
-# folded weights: one row of 65 per (face set, parity, shell key)
+# folded weights: one row of n_s per (face set, parity, shell key)
 # ---------------------------------------------------------------------------
 
 
@@ -204,88 +215,102 @@ def _face_subsets(dim: int) -> tuple:
 
 
 def p2_folded_weights(A: torch.Tensor, E: torch.Tensor) -> torch.Tensor:
-    """(C, 8, 65, 3) A and (C, 7, 8, 65, 3) E -> (C, 192, 65) rows
-    W[(f * 8 + par) * 3 + k, s] = sum_{j <= k} (A - sum_{G <= f} E)[par, s, j]
-    (see the module docstring). Computed once per operator."""
-    C = A.shape[0]
+    """(C, n_par, n_s, 3) A and (C, n_g, n_par, n_s, 3) E -> (C, rows, n_s)
+    W[(f * n_par + par) * 3 + k, s] = sum_{j <= k} (A - sum_{G <= f} E)[par, s, j]
+    (see the module docstring): (C, 192, 65) in 3D, (C, 48, 19) in 2D.
+    Computed once per operator."""
+    C, n_par = A.shape[:2]
+    dim = n_par.bit_length() - 1
     rows = []
-    for subset in _face_subsets(3):
+    for subset in _face_subsets(dim):
         EF = torch.zeros_like(A)
         for g in subset:
             EF = EF + E[:, g]
         rows.append(A - EF)
     D = torch.stack(rows, dim=1)                 # (C, f, par, s, j)
     W = D.cumsum(dim=-1).permute(0, 1, 2, 4, 3)  # (C, f, par, k, s)
-    return W.reshape(C, N_FACE_SETS * 8 * N_SHELL, A.shape[2]).contiguous()
+    return W.reshape(C, n_rows(dim), A.shape[2]).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
-def _row_index_np(level: int, pitch: int) -> tuple[np.ndarray, np.ndarray]:
+def _row_index_np(level: int, dim: int,
+                  pitch: int) -> tuple[np.ndarray, np.ndarray]:
     """(M, lanes) int64 weight-row index of every node and its K0 mask
-    (rows of nodes outside the tet are 0 and masked off)."""
-    K0, shells, faces, pars = _mask_arrays_p2(level, 3, pitch)
-    f = faces[0] + 2 * faces[1] + 4 * faces[2]
+    (rows of nodes outside the simplex are 0 and masked off)."""
+    K0, shells, faces, pars = _mask_arrays_p2(level, dim, pitch)
+    f = sum((1 << i) * m for i, m in enumerate(faces))
     par = sum(p * m for p, m in enumerate(pars))
     k = 2 - 2 * shells[0] - shells[1]
-    row = np.where(K0 > 0, (f * 8 + par) * N_SHELL + k, 0)
+    row = np.where(K0 > 0, (f * len(pars) + par) * N_SHELL + k, 0)
     return row.astype(np.int64), K0
 
 
 @functools.lru_cache(maxsize=8)
-def _row_index(level: int, pitch: int, dtype, device):
-    row, K0 = _row_index_np(level, pitch)
+def _row_index(level: int, dim: int, pitch: int, dtype, device):
+    row, K0 = _row_index_np(level, dim, pitch)
     return (torch.as_tensor(row, device=device),
             torch.as_tensor(K0, dtype=dtype, device=device))
 
 
-def p2_const_apply_torch(src, W, level: int, pitch: int):
+def p2_const_apply_torch(src, W, level: int, pitch: int, dim: int = 3):
     """Plain-torch parity-stencil P2 apply (counterpart of hyteg_tpu's
     p2_const_apply_xla; partial sums on interface rows). src: (C, M,
-    M*pitch); W: (C, 192, 65) from p2_folded_weights.
+    M*pitch) in 3D, (C, M, M) in 2D; W: (C, n_rows(dim), n_s) from
+    p2_folded_weights.
 
     One direction at a time: gather the per-node weight of direction s
     from its row, multiply-add the shifted read. Three or four blocks are
-    alive at once, not the 65 shifted reads of the JAX formulation, so it
+    alive at once, not the n_s shifted reads of the JAX formulation, so it
     fits beside a GMG stack at level 6."""
-    dirs, *_ = p2_stencil_tables(3)
-    row, K0 = _row_index(level, pitch, src.dtype, src.device)
+    dirs, *_ = p2_stencil_tables(dim)
+    row, K0 = _row_index(level, dim, pitch, src.dtype, src.device)
     dst = torch.zeros_like(src)
     for s in range(dirs.shape[0]):
         w = W[:, :, s][:, row]  # (C, M, lanes)
         dst.addcmul_(w, flat.shift_read(src, tuple(int(v) for v in dirs[s]),
-                                        pitch, 3))
+                                        pitch, dim))
     return dst.mul_(K0)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_dirs() -> np.ndarray:
-    """Host (65, 3) int32 stencil directions for the CUDA launcher."""
-    dirs, *_ = p2_stencil_tables(3)
+def _kernel_dirs(dim: int = 3) -> np.ndarray:
+    """Host (n_s, dim) int32 stencil directions for the CUDA launcher:
+    (65, 3) in 3D, (19, 2) in 2D."""
+    dirs, *_ = p2_stencil_tables(dim)
     return np.ascontiguousarray(dirs, dtype=np.int32)
 
 
-def p2_const_apply(src, W, level: int, pitch: int):
+def p2_const_apply(src, W, level: int, pitch: int, dim: int = 3):
     """Per-cell parity-stencil P2 apply (partial sums on interface rows).
 
-    src: (C, M, M*pitch), M = 2^(level+1)+1; W: the (C, 192, 65)
-    p2_folded_weights of the stencil tables A (p2_stencil_weights) and E
-    (p2_face_weights). A CPU tensor runs the plain version; a CUDA tensor
-    launches kernel B5 (csrc/p2_const_stencil.cu) and counts the launch in
-    ``p2_const_apply.launches``."""
+    src: (C, M, M*pitch) in 3D or (C, M, M) in 2D, M = 2^(level+1)+1; W:
+    the (C, n_rows(dim), n_s) p2_folded_weights of the stencil tables A
+    (p2_stencil_weights) and E (p2_face_weights). A CPU tensor runs the
+    plain version; a CUDA tensor launches kernel B5
+    (csrc/p2_const_stencil.cu) and counts the launch in
+    ``p2_const_apply.launches`` (3D) or ``p2_const_apply.launches_2d``."""
     if src.device.type == "cpu":
-        return p2_const_apply_torch(src, W, level, pitch)
+        return p2_const_apply_torch(src, W, level, pitch, dim)
     M = (2 << level) + 1
     C = src.shape[0]
-    dirs = _kernel_dirs()
-    _check_cuda_input("src", src, (C, M, M * pitch))
-    _check_cuda_input("W", W, (C, N_FACE_SETS * 8 * N_SHELL, dirs.shape[0]))
+    dirs = _kernel_dirs(dim)
+    lanes = M * pitch if dim == 3 else M
+    _check_cuda_input("src", src, (C, M, lanes))
+    _check_cuda_input("W", W, (C, n_rows(dim), dirs.shape[0]))
     dst = torch.empty_like(src)
-    rc = build.library().hyteg_p2_const_apply(
-        src.data_ptr(), W.data_ptr(), dst.data_ptr(), C, M, pitch,
-        dirs.ctypes.data, build.current_stream())
+    lib = build.library()
+    if dim == 3:
+        rc = lib.hyteg_p2_const_apply(
+            src.data_ptr(), W.data_ptr(), dst.data_ptr(), C, M, pitch,
+            dirs.ctypes.data, build.current_stream())
+    else:
+        rc = lib.hyteg_p2_const_apply_2d(
+            src.data_ptr(), W.data_ptr(), dst.data_ptr(), C, M,
+            dirs.ctypes.data, build.current_stream())
     build.check_launch(rc, "p2_const_apply")
-    p2_const_apply.launches += 1
+    build.count_launch(p2_const_apply, dim)
     return dst
 
 
 p2_const_apply.launches = 0
+p2_const_apply.launches_2d = 0

@@ -26,9 +26,11 @@ from ..kernels.p1_stencil import p1_apply_local, p1_diagonal_local
 
 def compute_elmats(space: P1Space, form, cell_vertices: torch.Tensor) -> torch.Tensor:
     """(C, T, nv, nv) element matrices — one micro-element per congruence
-    class (base-independent for affine cells)."""
-    v0 = cell_vertices[:, :1, :]
-    J = cell_vertices[:, 1:, :] - v0  # (C, dim, dim) rows are edge vectors
+    class (base-independent for affine cells). A 2D mesh keeps its
+    vertices as (x, y, 0): the forms take (x, y)."""
+    verts = cell_vertices[..., :space.dim]
+    v0 = verts[:, :1, :]
+    J = verts[:, 1:, :] - v0  # (C, dim, dim) rows are edge vectors
     offs = torch.as_tensor(micro.offsets(space.dim), dtype=cell_vertices.dtype,
                            device=cell_vertices.device) / space.n
     micro_verts = v0[:, None] + torch.einsum("tvd,cde->ctve", offs, J)
@@ -39,8 +41,9 @@ class P1ElementwiseOperator(nn.Module):
     """A: src -> dst with constant-per-cell element matrices.
 
     ``form``: callable (..., nv, dim) physical vertex coords -> (..., nv, nv).
-    ``elmats`` (optional): precomputed (C, 6, 4, 4) element matrices, e.g.
-    carried over from the JAX package with interop.elmats_from_reference.
+    ``elmats`` (optional): precomputed (C, 6, 4, 4) element matrices
+    ((C, 2, 3, 3) in 2D), e.g. carried over from the JAX package with
+    interop.elmats_from_reference.
     The per-cell tables are registered buffers.
     """
 

@@ -1,16 +1,17 @@
 """Matrix-free P2 elementwise operators on the dense node grid (torch
-counterpart of hyteg_tpu/operators/p2_elementwise.py, 3D).
+counterpart of hyteg_tpu/operators/p2_elementwise.py, 2D and 3D).
 
 On the level-(L+1) node grid, micro-element class t with base b (on the
-level-L element grid) owns the 10 nodes at ``2 b + O_t(g)``, O_t(g) in
-{0,1,2}^3, and the apply is
+level-L element grid) owns the 10 nodes (6 in 2D) at ``2 b + O_t(g)``,
+O_t(g) in {0,1,2}^dim, and the apply is
 
     dst[2b + O_t(g_A)] += elMat[c, t, A, B] * src[2b + O_t(g_B)]
 
 over the valid bases of each class. The JAX package slices the flat lanes
-with stride 2; here the block is viewed as (C, M, M, pitch) and every
-class is read and written as a stride-2 view over the (n, n, n) base
-cube, which keeps no padding or aliased lanes in the arithmetic.
+with stride 2; here a 3D block is viewed as (C, M, M, pitch) (a 2D block
+(C, M, M) is its own grid) and every class is read and written as a
+stride-2 view over the (n,)*dim base cube, which keeps no padding or
+aliased lanes in the arithmetic.
 
 With ``coeff=None`` the operator applies through the parity-resolved
 stencil, kernel B5 (kernels/p2_const_stencil.py). The apply with a nodal
@@ -50,24 +51,26 @@ def p2_node_offsets(dim: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _base_masks(level: int, dtype, device) -> torch.Tensor:
-    """(T, n, n, n) class base masks on the level-L element grid."""
+def _base_masks(level: int, dim: int, dtype, device) -> torch.Tensor:
+    """(T, n, ..., n) class base masks on the level-L element grid."""
     n = 1 << level
-    m = np.stack([micro.elem_base_mask(level, t, 3)[:n, :n, :n]
-                  for t in range(micro.num_classes(3))])
+    m = np.stack([micro.elem_base_mask(level, t, dim)[(slice(0, n),) * dim]
+                  for t in range(micro.num_classes(dim))])
     return torch.as_tensor(m, dtype=dtype, device=device)
 
 
-def _grid(u: torch.Tensor, pitch: int) -> torch.Tensor:
-    """(C, M, M*pitch) block -> (C, M, M, pitch) view."""
+def _grid(u: torch.Tensor, pitch: int, dim: int) -> torch.Tensor:
+    """(C, M, M*pitch) block -> (C, M, M, pitch) view; a 2D block
+    (C, M, M) is its own grid."""
+    if dim == 2:
+        return u
     return u.view(u.shape[0], u.shape[1], u.shape[1], pitch)
 
 
 def _read_strided(u3: torch.Tensor, off, n: int, step: int = 2) -> torch.Tensor:
-    """R[b] = u[step * b + off] over the (n, n, n) base cube: a view."""
-    ox, oy, oz = (int(o) for o in off)
-    return u3[:, ox : ox + step * n : step, oy : oy + step * n : step,
-              oz : oz + step * n : step]
+    """R[b] = u[step * b + off] over the (n,)*dim base cube: a view."""
+    return u3[(slice(None),) + tuple(slice(int(o), int(o) + step * n, step)
+                                     for o in off)]
 
 
 def _scatter_strided_add(d3: torch.Tensor, v: torch.Tensor, off, n: int,
@@ -76,10 +79,10 @@ def _scatter_strided_add(d3: torch.Tensor, v: torch.Tensor, off, n: int,
     _read_strided(d3, off, n, step).add_(v)
 
 
-def _coeff_mean(c3: torch.Tensor, t: int, n: int) -> torch.Tensor:
-    """(C, n, n, n) arithmetic mean of a nodal coefficient over the 4
-    vertices (node offsets 2 * off_t) of each class-t element."""
-    voffs = micro.offsets(3)
+def _coeff_mean(c3: torch.Tensor, t: int, n: int, dim: int) -> torch.Tensor:
+    """(C, n, ..., n) arithmetic mean of a nodal coefficient over the
+    dim + 1 vertices (node offsets 2 * off_t) of each class-t element."""
+    voffs = micro.offsets(dim)
     sc = _read_strided(c3, 2 * voffs[t, 0], n)
     for v in range(1, voffs.shape[1]):
         sc = sc + _read_strided(c3, 2 * voffs[t, v], n)
@@ -89,12 +92,14 @@ def _coeff_mean(c3: torch.Tensor, t: int, n: int) -> torch.Tensor:
 def compute_p2_elmats(space: P2Space, kind: str = "laplace",
                       cell_vertices=None, degree: int | None = None,
                       form=None) -> torch.Tensor:
-    """(C, T, 10, 10) P2 element matrices per micro-element class, on the
-    space's device and dtype (assembled in float64).
+    """(C, T, 10, 10) P2 element matrices per micro-element class
+    ((C, 2, 6, 6) in 2D), on the space's device and dtype (assembled in
+    float64).
 
-    kind: 'laplace' | 'mass', or pass ``form(verts) -> (..., 10, 10)``."""
+    kind: 'laplace' | 'mass', or pass ``form(verts) -> (..., nn, nn)``."""
     cv = space.cell_vertices(0) if cell_vertices is None else cell_vertices
     verts = torch.as_tensor(np.asarray(cv), dtype=torch.float64)
+    verts = verts[..., :space.dim]  # a 2D mesh keeps its vertices as (x, y, 0)
     v0 = verts[:, :1, :]
     J = verts[:, 1:, :] - v0
     offs = torch.as_tensor(micro.offsets(space.dim), dtype=torch.float64) / space.n
@@ -116,30 +121,30 @@ def p2_apply_local(src, elmats, level: int, dim: int,
                    pitch: int | None = None, coeff=None) -> torch.Tensor:
     """Per-cell partial P2 apply on the node grid (general formulation).
 
-    src: (C, M, M*pitch); elmats: (C, T, 10, 10); coeff: optional nodal
-    field like src; each element is scaled by the arithmetic mean of its
-    4 vertex values, as in the JAX package. Per class: one (10, 10) x
-    (10, n^3) batched product of the 10 stride-2 reads, then 10 strided
-    adds."""
-    if dim != 3:
-        raise NotImplementedError("the P2 apply is ported for 3D only")
+    src: (C, M, M*pitch) (3D) or (C, M, M) (2D); elmats: (C, T, nn, nn);
+    coeff: optional nodal field like src; each element is scaled by the
+    arithmetic mean of its dim + 1 vertex values, as in the JAX package.
+    Per class: one (nn, nn) x (nn, n^dim) batched product of the nn
+    stride-2 reads, then nn strided adds."""
     n = 1 << level
     M = 2 * n + 1
     pitch = M if pitch is None else pitch
     C = src.shape[0]
     node_offs = p2_node_offsets(dim)
     T, nn = node_offs.shape[:2]
-    masks = _base_masks(level, src.dtype, src.device)
-    u3 = _grid(src.contiguous(), pitch)
-    c3 = None if coeff is None else _grid(coeff.contiguous(), pitch)
+    masks = _base_masks(level, dim, src.dtype, src.device)
+    u3 = _grid(src.contiguous(), pitch, dim)
+    c3 = None if coeff is None else _grid(coeff.contiguous(), pitch, dim)
     dst = torch.zeros_like(src)
-    d3 = _grid(dst, pitch)
+    d3 = _grid(dst, pitch, dim)
     for t in range(T):
         R = torch.stack([_read_strided(u3, node_offs[t, B], n)
                          for B in range(nn)], dim=1).reshape(C, nn, -1)
-        Y = torch.bmm(elmats[:, t].to(src.dtype), R).view(C, nn, n, n, n)
-        scale = masks[t] if c3 is None else masks[t] * _coeff_mean(c3, t, n)
-        Y = Y * scale.unsqueeze(-4)
+        Y = torch.bmm(elmats[:, t].to(src.dtype), R).view(
+            (C, nn) + (n,) * dim)
+        scale = masks[t] if c3 is None else masks[t] * _coeff_mean(c3, t, n,
+                                                                    dim)
+        Y = Y * scale.unsqueeze(-dim - 1)
         for A in range(nn):
             _scatter_strided_add(d3, Y[:, A], node_offs[t, A], n)
     return dst
@@ -149,20 +154,19 @@ def p2_diagonal_local(elmats, level: int, dim: int, block_shape,
                       pitch: int | None = None, coeff=None) -> torch.Tensor:
     """Per-cell partial diagonal dst[2b + O_A] += elMat[t, A, A] (times the
     element's coefficient mean). Set-up only."""
-    if dim != 3:
-        raise NotImplementedError("the P2 diagonal is ported for 3D only")
     n = 1 << level
     pitch = 2 * n + 1 if pitch is None else pitch
     node_offs = p2_node_offsets(dim)
     T, nn = node_offs.shape[:2]
-    masks = _base_masks(level, elmats.dtype, elmats.device)
+    masks = _base_masks(level, dim, elmats.dtype, elmats.device)
     dst = torch.zeros(block_shape, dtype=elmats.dtype, device=elmats.device)
-    d3 = _grid(dst, pitch)
-    c3 = None if coeff is None else _grid(coeff.contiguous(), pitch)
+    d3 = _grid(dst, pitch, dim)
+    c3 = None if coeff is None else _grid(coeff.contiguous(), pitch, dim)
     for t in range(T):
-        scale = masks[t] if c3 is None else masks[t] * _coeff_mean(c3, t, n)
+        scale = masks[t] if c3 is None else masks[t] * _coeff_mean(c3, t, n,
+                                                                    dim)
         for A in range(nn):
-            w = elmats[:, t, A, A].reshape(-1, 1, 1, 1)
+            w = elmats[:, t, A, A].reshape((-1,) + (1,) * dim)
             _scatter_strided_add(d3, w * scale, node_offs[t, A], n)
     return dst
 
@@ -170,8 +174,9 @@ def p2_diagonal_local(elmats, level: int, dim: int, block_shape,
 class P2ElementwiseOperator(nn.Module):
     """P2 -> P2 operator (reference: P2ElementwiseOperator).
 
-    ``elmats`` (optional): precomputed (C, 6, 10, 10) element matrices,
-    e.g. carried over from the JAX package with interop. The element
+    ``elmats`` (optional): precomputed (C, 6, 10, 10) element matrices
+    ((C, 2, 6, 6) in 2D), e.g. carried over from the JAX package with
+    interop. The element
     matrices and the folded stencil rows W (kernels/p2_const_stencil.py),
     which kernel B5 reads, are registered buffers."""
 
@@ -196,7 +201,8 @@ class P2ElementwiseOperator(nn.Module):
         """Per-cell partial apply (no exchange)."""
         sp = self.space
         if coeff is None:
-            return p2_const_apply(x, self.stencil_folded, sp.level, sp.pitch)
+            return p2_const_apply(x, self.stencil_folded, sp.level, sp.pitch,
+                                  sp.dim)
         return p2_apply_local(x, self.elmats, sp.level, sp.dim, sp.pitch,
                               coeff)
 

@@ -1,17 +1,18 @@
 """P2 -> P2 quadratic grid transfers on dense node grids (torch
-counterpart of hyteg_tpu/operators/p2_transfer.py, 3D).
+counterpart of hyteg_tpu/operators/p2_transfer.py, 2D and 3D).
 
 Reference: src/hyteg/gridtransferoperators/P2toP2QuadraticProlongation.hpp /
 P2toP2QuadraticRestriction.hpp. A coarse micro-element (class t, base b on
-the level-L element grid) covers the 35 fine nodes at level-(L+2) coords
-``4 b + G`` (G = sum_i m_i off_t[i], |m| = 4); prolongation evaluates the
-coarse P2 basis there:
+the level-L element grid) covers the 35 fine nodes (15 in 2D) at
+level-(L+2) coords ``4 b + G`` (G = sum_i m_i off_t[i], |m| = 4);
+prolongation evaluates the coarse P2 basis there:
 
     out[4 b + G] = sum_A  phi_A(m / 4) * u[2 b + O_t(g_A)]
 
 Per class, one gather takes the 10 coarse values of every valid element
-base, one product with the (35, 10) weight table evaluates the 35 fine
-values, and one ``index_add_`` adds them into the fine block: three
+base, one product with the (35, 10) weight table ((15, 6) in 2D)
+evaluates the fine values, and one ``index_add_`` adds them into the
+fine block: three
 launches per class, where a strided add per (class, fine offset) took
 about 240 per transfer and left the V-cycle bound by host launches.
 Neighbouring elements share fine nodes where their values agree (FE
@@ -71,42 +72,49 @@ def _fine_offsets_and_weights(dim: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _elem_mult(level: int, pitch: int) -> np.ndarray:
-    """(Mf, Mf*pitch) number of coarse (class, base) elements of one macro
+def _elem_mult(level: int, dim: int, pitch: int) -> np.ndarray:
+    """(Mf, lanes) number of coarse (class, base) elements of one macro
     cell that contain each fine node (1 where none, and on padding lanes:
     a neutral divisor)."""
     n = 1 << level
     Mf = (1 << (level + 2)) + 1
-    gs, _ = _fine_offsets_and_weights(3)
-    count = np.zeros((Mf,) * 3)
-    for t in range(micro.num_classes(3)):
-        bases = np.argwhere(micro.elem_base_mask(level, t, 3)[:n, :n, :n])
+    gs, _ = _fine_offsets_and_weights(dim)
+    count = np.zeros((Mf,) * dim)
+    for t in range(micro.num_classes(dim)):
+        bases = np.argwhere(
+            micro.elem_base_mask(level, t, dim)[(slice(0, n),) * dim])
         for G in gs[t]:
             pos = bases * 4 + G
-            count[pos[:, 0], pos[:, 1], pos[:, 2]] += 1.0
+            count[tuple(pos.T)] += 1.0
     count[count == 0] = 1.0
+    if dim == 2:
+        return count
     out = flat.flatten_field(count, pitch)
     out[flat.flatten_field(np.ones_like(count), pitch) == 0] = 1.0
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _class_indices(level: int, pitch: int) -> tuple:
-    """Per class t: (coarse (10, nb_t), fine (35, nb_t)) int64 flat indices
-    into one cell's coarse (Mc, Mc*pitch) and fine (Mf, Mf*pitch) blocks of
-    the 10 P2 nodes 2b + O_t(g_A) and the 35 fine nodes 4b + G of every
-    valid class-t element base b on the level-``level`` element grid."""
+def _class_indices(level: int, dim: int, pitch: int) -> tuple:
+    """Per class t: (coarse (nA, nb_t), fine (nG, nb_t)) int64 flat
+    indices into one cell's coarse (Mc, Mc*pitch) and fine (Mf, Mf*pitch)
+    blocks ((Mc, Mc) and (Mf, Mf) in 2D) of the nA P2 nodes 2b + O_t(g_A)
+    and the nG fine nodes 4b + G of every valid class-t element base b on
+    the level-``level`` element grid."""
     n = 1 << level
     Mc, Mf = 2 * n + 1, 4 * n + 1
-    node_offs = p2_node_offsets(3)
-    gs, _ = _fine_offsets_and_weights(3)
+    node_offs = p2_node_offsets(dim)
+    gs, _ = _fine_offsets_and_weights(dim)
 
     def flat_index(pos, M):
+        if dim == 2:
+            return pos[..., 0] * M + pos[..., 1]
         return (pos[..., 0] * M + pos[..., 1]) * pitch + pos[..., 2]
 
     out = []
     for t in range(node_offs.shape[0]):
-        b = np.argwhere(micro.elem_base_mask(level, t, 3)[:n, :n, :n])
+        b = np.argwhere(
+            micro.elem_base_mask(level, t, dim)[(slice(0, n),) * dim])
         out.append((flat_index(2 * b[None] + node_offs[t][:, None], Mc),
                     flat_index(4 * b[None] + gs[t][:, None], Mf)))
     return tuple(out)
@@ -124,14 +132,15 @@ class P2Transfer(nn.Module):
         assert fine.storage is coarse.storage
         self.coarse = coarse
         self.fine = fine
-        self._repitch = coarse.pitch != fine.pitch
+        self.dim = dim = coarse.dim
+        self._repitch = dim == 3 and coarse.pitch != fine.pitch
         kw = dict(dtype=fine.dtype, device=fine.device)
-        _, W = _fine_offsets_and_weights(3)
+        _, W = _fine_offsets_and_weights(dim)
         self.register_buffer("weights", torch.as_tensor(W, **kw))  # (T, nG, nA)
         self.register_buffer("inv_mult", torch.as_tensor(
-            1.0 / _elem_mult(coarse.level, fine.pitch), **kw))
+            1.0 / _elem_mult(coarse.level, dim, fine.pitch), **kw))
         self.index = [tuple(torch.as_tensor(a, device=fine.device) for a in ij)
-                      for ij in _class_indices(coarse.level, fine.pitch)]
+                      for ij in _class_indices(coarse.level, dim, fine.pitch)]
 
     def _c_in(self, uc):
         if not self._repitch:
@@ -152,7 +161,7 @@ class P2Transfer(nn.Module):
         ucf = self._c_in(uc).reshape(C, -1)
         out = uc.new_zeros((C, fsp.M * fsp.lanes))
         for t, (ic, jf) in enumerate(self.index):
-            V = torch.matmul(self.weights[t], ucf[:, ic])  # (C, 35, nb)
+            V = torch.matmul(self.weights[t], ucf[:, ic])  # (C, nG, nb)
             out.index_add_(1, jf.view(-1), V.view(C, -1))
         out = out.view(C, fsp.M, fsp.lanes)
         return out.mul_(self.inv_mult).mul_(fsp.vertex_mask_t)
@@ -172,9 +181,10 @@ class P2Transfer(nn.Module):
         f = rfs.view(-1)  # in place on the fresh masked copy
         f[sd_f.slot_flat] = f[sd_f.slot_flat] * sd_f.slot_inv_mult
         rff = rfs.mul_(self.inv_mult).view(C, -1)
-        rc = rf.new_zeros((C, csp.M * fsp.pitch * csp.M))
+        Lc = csp.M * fsp.pitch if self.dim == 3 else csp.M
+        rc = rf.new_zeros((C, csp.M * Lc))
         for t, (ic, jf) in enumerate(self.index):
-            V = torch.matmul(self.weights[t].T, rff[:, jf])  # (C, 10, nb)
+            V = torch.matmul(self.weights[t].T, rff[:, jf])  # (C, nA, nb)
             rc.index_add_(1, ic.view(-1), V.view(C, -1))
-        rc = self._c_out(rc.view(C, csp.M, csp.M * fsp.pitch))
+        rc = self._c_out(rc.view(C, csp.M, Lc))
         return csp._exchange_add_(rc * csp.vertex_mask_t, sd_c)  # fresh

@@ -2,9 +2,9 @@
 counterpart of hyteg_tpu/operators/transfer.py.
 
 Every odd-parity fine micro-vertex is the midpoint of exactly one coarse
-micro-edge of the structured tet grid, so both directions are ONE
-symmetric 15-direction stencil S (center 1, the 14 tet stencil directions
-1/2):
+micro-edge of the structured simplex grid, so both directions are ONE
+symmetric stencil S (center 1, the 14 tet stencil directions 1/2; in 2D
+the 6 triangle directions):
 
     P:        u_f = S expand(u_c)        (zero-interleave then S)
     R = P^T:  r_c = decimate(S r_f)      (sample even positions)
@@ -14,7 +14,8 @@ zero-filled shifts (no lane aliasing). All levels share one pitch, so the
 coarse z axis keeps ``pitch`` lanes: decimation writes
 ``fine[:, ::2, ::2, ::2]`` into the first ceil(pitch/2) z-lanes of a zero
 coarse view (the rest stay zero) and expansion is its transpose — plain
-strided views, where the JAX package contracts one-hot band matrices.
+strided views, where the JAX package contracts one-hot band matrices. A
+2D block (C, N, N) has no pitch: decimation is ``fine[:, ::2, ::2]``.
 
 Restriction pre-scales fine interface replicas by 1/multiplicity so each
 fine DoF contributes exactly once globally, then exchanges the coarse
@@ -66,12 +67,12 @@ class P1Transfer(nn.Module):
         self.coarse = coarse
         self.fine = fine
         self.dim = coarse.dim
-        self._repitch = coarse.pitch != fine.pitch
+        self._repitch = self.dim == 3 and coarse.pitch != fine.pitch
         kw = dict(dtype=fine.dtype, device=fine.device)
         self.register_buffer("fine_mask", fine.vertex_mask_t)
-        # coarse vertex mask laid out with the fine pitch
+        # coarse vertex mask laid out with the fine pitch (2D: no pitch)
         self.register_buffer("coarse_mask", torch.as_tensor(
-            micro.vertex_mask_flat(coarse.level, 3, fine.pitch), **kw))
+            micro.vertex_mask_flat(coarse.level, self.dim, fine.pitch), **kw))
 
     def _c_in(self, uc):
         if not self._repitch:
@@ -86,18 +87,24 @@ class P1Transfer(nn.Module):
                             self.coarse.pitch)
 
     def _expand(self, uc: torch.Tensor) -> torch.Tensor:
-        """Coarse (C, Nc, Lc) -> fine (C, Nf, Nf, P) view with the coarse
-        values at even positions."""
+        """Coarse (C, Nc, Lc) -> fine (C, Nf, Nf, P) view (2D: (C, Nf, Nf))
+        with the coarse values at even positions."""
         Nc, Nf, P = self.coarse.N, self.fine.N, self.fine.pitch
+        if self.dim == 2:
+            gf = uc.new_zeros((uc.shape[0], Nf, Nf))
+            gf[:, ::2, ::2] = uc
+            return gf
         gc = uc.reshape(uc.shape[0], Nc, Nc, P)
         gf = uc.new_zeros((uc.shape[0], Nf, Nf, P))
         gf[:, ::2, ::2, ::2] = gc[..., : (P + 1) // 2]
         return gf
 
     def _decimate(self, gf: torch.Tensor) -> torch.Tensor:
-        """Fine (C, Nf, Nf, P) view -> coarse (C, Nc, Lc) by even-position
-        sampling; z-lanes past ceil(P/2) stay zero."""
+        """Fine (C, Nf, Nf, P) view (2D: (C, Nf, Nf)) -> coarse (C, Nc, Lc)
+        by even-position sampling; z-lanes past ceil(P/2) stay zero."""
         Nc, P = self.coarse.N, self.fine.pitch
+        if self.dim == 2:
+            return gf[:, ::2, ::2].contiguous()
         gc = gf.new_zeros((gf.shape[0], Nc, Nc, P))
         gc[..., : (P + 1) // 2] = gf[:, ::2, ::2, ::2]
         return gc.reshape(gf.shape[0], Nc, Nc * P)

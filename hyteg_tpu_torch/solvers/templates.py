@@ -80,14 +80,14 @@ def make_p1_gmg(
     tutorials/FA.01_GeometricMultigrid + GeometricMultigridSolver.hpp:39).
 
     ``eigs`` (level -> lambda_max(D^-1 A) bound) and ``elmats`` (level ->
-    (C, 6, 4, 4) or, for P2, (C, 6, 10, 10) element matrices) may be
-    carried over from another stack, e.g. the JAX package's (see
-    interop.py). By default the P1 eigenvalue bound is the host-side
-    Fourier symbol bound of each level's stencil, and the P2 one 25 power
-    iterations from a random start drawn from a torch.Generator seeded
-    with the level. P2 levels take no separate residual callable, as in the
-    JAX package. For P2, ``form`` is the kind ('laplace' or 'mass'); a
-    callable means 'laplace'.
+    (C, 6, 4, 4) or, for P2, (C, 6, 10, 10) element matrices; (C, 2, 3, 3)
+    and (C, 2, 6, 6) on 2D storage) may be carried over from another
+    stack, e.g. the JAX package's (see interop.py). By default the P1
+    eigenvalue bound is the host-side Fourier symbol bound of each level's
+    stencil, and the P2 one 25 power iterations from a random start drawn
+    from a torch.Generator seeded with the level. P2 levels take no
+    separate residual callable, as in the JAX package. For P2, ``form`` is
+    the kind ('laplace' or 'mass'); a callable means 'laplace'.
     """
     if not flag & DoFType.INNER:
         raise ValueError("the solved rows must include INNER")
@@ -95,7 +95,8 @@ def make_p1_gmg(
     lrange = range(min_level, max_level + 1)
     elm = lambda l: None if elmats is None else elmats[l]
     # one lane pitch across all levels -> grid transfers are pure strided
-    # slicing on the flat layout (see indexing/flat.py)
+    # slicing on the flat layout (see indexing/flat.py); 2D spaces have no
+    # pitch and ignore it
     if space_kind == "p1":
         pitch = (1 << max_level) + 1
         spaces = {l: P1Space(storage, l, device=device, dtype=dtype,
