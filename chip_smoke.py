@@ -10,7 +10,10 @@ read just after:
 
 - the macro-tet path: a P1 Laplace GMG solve (Chebyshev smoothing,
   fixed-iteration CG coarse solve) on the 48-cell unit-cube macro mesh at
-  levels 6 and 7 (kernels B2, B3);
+  levels 6 and 7 (kernels B2, B3), B2 and B3 first held against their
+  plain versions at every level the level-7 stack launches them at
+  (2-7, pitch 129, B2 timed at each), with a torch.profiler breakdown
+  of one level-7 V-cycle and B2's launches in it by level;
 - the structured box path: box GMG V(2,2) solves of the manufactured
   Poisson problem on m = (2, 2, 2) at levels 6 and 7, then at level 9,
   1,076,890,625 DoFs on one card (kernel B1, f32 and bf16 storage);
@@ -21,10 +24,13 @@ read just after:
 - the variable-coefficient P1 operator (kernel B4, and B3 with a
   coefficient) at level 7: B4 in the three averaging modes, B4 with k = 1
   against B2, and the operator's symmetry and positivity;
-- the P2 path (kernel B5): bench_vcycle.py's bench_p2 GMG stack on the
-  unit cube at P2 level 6, 16,974,593 DoFs, gated at a residual rate of
-  0.6, with a torch.profiler breakdown of one V-cycle; the manufactured
-  P2 Poisson solve at levels 3-5; the P2 coefficient apply at level 6;
+- the P2 path (kernel B5): B5 against its plain version at every P2
+  level the stack launches it at (1-6, pitch 129, timed at each);
+  bench_vcycle.py's bench_p2 GMG stack on the unit cube at P2 level 6,
+  16,974,593 DoFs, gated at a residual rate of 0.6, with a
+  torch.profiler breakdown of one V-cycle and B5's launches in it by
+  level; the manufactured P2 Poisson solve at levels 3-5; the P2
+  coefficient apply at level 6;
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
@@ -67,11 +73,14 @@ from hyteg_tpu_torch.core.benchtime import card as smi_card
 from hyteg_tpu_torch.core.benchtime import median_ms
 
 MESH_N = 2            # mesh_unit_cube(2): 48 macro-tets
-CHECK_LEVELS = (4, 7)
 SLICE_LEVELS = (6, 7)
 PITCH = (1 << 7) + 1  # one lane pitch for every level, as a GMG stack uses
 N_CYCLES = 8
 MIN_LEVEL = 2
+# B2 and B3 vs plain at every level the level-7 GMG stack launches them at
+# (pitch 129); B3 with a coefficient at level 4
+CHECK_LEVELS = tuple(range(MIN_LEVEL, SLICE_LEVELS[-1] + 1))
+COEFF_CHECK_LEVEL = 4
 COARSE_ITERS = 30
 B2_RTOL = 1e-5        # f32, 15-term sums taken in another order
 B3_RTOL = 1e-6        # f32, <= 24-term sums taken in another order
@@ -103,8 +112,9 @@ TETPAIR_RTOL = 1e-5   # bench_tet's gate (hyteg_tpu/core/benchgate.py:20)
 # the P2 path (bench_vcycle.py's bench_p2: make_p2_gmg on the unit cube,
 # min level 1, 20 coarse CG iterations, V(3,3), Chebyshev order 4)
 P2_LEVEL = 6          # 16,974,593 DoFs; node block (48, 129, 16641)
-P2_CHECKS = (3, P2_LEVEL)  # B5 vs plain, pitch 129 (padding lanes at 3)
 P2_MIN_LEVEL = 1
+# B5 vs plain at every level the P2 stack launches it at (pitch 129)
+P2_CHECKS = tuple(range(P2_MIN_LEVEL, P2_LEVEL + 1))
 P2_COARSE_ITERS = 20
 P2_CYCLES = 4
 P2_RATE_MAX = 0.6     # bench_vcycle.py's gate (:21-31)
@@ -239,6 +249,7 @@ def check_kernels(storage, level: int, device, seed: int,
     with pitch 129, or 2D); B3 also with a coefficient in the three means
     when ``with_coeff``."""
     from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.indexing import micro
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
     from hyteg_tpu_torch.operators import forms
@@ -269,6 +280,15 @@ def check_kernels(storage, level: int, device, seed: int,
               f"B2 {name} level {level}: nonzero outside the tet / padding")
         out[f"b2_{name}_max_abs_err"] = err
         out[f"b2_{name}_max_abs"] = scale
+        if name == "laplace" and dim == 3:
+            out["b2_ms"] = median_ms(
+                lambda: b2.p1_const_apply(x, A, E, level, dim, pitch), 10,
+                batch=10)
+            read = simplex_read_bytes(sp, micro.stencil_directions(3),
+                                      x.shape[0])
+            out["b2_bound_ms"] = bound(
+                nbytes(x) + read + nbytes(A, E),
+                30 * x.shape[0] * tet_points(sp.n))[0]
         del x, y, y_ref
         # B3: diagonal (Laplace and mass), lumped (mass; Laplace row sums
         # vanish), and the coefficient modes at the small level only
@@ -655,6 +675,22 @@ def masked_read_slots(N: int, pitch: int, mask: str, n_taps: int,
     return int(read.sum())
 
 
+def simplex_read_bytes(sp, dirs, C: int) -> int:
+    """Bytes of one f32 input block of ``sp`` (C cells) that a stencil over
+    the simplex's slots must read: every slot p + d with p in the simplex
+    and d in ``dirs``, as flat.shift_read reads it (a move past the block
+    reads nothing). The slots past the simplex and the padding lanes are
+    only written, so the bounds of B2, B4 and B5 count these reads and one
+    write of the whole block, not two passes over it."""
+    from hyteg_tpu_torch.indexing import flat
+
+    M = sp.vertex_mask_t
+    read = torch.zeros(M.shape, dtype=torch.bool, device=M.device)
+    for d in dirs:
+        read |= flat.shift_write(M, [int(v) for v in d], sp.pitch, sp.dim) != 0
+    return C * int(read.sum()) * 4
+
+
 def conv3d_stencil(weights, dirs) -> torch.Tensor:
     """(G, 1, 3, 3, 3) conv3d kernels from (G, n_s) weights on directions
     in {-1, 0, 1}^3 (cross-correlation: k[d + 1] multiplies u[p + d])."""
@@ -700,6 +736,12 @@ def check_p2_kernels(storage, level: int, device, seed: int,
               f"B5 {kind} level {level}: nonzero outside the tet / padding")
         out[f"b5_{kind}_max_abs_err"] = err
         out[f"b5_{kind}_max_abs"] = scale
+        if kind == "laplace" and sp.dim == 3:
+            out["b5_ms"] = median_ms(lambda: b5.p2_const_apply(x, *args), 10,
+                                     batch=10)
+            read = simplex_read_bytes(sp, b5._kernel_dirs(3), x.shape[0])
+            out["b5_bound_ms"] = bound(nbytes(x) + read + nbytes(args[0]),
+                                       0)[0]
         del y_ref
         if vs_general:
             y_gen = p2_apply_local(x, op.elmats, level, sp.dim, sp.pitch)
@@ -1038,6 +1080,14 @@ def homogeneous_rates(stack, device, seed: int,
     return {"residuals": res, **rates}
 
 
+def launches_by_level(stack, x, b, wrapper) -> dict:
+    """The 3D launches of a kernel wrapper in one V-cycle, by level, from
+    the wrapper's own count (set to 0 just before the cycle)."""
+    wrapper.launches_by_level.clear()
+    stack.gmg.cycle(x, b)
+    return dict(sorted(wrapper.launches_by_level.items()))
+
+
 def cycle_profile(stack, x, b, cycle_ms: float, kernels: dict) -> dict:
     """torch.profiler over one V-cycle after two warm-up cycles: device
     time, the idle share of the cycle (1 - device kernel time /
@@ -1156,8 +1206,9 @@ def run_2d(device, card: str) -> dict:
     t["apply_raw_2d"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
     t["vcycle_2d"] = median_ms(lambda: stack.gmg.cycle(x, b), 10)
     margins = micro.base_margin(2)
-    work["p1_const_apply_2d"] = (2 * nbytes(x) + nbytes(A, E),
-                                 14 * C * tri_points(sp.n))
+    work["p1_const_apply_2d"] = (
+        nbytes(x) + simplex_read_bytes(sp, micro.stencil_directions(2), C)
+        + nbytes(A, E), 14 * C * tri_points(sp.n))
     work["p1_diagonal_local_2d"] = (nbytes(elm) + nbytes(x), 3 * C * sum(
         tri_points(sp.n - int(m)) for m in margins))
     xv = x.view(1, C, sp.N, sp.N)
@@ -1216,7 +1267,9 @@ def run_2d(device, card: str) -> dict:
     t["apply_raw_coeff_2d"] = median_ms(lambda: op.apply_raw(x, coeff=k), 10,
                                         batch=10)
     # per element: 9 multiply-adds, the 3-term mean and 3 scalings
-    work["p1_apply_local_2d"] = (2 * nbytes(x) + nbytes(k, elm), 24 * C * sum(
+    work["p1_apply_local_2d"] = (
+        nbytes(x) + 2 * simplex_read_bytes(sp, [(0, 0)], C) + nbytes(elm),
+        24 * C * sum(
         tri_points(sp.n - int(m)) for m in margins))
     del sp, op, k, dinv, x, elm
     torch.cuda.empty_cache()
@@ -1256,7 +1309,9 @@ def run_2d(device, card: str) -> dict:
     t["p2_vcycle_2d"] = p2res["ms_per_vcycle"]
     row, K0 = b5._row_index(P2_LEVEL_2D, 2, sp.pitch, torch.float32, device)
     hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
-    work["p2_const_apply_2d"] = (2 * nbytes(x) + nbytes(W), 2 * (
+    work["p2_const_apply_2d"] = (
+        nbytes(x) + simplex_read_bytes(sp, b5._kernel_dirs(2), x.shape[0])
+        + nbytes(W), 2 * (
         (W != 0).sum(-1).double() @ hist).sum().item())
     del stack, sp, op, W, x, b, row, K0, hist
     torch.cuda.empty_cache()
@@ -1316,12 +1371,13 @@ def main() -> int:
 
     # -- the macro-tet path (B2, B3) ------------------------------------------
     storage = CellStorage(mesh_unit_cube(MESH_N))
+    checks = []
     for i, level in enumerate(CHECK_LEVELS):
-        checked = check_kernels(storage, level, device, seed=i,
-                                with_coeff=level == CHECK_LEVELS[0])
-        emit("kernels_vs_plain", card=card, **checked)
+        checks.append(check_kernels(storage, level, device, seed=i,
+                                    with_coeff=level == COEFF_CHECK_LEVEL))
+        emit("kernels_vs_plain", card=card, **checks[-1])
         torch.cuda.empty_cache()
-    errs = {name: max(v for k, v in checked.items()
+    errs = {name: max(v for c in checks for k, v in c.items()
                       if k.startswith(tag) and k.endswith("_max_abs_err"))
             for name, tag in (("p1_const_apply", "b2_"),
                               ("p1_diagonal_local", "b3_"))}
@@ -1367,12 +1423,18 @@ def main() -> int:
         "apply_raw": median_ms(lambda: op.apply_raw(x), 10, batch=10),
         "vcycle": median_ms(lambda: stack.gmg.cycle(x, b), 20),
     }
+    emit("gmg_profile", card=card, level=level, **cycle_profile(
+        stack, x, b, t["vcycle"], {"b2": ("p1_const_apply_kernel",),
+                                   "b3": ("p1_diag_kernel",)}),
+         b2_launches_by_level=launches_by_level(stack, x, b,
+                                                b2.p1_const_apply))
     # bounds, and the nearest single library call: a grouped conv3d with the
     # interior stencil (equal to B2 on interior points only)
     C = sp.C_loc
     bounds = {
-        "p1_const_apply": bound(2 * nbytes(x) + nbytes(A, E),
-                                30 * C * tet_points(sp.n)),
+        "p1_const_apply": bound(
+            nbytes(x) + simplex_read_bytes(sp, micro.stencil_directions(3), C)
+            + nbytes(A, E), 30 * C * tet_points(sp.n)),
         "p1_diagonal_local": bound(nbytes(elm) + nbytes(x), 4 * C * sum(
             tet_points(sp.n - int(m)) for m in micro.base_margin(3)))}
     xv = x.view(1, C, sp.N, sp.N, sp.pitch)
@@ -1424,8 +1486,10 @@ def main() -> int:
     t["apply_raw_coeff"] = median_ms(lambda: op.apply_raw(x, coeff=k), 10,
                                      batch=10)
     # per element: 16 multiply-adds, the 4-term mean and 4 scalings
+    # x and k are read on the tet's slots only
     bounds["p1_apply_local"] = bound(
-        2 * nbytes(x) + nbytes(k, elm), 40 * sp.C_loc * sum(
+        nbytes(x) + 2 * simplex_read_bytes(sp, [(0, 0, 0)], sp.C_loc)
+        + nbytes(elm), 40 * sp.C_loc * sum(
             tet_points(sp.n - int(m)) for m in micro.base_margin(3)))
     del sp, op, k, dinv, x, elm
     torch.cuda.empty_cache()
@@ -1453,7 +1517,9 @@ def main() -> int:
     p2res["b5_launches_per_vcycle"] = b5.p2_const_apply.launches - n0
     emit("p2_gmg", card=card, **p2res)
     emit("p2_profile", card=card, level=P2_LEVEL,
-         **p2_cycle_profile(stack, x, b, p2res["ms_per_vcycle"]))
+         **p2_cycle_profile(stack, x, b, p2res["ms_per_vcycle"]),
+         b5_launches_by_level=launches_by_level(stack, x, b,
+                                                b5.p2_const_apply))
     sp, op = stack.space(), stack.operators[P2_LEVEL]
     W = op.stencil_folded
     t["p2_const_apply"] = median_ms(
@@ -1465,7 +1531,9 @@ def main() -> int:
     row, K0 = b5._row_index(P2_LEVEL, 3, PITCH, torch.float32, device)
     hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
     b5_flops = 2 * ((W != 0).sum(-1).double() @ hist).sum().item()
-    bounds["p2_const_apply"] = bound(2 * nbytes(x) + nbytes(W), b5_flops)
+    bounds["p2_const_apply"] = bound(
+        nbytes(x) + simplex_read_bytes(sp, b5._kernel_dirs(3), x.shape[0])
+        + nbytes(W), b5_flops)
     # the P2 coefficient apply (plain torch in both packages) at level 6
     ones = sp.vertex_mask_t.expand(sp.block_shape).contiguous()
     rel1 = rel_err(op.apply_raw(x), op.apply_raw(x, coeff=ones))

@@ -1,8 +1,9 @@
 // Per-point arithmetic of the constant-stencil P1 apply (kernel B2).
 //
-// Kept apart from the kernel in p1_const_stencil.cu so that the math is a
-// set of plain functions of (cell weights, point): the kernel only maps
-// threads to points. Layout and weights follow
+// Kept apart from the kernel in p1_const_stencil.cu so that the math, and
+// the 3D kernel's walk over one plane of a cell (const_apply_plane), are
+// plain functions that the host C++ compiler also builds: the kernels only
+// stage weights and pick the plane or point. Layout and weights follow
 // hyteg_tpu_torch/kernels/p1_const_stencil.py:
 //   3D: src block of one cell: (N, L) f32, L = N * pitch,
 //       lane = y * pitch + z; A (15, 2): shell-resolved stencil weights
@@ -10,6 +11,8 @@
 //   2D: src block of one macro-face: (N, N) f32, lane = z; A (7, 2);
 //       E (3, 2, 7) over the edge groups {x = 0}, {z = 0}, both.
 #pragma once
+
+#include "plane.cuh"
 
 #ifndef HYTEG_DEVICE
 #define HYTEG_DEVICE __device__ __forceinline__
@@ -39,8 +42,9 @@ struct ConstTables2D {
 // Per-cell weights folded for the two cases of the diagonal shell:
 //   off the shell (S < n): w_in[s]  = A[s,0] + A[s,1],  e_in[G,s] = E[G,0,s] + E[G,1,s]
 //   on the shell (S == n): w_sh[s]  = A[s,0],           e_sh[G,s] = E[G,0,s]
-// (kDirs, kGroups) = (15, 7) in 3D, (7, 3) in 2D.
-template <int kDirs = kConstDirs, int kGroups = kConstGroups>
+// (kDirs, kGroups) = (7, 3): the 2D kernel's fold (the 3D kernel folds
+// whole rows, const_fold_rows).
+template <int kDirs, int kGroups>
 HYTEG_DEVICE void const_fold_weights(const float* A, const float* E,
                                      float* w_in, float* w_sh,
                                      float* e_in, float* e_sh,
@@ -59,43 +63,120 @@ HYTEG_DEVICE void const_fold_weights(const float* A, const float* E,
   }
 }
 
-// dst[x, lane] of one cell:
-//   0 outside the tet (S > n) and on padding lanes (z >= N);
-//   else sum_s c_s * src[p + s], with
-//   c_s = A[s,0] + A[s,1] - sh * A[s,1]
-//         - sum_G sigma_G * (E[G,0,s] + E[G,1,s] - sh * E[G,1,s]),
-//   sh = [S == n], sigma_G = prod_{i in G} [coord_i == 0].
-// Reads are bounds-checked on x and on the flat lane axis and zero-filled
-// beyond the block (the flat.shift_read semantics).
-HYTEG_DEVICE float const_apply_point(const float* src, int x, int lane,
+// The folded weight rows of the 3D stencil, one per position class
+// (f, sh): face set f (bit 0: x == 0, bit 1: y == 0, bit 2: z == 0) and
+// shell flag sh = [S == n], row (f * 2 + sh) of kConstRows:
+//   c_s = A[s,0] + (1 - sh) A[s,1]
+//         - sum_{G <= f} (E[G,0,s] + (1 - sh) E[G,1,s]),
+// the groups subtracted in ascending order (row 0 is the interior row,
+// row 1 the shell row off the faces). Computed once per thread block.
+constexpr int kConstRows = 16;  // 8 face sets x 2 shell flags
+
+HYTEG_DEVICE void const_fold_rows(const float* A, const float* E,
+                                  const ConstTables& t, float* rows, int tid,
+                                  int nthreads) {
+  for (int i = tid; i < kConstRows * kConstDirs; i += nthreads) {
+    const int k = i / kConstDirs, s = i - k * kConstDirs;
+    const int f = k >> 1, sh = k & 1;
+    const float a0 = A[s * kConstShells], a1 = A[s * kConstShells + 1];
+    float c = sh ? a0 : a0 + a1;
+    for (int g = 0; g < kConstGroups; ++g) {
+      if ((f & t.gmask[g]) != t.gmask[g]) continue;
+      const float e0 = E[(g * kConstShells) * kConstDirs + s];
+      const float e1 = E[(g * kConstShells + 1) * kConstDirs + s];
+      c -= sh ? e0 : e0 + e1;
+    }
+    rows[i] = c;
+  }
+}
+
+// dst at an in-tet slot (x, y, z) (S = x + y + z <= n), any position:
+// sum_s c_s * src[p + s] over the 15 directions with the folded row of
+// its class (const_fold_rows), the reads bounds-checked on x and on the
+// flat lane axis and zero-filled beyond the block (the flat.shift_read
+// semantics). The kernel's path for slots on a coordinate face.
+HYTEG_DEVICE float const_apply_point(const float* src, int x, int y, int z,
                                      int N, int pitch, const ConstTables& t,
-                                     const float* w_in, const float* w_sh,
-                                     const float* e_in, const float* e_sh) {
-  const int n = N - 1;
+                                     const float* rows) {
   const int L = N * pitch;
-  const int y = lane / pitch;
-  const int z = lane - y * pitch;
-  const int S = x + y + z;
-  if (z >= N || S > n) return 0.f;
-  const bool shell = (S == n);
-  const float* w = shell ? w_sh : w_in;
-  const float* e = shell ? e_sh : e_in;
-  const int faces = (x == 0) | ((y == 0) << 1) | ((z == 0) << 2);
+  const int lane = y * pitch + z;
+  const int f = (x == 0) | ((y == 0) << 1) | ((z == 0) << 2);
+  const float* c = rows + (f * 2 + (x + y + z == N - 1)) * kConstDirs;
   float acc = 0.f;
   for (int s = 0; s < kConstDirs; ++s) {
-    float c = w[s];
-    if (faces) {
-      for (int g = 0; g < kConstGroups; ++g)
-        if ((faces & t.gmask[g]) == t.gmask[g]) c -= e[g * kConstDirs + s];
-    }
     const int xs = x + t.dx[s];
     const int ls = lane + t.dl[s];
     float v = 0.f;
-    if (xs >= 0 && xs < N && ls >= 0 && ls < L)
-      v = src[(long long)xs * L + ls];
-    acc = fmaf(c, v, acc);
+    if (xs >= 0 && xs < N && ls >= 0 && ls < L) v = src[xs * L + ls];
+    acc = fmaf(c[s], v, acc);
   }
   return acc;
+}
+
+// dst at a slot off the coordinate faces (x, y, z >= 1, S <= n), w its
+// folded row (row 0, or row 1 on the shell S == n), p pointing at it: all
+// 15 neighbours lie in the block, on the slot's own lane row or the next
+// ones, so no read is tested. The same terms in the same order as
+// const_apply_point.
+HYTEG_DEVICE float const_apply_interior(const float* p, const float* w,
+                                        const ConstTables& t, int L) {
+  float acc = 0.f;
+#pragma unroll
+  for (int s = 0; s < kConstDirs; ++s)
+    acc = fmaf(w[s], p[t.dx[s] * L + t.dl[s]], acc);
+  return acc;
+}
+
+// Every slot of plane x of one cell, each written once through out (i:
+// the slot's offset in the cell, < N * L): a thread block's share of
+// kernel B2, run by thread (warp, lane) of nwarps warps. Row (x, y) meets
+// the tet in r = n + 1 - x - y slots, z < r; its lanes r <= z < pitch
+// (padding lanes included) are a zero run (zero_run: no loads).
+//  - Plane x = 0 is all coordinate face: warps take rows warp,
+//    warp + nwarps, ..., each slot through const_apply_point.
+//  - Else row y = 0 is face: its chunks of 32 slots go to the warps in
+//    turn. Rows y = 1 + warp, 1 + warp + nwarps, ...: slots z = 1 .. r - 1
+//    run const_apply_interior in chunks of 32 from z = 1, the last one
+//    (the shell, S = n) on the shell row; their face slots z = 0 go
+//    through const_apply_point as one list over all threads, so the row
+//    chunks hold no face lane.
+//  - Rows y > n - x lie past the tet: one zero run over all threads.
+// rows: the 16 folded rows (const_fold_rows) in shared memory. All
+// offsets are 32-bit: a cell holds N * L <= 2^31 slots.
+template <class Out>
+HYTEG_DEVICE void const_apply_plane(const float* src, const Out& out, int x,
+                                    int N, int pitch, const ConstTables& t,
+                                    const float* rows, int warp, int lane,
+                                    int nwarps) {
+  const int L = N * pitch;
+  const int ry = N - 1 - x;  // last row that meets the tet
+  const int tid = warp * 32 + lane, nthreads = nwarps * 32;
+  if (x == 0) {
+    for (int y = warp; y <= ry; y += nwarps) {
+      const int r = ry + 1 - y, row = y * pitch;
+      for (int z = lane; z < r; z += 32)
+        out(row + z, const_apply_point(src, 0, y, z, N, pitch, t, rows));
+      zero_run(out, row + r, row + pitch, lane, 32);
+    }
+  } else {
+    const int row0 = x * L;
+    for (int z = warp * 32 + lane; z <= ry; z += nthreads)
+      out(row0 + z, const_apply_point(src, x, 0, z, N, pitch, t, rows));
+    zero_run(out, row0 + ry + 1, row0 + pitch, tid, nthreads);
+    for (int y = 1 + warp; y <= ry; y += nwarps) {
+      const int r = ry + 1 - y, row = x * L + y * pitch;
+      for (int z = 1 + lane; z - lane <= r - 1; z += 32)
+        if (z <= r - 1)
+          out(row + z, const_apply_interior(
+                           src + row + z, rows + (z == r - 1) * kConstDirs,
+                           t, L));
+      zero_run(out, row + r, row + pitch, lane, 32);
+    }
+    for (int y = 1 + tid; y <= ry; y += nthreads)
+      out(x * L + y * pitch,
+          const_apply_point(src, x, y, 0, N, pitch, t, rows));
+  }
+  zero_run(out, x * L + (ry + 1) * pitch, (x + 1) * L, tid, nthreads);
 }
 
 // dst[x, z] of one macro-face, the 2D form of const_apply_point: 0 outside

@@ -9,20 +9,33 @@
 // accumulators and confines the face groups to sub-slices: a shape made
 // for VMEM and (8, 128) tiles. Here the tables A and E are folded once per
 // operator into one row of 65 weights per node class (face set, parity,
-// shell key; kernels/p2_const_stencil.py::p2_folded_weights), so a node
-// needs one row and one uniform loop over the 65 directions. Neighbouring
-// z lanes alternate parity, so a per-parity direction list would diverge
-// inside a warp; the uniform loop skips zero weights with a predicate.
-// Interface rows hold partial sums; the additive exchange follows in the
-// caller.
+// shell key; kernels/p2_const_stencil.py::p2_folded_weights). Interface
+// rows hold partial sums; the additive exchange follows in the caller.
 //
-// Bound: at 8 B per slot (one read of src, one write of dst) the bytes
-// allow ~0.25 ms at level 6 on an H100; the 65 reads per node (hitting
-// L1/L2) and their bounds tests make it instruction- and load-latency
-// bound, like B2 and B6. One thread per node on a grid of
-// (ceil(M*L / 256), C): consecutive threads take consecutive lanes, so
-// loads and the store are coalesced; the cell's 192 x 65 weights (50 KB)
-// are read through the read-only cache, a warp touching 2-4 rows.
+// 3D bound: bytes allow 0.247 ms at level 6 (8 B per slot of the
+// (48, 129, 16641) block at 3.35 TB/s). The design this one replaced
+// (one thread per slot of the padded block, a row index per node, all 65
+// weights of the row through the read-only cache and a 65-iteration loop
+// predicated on ws != 0 and four bounds tests; 28.75 taps per node are
+// structurally nonzero) took 2.489 ms on an H100 (NVIDIA H100 80GB HBM3,
+// 700 W).
+//
+// The design (p2_const_apply_plane in p2_const_stencil.cuh): one thread
+// block per (cell, plane x), grid (C, M); warps walk the rows (x, y) that
+// meet the tet, a lane taking the node pair (odd z, even z) so that a
+// warp needs the same two parity rows, 4 (x&1) + 2 (y&1) + {1, 0}. Each
+// parity's structurally nonzero directions are compile-time lists
+// (kP2TapList, from _nz_tables(3)), so a node off the coordinate faces
+// runs its parity's 19 to 65 taps unrolled, with no tests and no weight
+// check, on its row of the 24 (face set 0) staged in shared memory. Face
+// nodes (plane x = 0, row y = 0, the z = 0 column) run the same lists
+// with each read tested, on their own row of W; the z = 0 column is
+// ordered odd y, then even y, so a warp mostly holds one parity.
+// Everything past the tet is a store-only zero run with 16-byte stores.
+// It takes 0.535 ms at level 6 on the same card. What bounds it now: L1
+// wavefronts (a pair's lanes sit 2 apart, so a warp's load spans 64
+// floats for 32 values) and the load latency of a warp's row chain (128
+// registers: 2 blocks, 16 warps per SM).
 //
 // 2D: one thread per node of the (M, M) face block, consecutive threads on
 // consecutive z; the face's 48 x 19 folded rows (3.6 KB) are staged in
@@ -35,27 +48,26 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                          // 2D
+constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;  // 3D
 
-__global__ void __launch_bounds__(kThreads)
+// 3D: thread block (cell c, plane x); p2_const_apply_plane writes the
+// plane, with the cell's 24 rows off the faces staged in shared memory.
+__global__ void __launch_bounds__(kPlaneThreads)
 p2_const_apply_kernel(const float* __restrict__ src,
                       const float* __restrict__ W, float* __restrict__ dst,
-                      int M, int pitch, hyteg::P2Tables t) {
+                      int M, int pitch) {
   using namespace hyteg;
-  const int c = blockIdx.y;
-  const int L = M * pitch;
-  const long long cell = (long long)M * L;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= cell) return;
-  const int x = (int)(q / L);
-  const int lane = (int)(q - (long long)x * L);
-  const int y = lane / pitch;
-  const int z = lane - y * pitch;
-  float out = 0.f;
-  if (p2_inside(x, y, z, M))
-    out = p2_point(src + c * cell, x, lane, M, L, t,
-                   W + ((long long)c * kP2Rows + p2_row(x, y, z, M)) * kP2Dirs);
-  dst[c * cell + q] = out;
+  constexpr int nR = 24 * kP2Dirs;  // rows par * 3 + k: face set 0
+  __shared__ float wr[nR];
+  const int c = blockIdx.x;
+  const float* Wc = W + c * kP2Rows * kP2Dirs;
+  for (int i = threadIdx.x; i < nR; i += blockDim.x) wr[i] = Wc[i];
+  __syncthreads();
+  const long long cell = (long long)M * M * pitch;
+  p2_const_apply_plane(src + c * cell, Wc, wr, CellStore{dst + c * cell},
+                       blockIdx.y, M, pitch, threadIdx.x >> 5,
+                       threadIdx.x & 31, blockDim.x >> 5);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -78,20 +90,19 @@ p2_const_apply_2d_kernel(const float* __restrict__ src,
 
 }  // namespace
 
-// dirs: host (65, 3) int32 stencil directions. Returns cudaGetLastError()
-// after the launch.
+// dirs: host (65, 3) int32 stencil directions, which must equal the
+// kernel's compile-time kP2DirList (else cudaErrorInvalidValue, nothing
+// launched). Returns cudaGetLastError() after the launch.
 extern "C" int hyteg_p2_const_apply(const float* src, const float* W,
                                     float* dst, int C, int M, int pitch,
                                     const int* dirs, void* stream) {
-  hyteg::P2Tables t;
-  for (int s = 0; s < hyteg::kP2Dirs; ++s) {
-    t.dx[s] = dirs[3 * s];
-    t.dl[s] = dirs[3 * s + 1] * pitch + dirs[3 * s + 2];
-  }
-  const long long cell = (long long)M * M * pitch;
-  const dim3 grid((unsigned)((cell + kThreads - 1) / kThreads), (unsigned)C);
-  p2_const_apply_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, W, dst, M, pitch, t);
+  for (int s = 0; s < hyteg::kP2Dirs; ++s)
+    for (int d = 0; d < 3; ++d)
+      if (dirs[3 * s + d] != hyteg::kP2DirList[s][d])
+        return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)C, (unsigned)M);
+  p2_const_apply_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
+      src, W, dst, M, pitch);
   return (int)cudaGetLastError();
 }
 

@@ -135,11 +135,16 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-def count_launch(wrapper, dim: int) -> None:
-    """Add one launch to a kernel wrapper's count: ``wrapper.launches``
-    for its 3D kernel, ``wrapper.launches_2d`` for its 2D kernel."""
-    name = "launches" if dim == 3 else "launches_2d"
+def count_launch(wrapper, dim: int, level: int) -> None:
+    """Add one launch to a kernel wrapper's counts: ``wrapper.launches``
+    and ``wrapper.launches_by_level[level]`` for its 3D kernel,
+    ``wrapper.launches_2d`` and ``wrapper.launches_by_level_2d[level]``
+    for its 2D kernel."""
+    suffix = "" if dim == 3 else "_2d"
+    name = "launches" + suffix
     setattr(wrapper, name, getattr(wrapper, name) + 1)
+    by_level = getattr(wrapper, "launches_by_level" + suffix)
+    by_level[level] = by_level.get(level, 0) + 1
 
 
 def current_stream() -> int:

@@ -339,9 +339,11 @@ def p1_const_apply(src, A, E, level: int, dim: int, pitch: int):
             src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
             dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
     build.check_launch(rc, "p1_const_apply")
-    build.count_launch(p1_const_apply, dim)
+    build.count_launch(p1_const_apply, dim, level)
     return dst
 
 
 p1_const_apply.launches = 0
 p1_const_apply.launches_2d = 0
+p1_const_apply.launches_by_level = {}
+p1_const_apply.launches_by_level_2d = {}

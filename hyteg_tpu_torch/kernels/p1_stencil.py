@@ -107,12 +107,14 @@ def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
         rc = build.library().hyteg_p1_apply_2d(
             *args, MODES.index(coeff_avg), build.current_stream())
     build.check_launch(rc, "p1_apply_local")
-    build.count_launch(p1_apply_local, dim)
+    build.count_launch(p1_apply_local, dim, level)
     return dst
 
 
 p1_apply_local.launches = 0
 p1_apply_local.launches_2d = 0
+p1_apply_local.launches_by_level = {}
+p1_apply_local.launches_by_level_2d = {}
 
 
 def p1_diagonal_local_torch(elmats, level: int, dim: int, pitch: int,
@@ -186,9 +188,11 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
             elmats.data_ptr(), co, dst.data_ptr(), C, N, int(lumped),
             MODES.index(coeff_avg), build.current_stream())
     build.check_launch(rc, "p1_diagonal_local")
-    build.count_launch(p1_diagonal_local, dim)
+    build.count_launch(p1_diagonal_local, dim, level)
     return dst
 
 
 p1_diagonal_local.launches = 0
 p1_diagonal_local.launches_2d = 0
+p1_diagonal_local.launches_by_level = {}
+p1_diagonal_local.launches_by_level_2d = {}

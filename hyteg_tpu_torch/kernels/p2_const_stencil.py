@@ -275,7 +275,8 @@ def p2_const_apply_torch(src, W, level: int, pitch: int, dim: int = 3):
 @functools.lru_cache(maxsize=None)
 def _kernel_dirs(dim: int = 3) -> np.ndarray:
     """Host (n_s, dim) int32 stencil directions for the CUDA launcher:
-    (65, 3) in 3D, (19, 2) in 2D."""
+    (65, 3) in 3D (the launcher refuses them unless they equal the
+    kernel's compile-time list), (19, 2) in 2D."""
     dirs, *_ = p2_stencil_tables(dim)
     return np.ascontiguousarray(dirs, dtype=np.int32)
 
@@ -308,9 +309,11 @@ def p2_const_apply(src, W, level: int, pitch: int, dim: int = 3):
             src.data_ptr(), W.data_ptr(), dst.data_ptr(), C, M,
             dirs.ctypes.data, build.current_stream())
     build.check_launch(rc, "p2_const_apply")
-    build.count_launch(p2_const_apply, dim)
+    build.count_launch(p2_const_apply, dim, level)
     return dst
 
 
 p2_const_apply.launches = 0
 p2_const_apply.launches_2d = 0
+p2_const_apply.launches_by_level = {}
+p2_const_apply.launches_by_level_2d = {}

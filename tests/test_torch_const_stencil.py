@@ -216,6 +216,27 @@ def test_wrappers_reject_non_cpu_non_cuda_tensors():
         tk3.p1_diagonal_local(et, 1, 3, tsp.pitch)
 
 
+def test_count_launch_counts_by_level():
+    """The launch count of a wrapper, in total and by level, per dim."""
+    from hyteg_tpu_torch.kernels import build
+    from hyteg_tpu_torch.kernels import p2_const_stencil as tk5
+
+    for w in (tk.p1_const_apply, tk3.p1_apply_local, tk3.p1_diagonal_local,
+              tk5.p2_const_apply):
+        assert (w.launches_by_level, w.launches_by_level_2d) == ({}, {})
+
+    def wrapper():
+        pass
+
+    wrapper.launches = wrapper.launches_2d = 0
+    wrapper.launches_by_level, wrapper.launches_by_level_2d = {}, {}
+    for dim, level in ((3, 7), (3, 2), (3, 7), (2, 11)):
+        build.count_launch(wrapper, dim, level)
+    assert (wrapper.launches, wrapper.launches_2d) == (3, 1)
+    assert wrapper.launches_by_level == {7: 2, 2: 1}
+    assert wrapper.launches_by_level_2d == {11: 1}
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels' per-point math, compiled for the host
 # ---------------------------------------------------------------------------
@@ -227,28 +248,79 @@ HOST_HARNESS = r"""
 #include "p1_const_stencil.cuh"
 #include "p1_diag.cuh"
 using namespace hyteg;
-// Runs the per-point functions the kernels run, one point after another.
-extern "C" void const_apply(const float* src, const float* A, const float* E,
-                            float* dst, int C, int N, int pitch,
-                            const int* dirs, const int* gmask) {
+static ConstTables const_tables(int pitch, const int* dirs, const int* gmask) {
   ConstTables t;
   for (int s = 0; s < kConstDirs; ++s) {
     t.dx[s] = dirs[3 * s];
     t.dl[s] = dirs[3 * s + 1] * pitch + dirs[3 * s + 2];
   }
   for (int g = 0; g < kConstGroups; ++g) t.gmask[g] = gmask[g];
-  float w_in[kConstDirs], w_sh[kConstDirs];
-  float e_in[kConstGroups * kConstDirs], e_sh[kConstGroups * kConstDirs];
-  const int L = N * pitch;
+  return t;
+}
+// Counts each slot's writes beside the store.
+struct CountStore {
+  CellStore cell;
+  int* count;
+  void operator()(int i, float v) const { cell(i, v); ++count[i]; }
+  int to_aligned(int i) const { return cell.to_aligned(i); }
+  void zero4(int i) const {
+    cell.zero4(i);
+    for (int k = 0; k < 4; ++k) ++count[i + k];
+  }
+};
+// Kernel B2's thread blocks one after another: per cell the weight fold,
+// per plane x every thread (warp, lane) of the block through the same walk
+// (const_apply_plane). count: null, or one int per slot of the block.
+extern "C" void const_apply(const float* src, const float* A, const float* E,
+                            float* dst, int C, int N, int pitch,
+                            const int* dirs, const int* gmask, int* count) {
+  const ConstTables t = const_tables(pitch, dirs, gmask);
+  float rows[kConstRows * kConstDirs];
+  const long long cell = (long long)N * N * pitch;
+  for (int c = 0; c < C; ++c) {
+    const_fold_rows(A + c * kConstDirs * kConstShells,
+                    E + c * kConstGroups * kConstShells * kConstDirs, t, rows,
+                    0, 1);
+    for (int x = 0; x < N; ++x)
+      for (int tid = 0; tid < kPlaneWarps * 32; ++tid) {
+        if (count)
+          const_apply_plane(src + c * cell,
+                            CountStore{CellStore{dst + c * cell}, count + c * cell}, x,
+                            N, pitch, t, rows, tid >> 5, tid & 31,
+                            kPlaneWarps);
+        else
+          const_apply_plane(src + c * cell, CellStore{dst + c * cell}, x, N,
+                            pitch, t, rows, tid >> 5, tid & 31, kPlaneWarps);
+      }
+  }
+}
+// The two paths of the walk, each at every in-tet slot it can take: off
+// the coordinate faces (x, y, z >= 1; the shell S = n on its own row)
+// through const_apply_interior into interior[], every face slot through
+// const_apply_point into boundary[]; other slots are left as they are.
+extern "C" void const_paths(const float* src, const float* A, const float* E,
+                            float* interior, float* boundary, int C, int N,
+                            int pitch, const int* dirs, const int* gmask) {
+  const ConstTables t = const_tables(pitch, dirs, gmask);
+  float rows[kConstRows * kConstDirs];
+  const int L = N * pitch, n = N - 1;
   const long long cell = (long long)N * L;
   for (int c = 0; c < C; ++c) {
-    const_fold_weights(A + c * kConstDirs * kConstShells,
-                       E + c * kConstGroups * kConstShells * kConstDirs,
-                       w_in, w_sh, e_in, e_sh, 0, 1);
-    for (long long q = 0; q < cell; ++q)
-      dst[c * cell + q] = const_apply_point(src + c * cell, (int)(q / L),
-                                            (int)(q % L), N, pitch, t, w_in,
-                                            w_sh, e_in, e_sh);
+    const_fold_rows(A + c * kConstDirs * kConstShells,
+                    E + c * kConstGroups * kConstShells * kConstDirs, t, rows,
+                    0, 1);
+    const float* u = src + c * cell;
+    for (int x = 0; x <= n; ++x)
+      for (int y = 0; x + y <= n; ++y)
+        for (int z = 0; x + y + z <= n; ++z) {
+          const int q = x * L + y * pitch + z;
+          if (x > 0 && y > 0 && z > 0)
+            interior[c * cell + q] = const_apply_interior(
+                u + q, rows + (x + y + z == n) * kConstDirs, t, L);
+          else
+            boundary[c * cell + q] =
+                const_apply_point(u, x, y, z, N, pitch, t, rows);
+        }
   }
 }
 extern "C" void diag(const float* elm, const float* coeff, float* dst, int C,
@@ -290,7 +362,8 @@ def host_kernels(tmp_path_factory):
                    check=True, capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.const_apply.argtypes = [P, P, P, P, I, I, I, P, P]
+    lib.const_apply.argtypes = [P, P, P, P, I, I, I, P, P, P]
+    lib.const_paths.argtypes = [P, P, P, P, P, I, I, I, P, P]
     lib.diag.argtypes = [P, P, P, I, I, I, I, I, P, P]
     return lib
 
@@ -311,7 +384,7 @@ def test_kernel_point_math_matches_plain(host_kernels, name, level, pitch,
     dirs, gmask = tk._kernel_tables()
     host_kernels.const_apply(xt.data_ptr(), A.data_ptr(), E.data_ptr(),
                              out.data_ptr(), xt.shape[0], tsp.N, tsp.pitch,
-                             dirs.ctypes.data, gmask.ctypes.data)
+                             dirs.ctypes.data, gmask.ctypes.data, None)
     _assert_close(out, ref, ref.abs().max().item(), 1e-5)
     assert not out[:, ~tsp.vertex_mask_t.bool()].any()
 
@@ -332,3 +405,73 @@ def test_kernel_point_math_matches_plain(host_kernels, name, level, pitch,
                               offs.ctypes.data, margins.ctypes.data)
             scale = max(ref.abs().max().item(), np.abs(elm).max())
             _assert_close(out, ref, scale, 1e-6)
+
+
+def block_coords(N, pitch):
+    """(x, y, z) of every slot of one cell's (N, N * pitch) block."""
+    x = np.broadcast_to(np.arange(N)[:, None], (N, N * pitch))
+    lane = np.broadcast_to(np.arange(N * pitch)[None, :], (N, N * pitch))
+    return x, lane // pitch, lane % pitch
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("name,level,pitch",
+                         [("tet", 3, None), ("cube1", 3, 17),
+                          ("cube2", 2, 9), ("tet", 4, 33)])
+def test_kernel_paths_match_plain_on_their_slots(host_kernels, name, level,
+                                                 pitch, form):
+    """The 3D kernel's unrolled, untested sum at every slot off the
+    coordinate faces (the shell on its own row), and its boundary path at
+    every face slot, each against the plain version there."""
+    _, tsp, elm, x = _setup(name, level, pitch, form, seed=40 + level)
+    et = interop.elmats_from_reference(elm, device="cpu")
+    A = tk.stencil_weights(et, 3).contiguous()
+    E = tk.face_weights_full(et, 3).contiguous()
+    xt = interop.block_from_reference(x, device="cpu")
+    ref = tk.p1_const_apply_torch(xt, A, level, 3, tsp.pitch, E=E)
+    interior = torch.full_like(xt, float("nan"))
+    boundary = torch.full_like(xt, float("nan"))
+    dirs, gmask = tk._kernel_tables()
+    host_kernels.const_paths(xt.data_ptr(), A.data_ptr(), E.data_ptr(),
+                             interior.data_ptr(), boundary.data_ptr(),
+                             xt.shape[0], tsp.N, tsp.pitch, dirs.ctypes.data,
+                             gmask.ctypes.data)
+    cx, cy, cz = block_coords(tsp.N, tsp.pitch)
+    S = cx + cy + cz
+    inside = (cz < tsp.N) & (S <= tsp.n)
+    inner = inside & (cx > 0) & (cy > 0) & (cz > 0)
+    scale = ref.abs().max().item()
+    for got, mask in ((interior, inner), (boundary, inside & ~inner)):
+        assert mask.any()
+        m = torch.as_tensor(mask)
+        d = (got[:, m] - ref[:, m]).abs().max().item()
+        assert d <= 1e-5 * scale
+        assert torch.isnan(got[:, ~m]).all()
+
+
+@pytest.mark.parametrize("pitch_of", ["gmg", "own"])
+@pytest.mark.parametrize("level", [2, 3, 4, 5, 6, 7])
+def test_kernel_walk_writes_every_slot_once(host_kernels, level, pitch_of):
+    """The 3D kernel's walk over its thread blocks (plane x, cell) at each
+    level a P1 GMG stack launches, at the stack's shared pitch 129 and at
+    the level's own pitch N: every slot of the block is written exactly
+    once, and exactly 0 outside the tet and on padding lanes, whatever
+    the source holds there."""
+    N = (1 << level) + 1
+    pitch = 129 if pitch_of == "gmg" else N
+    rng = np.random.default_rng(level)
+    src = torch.as_tensor(
+        rng.standard_normal((1, N, N * pitch)).astype(np.float32))
+    A = torch.as_tensor(rng.standard_normal((1, 15, 2)).astype(np.float32))
+    E = torch.as_tensor(rng.standard_normal((1, 7, 2, 15)).astype(np.float32))
+    dst = torch.full_like(src, float("nan"))
+    count = torch.zeros(src.shape, dtype=torch.int32)
+    dirs, gmask = tk._kernel_tables()
+    host_kernels.const_apply(src.data_ptr(), A.data_ptr(), E.data_ptr(),
+                             dst.data_ptr(), 1, N, pitch, dirs.ctypes.data,
+                             gmask.ctypes.data, count.data_ptr())
+    assert (count == 1).all()
+    cx, cy, cz = block_coords(N, pitch)
+    outside = torch.as_tensor((cz >= N) | (cx + cy + cz > N - 1))
+    assert (dst[:, outside] == 0).all()
+    assert torch.isfinite(dst).all() and dst[:, ~outside].ne(0).any()

@@ -42,7 +42,7 @@ from hyteg_tpu_torch.operators import p2_elementwise as top
 from hyteg_tpu_torch.operators import quadrature as tq
 from hyteg_tpu_torch.primitives.storage import CellStorage
 
-from tests.test_torch_const_stencil import CSRC, _assert_close
+from tests.test_torch_const_stencil import CSRC, _assert_close, block_coords
 
 torch.set_num_threads(1)
 
@@ -280,27 +280,93 @@ HOST_HARNESS = r"""
 #define HYTEG_DEVICE inline
 #include "p2_const_stencil.cuh"
 using namespace hyteg;
-// Runs the per-point functions kernel B5 runs, one node after another.
-extern "C" void p2_apply(const float* src, const float* W, float* dst, int C,
-                         int M, int pitch, const int* dirs) {
-  P2Tables t;
-  for (int s = 0; s < kP2Dirs; ++s) {
-    t.dx[s] = dirs[3 * s];
-    t.dl[s] = dirs[3 * s + 1] * pitch + dirs[3 * s + 2];
+// Kernel B5's staging of a cell's rows off the faces (face set 0).
+static void p2_stage(const float* Wc, float* wr) {
+  for (int i = 0; i < 24 * kP2Dirs; ++i) wr[i] = Wc[i];
+}
+// Counts each slot's writes beside the store.
+struct CountStore {
+  CellStore cell;
+  int* count;
+  void operator()(int i, float v) const { cell(i, v); ++count[i]; }
+  int to_aligned(int i) const { return cell.to_aligned(i); }
+  void zero4(int i) const {
+    cell.zero4(i);
+    for (int k = 0; k < 4; ++k) ++count[i + k];
   }
+};
+// Kernel B5's thread blocks one after another: per cell the staging, per
+// plane x every thread (warp, lane) of the block through the same walk
+// (p2_const_apply_plane). count: null, or one int per slot of the block.
+extern "C" void p2_apply(const float* src, const float* W, float* dst, int C,
+                         int M, int pitch, int* count) {
+  float wr[24 * kP2Dirs];
+  const long long cell = (long long)M * M * pitch;
+  for (int c = 0; c < C; ++c) {
+    const float* Wc = W + (long long)c * kP2Rows * kP2Dirs;
+    p2_stage(Wc, wr);
+    for (int x = 0; x < M; ++x)
+      for (int tid = 0; tid < kPlaneWarps * 32; ++tid) {
+        if (count)
+          p2_const_apply_plane(src + c * cell, Wc, wr,
+                               CountStore{CellStore{dst + c * cell}, count + c * cell},
+                               x, M, pitch, tid >> 5, tid & 31, kPlaneWarps);
+        else
+          p2_const_apply_plane(src + c * cell, Wc, wr,
+                               CellStore{dst + c * cell}, x, M, pitch,
+                               tid >> 5, tid & 31, kPlaneWarps);
+      }
+  }
+}
+static float p2_interior_at(const float* p, int L, int pitch, const float* w,
+                            int par) {
+  switch (par) {
+    case 0: return p2_interior_node<0>(p, L, pitch, w);
+    case 1: return p2_interior_node<1>(p, L, pitch, w);
+    case 2: return p2_interior_node<2>(p, L, pitch, w);
+    case 3: return p2_interior_node<3>(p, L, pitch, w);
+    case 4: return p2_interior_node<4>(p, L, pitch, w);
+    case 5: return p2_interior_node<5>(p, L, pitch, w);
+    case 6: return p2_interior_node<6>(p, L, pitch, w);
+    default: return p2_interior_node<7>(p, L, pitch, w);
+  }
+}
+// The two paths of the walk, each at every in-tet node it can take: off
+// the coordinate faces (x, y, z >= 1, any shell key) through the
+// compile-time tap lists on the staged row into interior[], every face
+// node through p2_face_point into boundary[]; other slots are left as
+// they are.
+extern "C" void p2_paths(const float* src, const float* W, float* interior,
+                         float* boundary, int C, int M, int pitch) {
+  float wr[24 * kP2Dirs];
   const int L = M * pitch;
   const long long cell = (long long)M * L;
-  for (int c = 0; c < C; ++c)
-    for (long long q = 0; q < cell; ++q) {
-      const int x = (int)(q / L), lane = (int)(q % L);
-      const int y = lane / pitch, z = lane % pitch;
-      dst[c * cell + q] =
-          p2_inside(x, y, z, M)
-              ? p2_point(src + c * cell, x, lane, M, L, t,
-                         W + ((long long)c * kP2Rows + p2_row(x, y, z, M)) *
-                                 kP2Dirs)
-              : 0.f;
-    }
+  for (int c = 0; c < C; ++c) {
+    const float* Wc = W + (long long)c * kP2Rows * kP2Dirs;
+    p2_stage(Wc, wr);
+    const float* u = src + c * cell;
+    for (int x = 0; x < M; ++x)
+      for (int y = 0; x + y < M; ++y)
+        for (int z = 0; x + y + z < M; ++z) {
+          const int q = x * L + y * pitch + z;
+          const int par = ((x & 1) << 2) | ((y & 1) << 1) | (z & 1);
+          if (x > 0 && y > 0 && z > 0)
+            interior[c * cell + q] = p2_interior_at(
+                u + q, L, pitch, wr + p2_row(x, y, z, M) * kP2Dirs, par);
+          else
+            boundary[c * cell + q] = p2_face_point(u, x, y, z, M, pitch, Wc);
+        }
+  }
+}
+// The compile-time tables: kP2DirList (65 x 3), kP2NTaps (8) and
+// kP2TapList (8 x 65).
+extern "C" void p2_tap_tables(int* dirs, int* ntaps, int* taps) {
+  for (int s = 0; s < kP2Dirs; ++s)
+    for (int d = 0; d < 3; ++d) dirs[3 * s + d] = kP2DirList[s][d];
+  for (int p = 0; p < 8; ++p) {
+    ntaps[p] = kP2NTaps[p];
+    for (int i = 0; i < kP2Dirs; ++i) taps[p * kP2Dirs + i] = kP2TapList[p][i];
+  }
 }
 """
 
@@ -319,6 +385,8 @@ def host_kernel(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.p2_apply.argtypes = [P, P, P, I, I, I, P]
+    lib.p2_paths.argtypes = [P, P, P, P, I, I, I]
+    lib.p2_tap_tables.argtypes = [P, P, P]
     return lib
 
 
@@ -337,10 +405,86 @@ def test_kernel_point_math_matches_plain(host_kernel, name, level, pitch,
     ref = tk.p2_const_apply_torch(xt, W, level, tsp.pitch)
     out = torch.empty_like(xt)
     host_kernel.p2_apply(xt.data_ptr(), W.data_ptr(), out.data_ptr(),
-                         xt.shape[0], tsp.M, tsp.pitch,
-                         tk._kernel_dirs().ctypes.data)
+                         xt.shape[0], tsp.M, tsp.pitch, None)
     _assert_close(out, ref, ref.abs().max().item(), 1e-5)
     assert not out[:, ~tsp.vertex_mask_t.bool()].any()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name,level,pitch", [("cube1", 2, None),
+                                              ("cube1", 2, 13),
+                                              ("tet", 3, None),
+                                              ("tet", 3, 33)])
+def test_kernel_paths_match_plain_on_their_nodes(host_kernel, name, level,
+                                                 pitch, kind):
+    """The 3D kernel's compile-time tap lists, untested, at every node off
+    the coordinate faces (face set 0, each shell key on its own row), and
+    its face path (the tap lists on the node's own row, each read tested)
+    at every face node, each against the plain version there."""
+    jsp, tsp = _spaces(name, level, pitch)
+    et = interop.elmats_from_reference(_elmats(name, level, pitch, kind),
+                                       device="cpu")
+    W = tk.p2_folded_weights(tk.p2_stencil_weights(et, 3),
+                             tk.p2_face_weights(et, 3))
+    xt = interop.block_from_reference(_block(jsp, 60 + level), device="cpu")
+    ref = tk.p2_const_apply_torch(xt, W, level, tsp.pitch)
+    interior = torch.full_like(xt, float("nan"))
+    boundary = torch.full_like(xt, float("nan"))
+    host_kernel.p2_paths(xt.data_ptr(), W.data_ptr(), interior.data_ptr(),
+                         boundary.data_ptr(), xt.shape[0], tsp.M, tsp.pitch)
+    cx, cy, cz = block_coords(tsp.M, tsp.pitch)
+    S = cx + cy + cz
+    inside = (cz < tsp.M) & (S <= tsp.M - 1)
+    inner = inside & (cx > 0) & (cy > 0) & (cz > 0)
+    scale = ref.abs().max().item()
+    for got, mask in ((interior, inner), (boundary, inside & ~inner)):
+        assert mask.any()
+        m = torch.as_tensor(mask)
+        assert (got[:, m] - ref[:, m]).abs().max().item() <= 1e-5 * scale
+        assert torch.isnan(got[:, ~m]).all()
+
+
+@pytest.mark.parametrize("pitch_of", ["gmg", "own"])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6])
+def test_kernel_walk_writes_every_node_once(host_kernel, level, pitch_of):
+    """The 3D kernel's walk over its thread blocks (plane x, cell) at each
+    level a P2 GMG stack launches, at the stack's shared pitch 129 and at
+    the level's own pitch M: every slot of the block is written exactly
+    once, and exactly 0 outside the tet and on padding lanes, whatever
+    the source holds there."""
+    M = (2 << level) + 1
+    pitch = 129 if pitch_of == "gmg" else M
+    rng = np.random.default_rng(level)
+    src = torch.as_tensor(
+        rng.standard_normal((1, M, M * pitch)).astype(np.float32))
+    W = torch.as_tensor(rng.standard_normal((1, 192, 65)).astype(np.float32))
+    dst = torch.full_like(src, float("nan"))
+    count = torch.zeros(src.shape, dtype=torch.int32)
+    host_kernel.p2_apply(src.data_ptr(), W.data_ptr(), dst.data_ptr(), 1, M,
+                         pitch, count.data_ptr())
+    assert (count == 1).all()
+    cx, cy, cz = block_coords(M, pitch)
+    outside = torch.as_tensor((cz >= M) | (cx + cy + cz > M - 1))
+    assert (dst[:, outside] == 0).all()
+    assert torch.isfinite(dst).all() and dst[:, ~outside].ne(0).any()
+
+
+def test_kernel_tap_lists_match_tables(host_kernel):
+    """The kernel's compile-time directions equal p2_stencil_tables(3)'s,
+    and each parity's tap list holds exactly the directions that
+    _nz_tables(3) marks structurally nonzero in some shell slot, in
+    ascending order."""
+    dirs = np.zeros((65, 3), dtype=np.int32)
+    ntaps = np.zeros(8, dtype=np.int32)
+    taps = np.zeros((8, 65), dtype=np.int32)
+    host_kernel.p2_tap_tables(dirs.ctypes.data, ntaps.ctypes.data,
+                              taps.ctypes.data)
+    np.testing.assert_array_equal(dirs, tk._kernel_dirs())
+    nzm, _ = tk._nz_tables(3)
+    for par in range(8):
+        want = np.nonzero(nzm[par].any(-1))[0]
+        np.testing.assert_array_equal(taps[par, :ntaps[par]], want)
+    assert ntaps.mean() == 28.75
 
 
 def test_p1_subspace_shares_pitch():
