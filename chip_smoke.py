@@ -16,7 +16,10 @@ read just after:
   of one level-7 V-cycle and B2's launches in it by level;
 - the structured box path: box GMG V(2,2) solves of the manufactured
   Poisson problem on m = (2, 2, 2) at levels 6 and 7, then at level 9,
-  1,076,890,625 DoFs on one card (kernel B1, f32 and bf16 storage);
+  1,076,890,625 DoFs on one card (kernel B1, f32 and bf16 storage, held
+  against its plain version and timed beside its bound at every level
+  3-9 of the stack), with a torch.profiler breakdown of one level-9
+  V-cycle and B1's launches in it by level;
 - the paired-tet engine (kernels B6, B7, B8): bench.py's bench_tet path,
   lift / apply_ex / lower gated against the classic apply (B2) on the
   unit cube at levels 6 and 7 and on the 1920-cell spherical shell at
@@ -41,12 +44,14 @@ read just after:
 - the 2D arm on macro-faces (the 2D forms of B2, B3, B4 and B5): the
   kernels against their plain versions on the 12-face annulus at level 4
   and on the 32-face rectangle mesh_rectangle(nx=4, ny=4) at P1 level 11
-  / P2 level 10; the P1 GMG solve of sin(pi x) sin(pi y) at level 11,
+  / P2 level 10, B5-2D also at every other P2 level 1-9 of the stack,
+  timed beside its bound at each; the P1 GMG solve of sin(pi x)
+  sin(pi y) at level 11,
   67,125,249 DoFs, its rate gated on A x = 0 from a random start, with a
   torch.profiler breakdown of one V-cycle; the P1 coefficient operator at
   level 11; the P2 GMG stack at P2 level 10, 67,125,249 DoFs, gated on a
-  seeded rhs and on A x = 0, with a breakdown of one V-cycle; the
-  manufactured P2 solve at levels 1-3.
+  seeded rhs and on A x = 0, with a breakdown of one V-cycle and B5-2D's
+  launches in it by level; the manufactured P2 solve at levels 1-3.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -89,10 +94,13 @@ ERR_DROP_MIN = 3.0    # O(h^2) predicts 4; f32 rounding eats into level 7
 # the box path (bench.py's box settings: m = (2, 2, 2), V(2,2),
 # min_level 3, 40 coarse CG iterations)
 BOX_M = (2, 2, 2)
-BOX_CHECKS = (((2, 1, 1), 3), (BOX_M, 7))  # level 9: after its solve
 BOX_SLICE_LEVELS = (6, 7)
 BOX_BIG_LEVEL = 9     # 1025^3 = 1,076,890,625 DoFs, 4.31 GB per f32 block
 BOX_MIN_LEVEL = 3
+# B1 vs plain (f32 and bf16) at every level of the level-9 box stack, each
+# timed beside its bound (level 9 after its solve), and on m = (2, 1, 1)
+BOX_CHECKS = (((2, 1, 1), BOX_MIN_LEVEL),) + tuple(
+    (BOX_M, lv) for lv in range(BOX_MIN_LEVEL, BOX_BIG_LEVEL))
 BOX_CYCLES = 12       # levels 6/7: down to the f32 floor
 BOX_BIG_CYCLES = 6
 BOX_RATE_MAX = 0.4    # bench.py's gate on the box V(2,2) residual rate
@@ -144,6 +152,9 @@ LEVEL_2D = 11         # N = 2049: (32, 2049, 2049) f32 = 537 MB, 67,125,249 DoFs
 P2_LEVEL_2D = 10      # the same node grid and DoF count
 # (mesh, P1 level, P2 level) of the 2D kernels-vs-plain checks
 KERNEL_CHECKS_2D = (("annulus", 4, 4), ("rect", LEVEL_2D, P2_LEVEL_2D))
+# B5-2D vs plain also at every other level the rect P2 stack launches it
+# at, each timed beside its bound
+P2_CHECK_LEVELS_2D = tuple(range(1, P2_LEVEL_2D))
 B4_CHECKS_2D = (("annulus", 4), ("rect", LEVEL_2D))
 # f32 puts a floor under a 2D solve's nodal error and residual that rises
 # with the level (b ~ h^2 against A x rounded at |x| ~ 1): the O(h^2) drop
@@ -388,7 +399,9 @@ def box_sol(x, y, z):
 
 def check_box_kernels(m, level: int, device, seed: int) -> dict:
     """Kernel B1 against its plain version (f32 and bf16 storage) and the
-    bf16 apply against the f32 one, for Laplace and mass, at one size."""
+    bf16 apply against the f32 one, for Laplace and mass, at one size; the
+    Laplace apply timed in both storages (``b1_ms``, ``b1_bf16_ms``)
+    beside its bounds."""
     from hyteg_tpu_torch.kernels import box_stencil as b1
     from hyteg_tpu_torch.operators import forms
     from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
@@ -409,7 +422,6 @@ def check_box_kernels(m, level: int, device, seed: int) -> dict:
               f"{B1_RTOL} * {scale}")
         del y_ref
         ub = u.to(torch.bfloat16)
-        del u
         yb = b1.box_apply(ub, w, dom.dims)
         yb_ref = b1.box_apply_torch(ub, w, dom.dims)
         check(yb.dtype == torch.bfloat16, "B1 bf16 result is not bf16")
@@ -428,7 +440,14 @@ def check_box_kernels(m, level: int, device, seed: int) -> dict:
         out[f"b1_bf16_{name}_max_abs_err"] = err_b
         out[f"b1_bf16_{name}_ulp_excess"] = excess
         out[f"b1_bf16_vs_f32_{name}_rel"] = rel
-        del y, yb, ub, w
+        if name == "laplace":
+            n = 5 if dom.num_dofs() > 5e8 else 10
+            for tag, v in (("b1", u), ("b1_bf16", ub)):
+                out[f"{tag}_ms"] = median_ms(
+                    lambda: b1.box_apply(v, w, dom.dims), n, batch=n)
+                out[f"{tag}_bound_ms"] = bound(2 * nbytes(v) + nbytes(w),
+                                               30 * v.numel())[0]
+        del u, y, yb, ub, w
         torch.cuda.empty_cache()
     return out
 
@@ -736,10 +755,10 @@ def check_p2_kernels(storage, level: int, device, seed: int,
               f"B5 {kind} level {level}: nonzero outside the tet / padding")
         out[f"b5_{kind}_max_abs_err"] = err
         out[f"b5_{kind}_max_abs"] = scale
-        if kind == "laplace" and sp.dim == 3:
+        if kind == "laplace":
             out["b5_ms"] = median_ms(lambda: b5.p2_const_apply(x, *args), 10,
                                      batch=10)
-            read = simplex_read_bytes(sp, b5._kernel_dirs(3), x.shape[0])
+            read = simplex_read_bytes(sp, b5._kernel_dirs(sp.dim), x.shape[0])
             out["b5_bound_ms"] = bound(nbytes(x) + read + nbytes(args[0]),
                                        0)[0]
         del y_ref
@@ -797,7 +816,7 @@ def p2_cycle_profile(stack, x, b, cycle_ms: float) -> dict:
     """cycle_profile of one P2 V-cycle (B5 in 3D or 2D and the transfers'
     matrix products by name), plus CUDA-event times of every level's
     restriction and prolongation."""
-    prof = cycle_profile(stack, x, b, cycle_ms,
+    prof = cycle_profile(lambda: stack.gmg.cycle(x, b), cycle_ms,
                          {"b5": ("p2_const_apply_kernel",
                                  "p2_const_apply_2d_kernel"),
                           "transfer_gemm": ("gemm", "gemv")})
@@ -1080,16 +1099,25 @@ def homogeneous_rates(stack, device, seed: int,
     return {"residuals": res, **rates}
 
 
-def launches_by_level(stack, x, b, wrapper) -> dict:
-    """The 3D launches of a kernel wrapper in one V-cycle, by level, from
-    the wrapper's own count (set to 0 just before the cycle)."""
-    wrapper.launches_by_level.clear()
+def launches_by_level(stack, x, b, wrapper, dim: int = 3) -> dict:
+    """The launches of a kernel wrapper's 3D (or 2D) kernel in one
+    V-cycle, by level, from the wrapper's own count (set to 0 just before
+    the cycle)."""
+    counts = getattr(wrapper, "launches_by_level" + ("_2d" if dim == 2 else ""))
+    counts.clear()
     stack.gmg.cycle(x, b)
-    return dict(sorted(wrapper.launches_by_level.items()))
+    return dict(sorted(counts.items()))
 
 
-def cycle_profile(stack, x, b, cycle_ms: float, kernels: dict) -> dict:
-    """torch.profiler over one V-cycle after two warm-up cycles: device
+def ms_lost(kernel_ms: float, launches: dict, bounds: dict) -> float:
+    """Device ms of a kernel in one V-cycle less the least time of the same
+    launches: sum over levels of launches x that level's bound."""
+    return kernel_ms - sum(n * bounds[lv] for lv, n in launches.items())
+
+
+def cycle_profile(cycle, cycle_ms: float, kernels: dict) -> dict:
+    """torch.profiler over one V-cycle (``cycle()``) after two warm-up
+    cycles: device
     time, the idle share of the cycle (1 - device kernel time /
     ``cycle_ms``, the cycle's CUDA-event time from the same run: the
     profiled window's host wall, reported beside it, carries the
@@ -1100,12 +1128,12 @@ def cycle_profile(stack, x, b, cycle_ms: float, kernels: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        stack.gmg.cycle(x, b)
+        cycle()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stack.gmg.cycle(x, b)
+        cycle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1156,6 +1184,19 @@ def run_2d(device, card: str) -> dict:
                                     vs_general=lv2 == P2_LEVEL_2D))
         torch.cuda.empty_cache()
         emit("kernels_2d", card=card, mesh=mesh, p1=p1c[-1], p2=p2c[-1])
+    rect_p2 = [c for c, (mesh, *_) in zip(p2c, KERNEL_CHECKS_2D)
+               if mesh == "rect"]
+    for lv in P2_CHECK_LEVELS_2D:
+        rect_p2.append(check_p2_kernels(storages["rect"], lv, device,
+                                        seed=160 + lv, vs_general=False))
+        emit("p2_kernels_2d", card=card, mesh="rect", **rect_p2[-1])
+    p2c += rect_p2[1:]
+    torch.cuda.empty_cache()
+    # B5-2D's ms and bound at every level of the rect P2 stack
+    b5_levels = {c["level"]: (c["b5_ms"], c["b5_bound_ms"]) for c in rect_p2}
+    emit("b5_2d_levels", card=card, level=sorted(b5_levels),
+         b5_2d_ms=[b5_levels[lv][0] for lv in sorted(b5_levels)],
+         b5_2d_bound_ms=[b5_levels[lv][1] for lv in sorted(b5_levels)])
     for name, checks, tag in (("p1_const_apply_2d", p1c, "b2_"),
                               ("p1_diagonal_local_2d", p1c, "b3_"),
                               ("p2_const_apply_2d", p2c, "b5_")):
@@ -1217,7 +1258,7 @@ def run_2d(device, card: str) -> dict:
         lambda: F.conv2d(xv, kern, padding=1, groups=C), 10, batch=10)
     emit("gmg_2d_timings", card=card, level=L, ms={
         k: t[k] for k in ("apply_raw_2d", "vcycle_2d")},
-        profile=cycle_profile(stack, x, b, t["vcycle_2d"], {
+        profile=cycle_profile(lambda: stack.gmg.cycle(x, b), t["vcycle_2d"], {
             "p1_const_apply_2d": ("p1_const_apply_2d_kernel",),
             "p1_diagonal_local_2d": ("p1_diag_2d_kernel",)}))
     block_elements = x.numel()
@@ -1295,8 +1336,12 @@ def run_2d(device, card: str) -> dict:
     stack.gmg.cycle(x, b)
     p2res["b5_launches_per_vcycle"] = b5.p2_const_apply.launches_2d - n0
     emit("p2_gmg_2d", card=card, **p2res)
-    emit("p2_profile_2d", card=card, level=P2_LEVEL_2D,
-         **p2_cycle_profile(stack, x, b, p2res["ms_per_vcycle"]))
+    prof = p2_cycle_profile(stack, x, b, p2res["ms_per_vcycle"])
+    by_level = launches_by_level(stack, x, b, b5.p2_const_apply, dim=2)
+    emit("p2_profile_2d", card=card, level=P2_LEVEL_2D, **prof,
+         b5_launches_by_level=by_level,
+         b5_ms_lost_per_cycle=ms_lost(prof["kernels"]["b5"]["ms"], by_level,
+                                      {lv: v[1] for lv, v in b5_levels.items()}))
     sp, op = stack.space(), stack.operators[P2_LEVEL_2D]
     W = op.stencil_folded
     t["p2_const_apply_2d"] = median_ms(
@@ -1424,8 +1469,8 @@ def main() -> int:
         "vcycle": median_ms(lambda: stack.gmg.cycle(x, b), 20),
     }
     emit("gmg_profile", card=card, level=level, **cycle_profile(
-        stack, x, b, t["vcycle"], {"b2": ("p1_const_apply_kernel",),
-                                   "b3": ("p1_diag_kernel",)}),
+        lambda: stack.gmg.cycle(x, b), t["vcycle"],
+        {"b2": ("p1_const_apply_kernel",), "b3": ("p1_diag_kernel",)}),
          b2_launches_by_level=launches_by_level(stack, x, b,
                                                 b2.p1_const_apply))
     # bounds, and the nearest single library call: a grouped conv3d with the
@@ -1695,11 +1740,29 @@ def main() -> int:
     emit("box_gmg_1e9", card=card, **big)
     box_t["box_vcycle_level9"] = big["ms_per_vcycle"]
     box_dofs[9] = big["dofs"]
+    box_prof = cycle_profile(lambda: box_gmg.vcycle(levels, u, b),
+                             big["ms_per_vcycle"], {"b1": ("box_apply_kernel",)})
+    b1.box_apply.launches_by_rows.clear()
+    box_gmg.vcycle(levels, u, b)
+    level_of = {lvl.domain.dims[0]: lvl.domain.level for lvl in levels}
+    b1_by_level = dict(sorted(
+        (level_of[X], n) for X, n in b1.box_apply.launches_by_rows.items()))
     del levels, u, b
     torch.cuda.empty_cache()
 
     box_errs.append(check_box_kernels(BOX_M, BOX_BIG_LEVEL, device, seed=20))
     emit("box_kernels_vs_plain", card=card, **box_errs[-1])
+    b1_bounds = {c["level"]: c["b1_bound_ms"] for c in box_errs
+                 if c["m"] == list(BOX_M)}
+    emit("box_profile_1e9", card=card, level=BOX_BIG_LEVEL, **box_prof,
+         b1_launches_by_level=b1_by_level,
+         b1_ms_lost_per_cycle=ms_lost(box_prof["kernels"]["b1"]["ms"],
+                                      b1_by_level, b1_bounds))
+    emit("b1_levels", card=card, level=sorted(b1_bounds),
+         **{k: [c[k] for c in sorted(box_errs, key=lambda c: c["level"])
+                if c["m"] == list(BOX_M)]
+            for k in ("b1_ms", "b1_bound_ms", "b1_bf16_ms",
+                      "b1_bf16_bound_ms")})
     from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
     dom = BoxDomain(BOX_M, BOX_BIG_LEVEL, device=device)
     w = BoxStencilOperator(dom).w_vecs
@@ -1813,7 +1876,10 @@ def main() -> int:
     errs.update(arm2d["errs"])
     launches.update(arm2d["launches"])
     lib_ms.update(arm2d["library_ms"])
-    extra = {"box_apply": {"max_abs_err_bf16": errs_bf16}}
+    extra = {"box_apply": {
+        "max_abs_err_bf16": errs_bf16, "ms_level9": t["box_apply_level9"],
+        "plain_ms_level9": t["box_apply_level9_plain"],
+        "bound_ms_level9": b1_bounds[BOX_BIG_LEVEL]}}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

@@ -37,19 +37,33 @@
 // floats for 32 values) and the load latency of a warp's row chain (128
 // registers: 2 blocks, 16 warps per SM).
 //
-// 2D: one thread per node of the (M, M) face block, consecutive threads on
-// consecutive z; the face's 48 x 19 folded rows (3.6 KB) are staged in
-// shared memory once per thread block. Nodes outside the triangle (half
-// the block) write 0. Bound: bytes, 8 B per node (1.07 GB at P2 level 10
-// on 32 faces, 0.32 ms at 3.35 TB/s); 19 predicated taps per node.
+// 2D bound: bytes, the (32, 2049, 2049) block written once and the slots
+// a stencil over the triangle reads (0.2409 ms at P2 level 10 at 3.35
+// TB/s). The design this one replaced (one thread per slot of the face
+// block, a 64-bit slot split, 19 predicated taps per node on a per-node
+// row, a scalar 0 for each of the half of the slots past the triangle)
+// took 1.84 ms there on the same card.
+//
+// The 2D design (p2_const_apply_band_2d): one thread block per (band of
+// 16 rows x, face), grid (ceil(M / 16), C); each warp takes one even and
+// one odd row of the band; a lane takes the node pair (odd z, even z), so
+// a warp runs two compile-time parity lists (kP2TapList2D, from
+// _nz_tables(2)) with their shell-key-2 weights in registers. A pair off
+// the faces reads each of rows x - 2 .. x + 2 as one window of 8-byte
+// loads (which of the window's ends sits at an 8-byte boundary is a
+// compile-time case of the row: M is odd, so it alternates) and stores
+// with one 8-byte store where dst allows; the last two nodes of a row
+// (shell keys 1, 0) and the face nodes (row 0, column 0) run the lists on
+// their own rows, each read tested on the faces. Slots past the triangle
+// are a store-only zero run. It takes 0.461-0.465 ms at level 10 (52% of
+// the bound) on the same card, 64 registers, 4 blocks per SM.
 #include <cuda_runtime.h>
 
 #include "p2_const_stencil.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;                          // 2D
-constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;  // 3D
+constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;
 
 // 3D: thread block (cell c, plane x); p2_const_apply_plane writes the
 // plane, with the cell's 24 rows off the faces staged in shared memory.
@@ -70,22 +84,23 @@ p2_const_apply_kernel(const float* __restrict__ src,
                        threadIdx.x & 31, blockDim.x >> 5);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 2D: thread block (band of kBandRows2D rows x, face c); the face's 48
+// folded rows are staged in shared memory, then p2_const_apply_band_2d
+// writes the band.
+__global__ void __launch_bounds__(kPlaneThreads)
 p2_const_apply_2d_kernel(const float* __restrict__ src,
                          const float* __restrict__ W, float* __restrict__ dst,
-                         int M, hyteg::P2Tables2D t) {
+                         int M) {
   using namespace hyteg;
-  __shared__ float w[kP2Rows2D * kP2Dirs2D];
+  constexpr int nW = kP2Rows2D * kP2Dirs2D;
+  __shared__ float w[nW];
   const int c = blockIdx.y;
-  for (int i = threadIdx.x; i < kP2Rows2D * kP2Dirs2D; i += blockDim.x)
-    w[i] = W[(long long)c * kP2Rows2D * kP2Dirs2D + i];
+  for (int i = threadIdx.x; i < nW; i += blockDim.x) w[i] = W[c * nW + i];
   __syncthreads();
-  const long long cell = (long long)M * M;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= cell) return;
-  const int x = (int)(q / M);
-  const int z = (int)(q - (long long)x * M);
-  dst[c * cell + q] = p2_point_2d(src + c * cell, x, z, M, t, w);
+  const long long face = (long long)M * M;
+  p2_const_apply_band_2d(src + c * face, w, CellStore{dst + c * face},
+                         blockIdx.x * kBandRows2D, M, threadIdx.x >> 5,
+                         threadIdx.x & 31);
 }
 
 }  // namespace
@@ -106,19 +121,20 @@ extern "C" int hyteg_p2_const_apply(const float* src, const float* W,
   return (int)cudaGetLastError();
 }
 
-// The 2D form. dirs: host (19, 2) int32 stencil directions. Returns
-// cudaGetLastError() after the launch.
+// The 2D form. dirs: host (19, 2) int32 stencil directions, which must
+// equal the kernel's compile-time kP2DirList2D (else
+// cudaErrorInvalidValue, nothing launched). Returns cudaGetLastError()
+// after the launch.
 extern "C" int hyteg_p2_const_apply_2d(const float* src, const float* W,
                                        float* dst, int C, int M,
                                        const int* dirs, void* stream) {
-  hyteg::P2Tables2D t;
-  for (int s = 0; s < hyteg::kP2Dirs2D; ++s) {
-    t.dx[s] = dirs[2 * s];
-    t.dz[s] = dirs[2 * s + 1];
-  }
-  const long long cell = (long long)M * M;
-  const dim3 grid((unsigned)((cell + kThreads - 1) / kThreads), (unsigned)C);
-  p2_const_apply_2d_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, W, dst, M, t);
+  for (int s = 0; s < hyteg::kP2Dirs2D; ++s)
+    for (int d = 0; d < 2; ++d)
+      if (dirs[2 * s + d] != hyteg::kP2DirList2D[s][d])
+        return (int)cudaErrorInvalidValue;
+  const int bands = (M + hyteg::kBandRows2D - 1) / hyteg::kBandRows2D;
+  const dim3 grid((unsigned)bands, (unsigned)C);
+  p2_const_apply_2d_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
+      src, W, dst, M);
   return (int)cudaGetLastError();
 }

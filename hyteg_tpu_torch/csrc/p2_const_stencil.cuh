@@ -22,6 +22,17 @@
 #ifndef HYTEG_DEVICE
 #define HYTEG_DEVICE __device__ __forceinline__
 #endif
+#ifndef HYTEG_HD
+#ifdef __CUDACC__
+#define HYTEG_HD __host__ __device__
+#else
+#define HYTEG_HD
+#endif
+#endif
+// A host harness may define it to check each pair load's address.
+#ifndef HYTEG_PAIR_LOAD_HOOK
+#define HYTEG_PAIR_LOAD_HOOK(q)
+#endif
 
 namespace hyteg {
 
@@ -30,11 +41,6 @@ constexpr int kP2Rows = 192;  // 8 face sets x 8 parities x 3 shell keys
 
 constexpr int kP2Dirs2D = 19;  // 2D node-grid stencil directions
 constexpr int kP2Rows2D = 48;  // 4 face sets x 4 parities x 3 shell keys
-
-struct P2Tables2D {
-  int dx[kP2Dirs2D];  // x offset of direction s
-  int dz[kP2Dirs2D];  // z (lane) offset of direction s
-};
 
 // Weight row of an in-tet node (3D).
 HYTEG_DEVICE int p2_row(int x, int y, int z, int M) {
@@ -265,31 +271,312 @@ HYTEG_DEVICE void p2_const_apply_plane(const float* src, const float* Wc,
   zero_run(out, x * L + (ry + 1) * pitch, (x + 1) * L, tid, nthreads);
 }
 
-// Weight row of an in-triangle node of a 2D block (x + z <= M - 1).
-HYTEG_DEVICE int p2_row_2d(int x, int z, int M) {
-  const int f = (x == 0) | ((z == 0) << 1);
-  const int par = ((x & 1) << 1) | (z & 1);
-  const int k = M - 1 - (x + z);
-  return (f * 4 + par) * 3 + (k < 2 ? k : 2);
+// ---------------------------------------------------------------------------
+// 2D (macro-faces): the (M, M) block of one face, lane = z, the triangle
+// x + z <= M - 1.
+// ---------------------------------------------------------------------------
+
+// The 19 node-grid directions (dx, dz), in the order of
+// kernels/p2_const_stencil.py::p2_stencil_tables(2), and for each parity
+// par = 2 (x&1) + (z&1) the directions whose weight is structurally
+// nonzero in some shell slot (_nz_tables(2)): 19, 9, 9, 9. No face
+// correction adds a direction, so every weight of any row of a parity off
+// its list is exactly 0.
+constexpr int kP2DirList2D[kP2Dirs2D][2] = {
+    {-2, 0}, {-2, 1}, {-2, 2}, {-1, -1}, {-1, 0}, {-1, 1}, {-1, 2},
+    {0, -2}, {0, -1}, {0, 0},  {0, 1},   {0, 2},  {1, -2}, {1, -1},
+    {1, 0},  {1, 1},  {2, -2}, {2, -1},  {2, 0}};
+constexpr int kP2NTaps2D[4] = {19, 9, 9, 9};
+constexpr int kP2TapList2D[4][kP2Dirs2D] = {
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18},
+    {1, 4, 5, 8, 9, 10, 13, 14, 17},
+    {4, 5, 6, 8, 9, 10, 12, 13, 14},
+    {3, 4, 5, 8, 9, 10, 13, 14, 15}};
+constexpr int kBandRows2D = 2 * kPlaneWarps;  // rows x of a thread block
+
+// Tap I of parity PAR in 2D as compile-time constants.
+template <int PAR, int I>
+struct P2Tap2D {
+  static constexpr int s = kP2TapList2D[PAR][I];
+  static constexpr int dx = kP2DirList2D[s][0];
+  static constexpr int dz = kP2DirList2D[s][1];
+};
+
+// The weights of parity PAR's taps, in list order, from one row of 19.
+template <int PAR>
+struct P2Weights2D {
+  float v[kP2NTaps2D[PAR]];
+};
+
+template <int PAR, int... I>
+HYTEG_DEVICE P2Weights2D<PAR> p2_weights_2d(const float* row,
+                                            std::integer_sequence<int, I...>) {
+  return P2Weights2D<PAR>{{row[P2Tap2D<PAR, I>::s]...}};
 }
 
-// dst[x, z] of one face: 0 outside the triangle, else sum_s w[row, s] *
-// src[x + dx[s], z + dz[s]] over the row of the node's class (w points at
-// the cell's 48 x 19 rows), reads zero beyond the block on x and z.
-HYTEG_DEVICE float p2_point_2d(const float* src, int x, int z, int M,
-                               const P2Tables2D& t, const float* W) {
-  if (x + z > M - 1) return 0.f;
-  const float* w = W + p2_row_2d(x, z, M) * kP2Dirs2D;
+template <int PAR>
+HYTEG_DEVICE P2Weights2D<PAR> p2_weights_2d(const float* row) {
+  return p2_weights_2d<PAR>(row,
+                            std::make_integer_sequence<int, kP2NTaps2D[PAR]>{});
+}
+
+// Parity PAR's taps, untested, at the node p points at (row stride M),
+// in ascending s.
+template <int PAR, int... I>
+HYTEG_DEVICE float p2_taps_2d(const float* p, int M, const P2Weights2D<PAR>& w,
+                              std::integer_sequence<int, I...>) {
   float acc = 0.f;
-#pragma unroll
-  for (int s = 0; s < kP2Dirs2D; ++s) {
-    const float ws = w[s];
-    const int xx = x + t.dx[s];
-    const int zz = z + t.dz[s];
-    if (ws != 0.f && xx >= 0 && xx < M && zz >= 0 && zz < M)
-      acc += ws * src[(long long)xx * M + zz];
-  }
+  ((acc += w.v[I] * p[P2Tap2D<PAR, I>::dx * M + P2Tap2D<PAR, I>::dz]), ...);
   return acc;
+}
+
+// dst at a node of parity PAR off the faces (x, z >= 1, x + z <= M - 1,
+// any shell key), p pointing at it, w its row's weights. Every tap lands
+// in [0, M)^2, so no read is tested:
+//  - low side: an odd coordinate moves by at most 1 (no list of an odd-x
+//    parity, 2 and 3, holds dx = -2; none of an odd-z one, 1 and 3, holds
+//    dz = -2), and an even coordinate that is >= 1 is >= 2;
+//  - high side: z >= 1 gives x <= M - 2, and x >= 1 gives z <= M - 2, so
+//    a move by 1 stays inside. A move by +2 occurs on x only at even x
+//    (parities 0, 1), and then z >= 1 gives x <= M - 2, which is odd
+//    (M is odd): x <= M - 3. A move by +2 on z occurs only at even z
+//    (parities 0, 2): likewise z <= M - 3.
+template <int PAR>
+HYTEG_DEVICE float p2_interior_node_2d(const float* p, int M,
+                                       const P2Weights2D<PAR>& w) {
+  return p2_taps_2d<PAR>(p, M, w,
+                         std::make_integer_sequence<int, kP2NTaps2D[PAR]>{});
+}
+
+// One tap of a face node at (x, z), skipped where its weight is 0, the
+// read taken as 0 beyond the block (flat.shift_read's rule).
+template <int PAR, int I>
+HYTEG_DEVICE void p2_face_tap_2d(float& acc, const float* src, int x, int z,
+                                 int M, const float* w) {
+  using T = P2Tap2D<PAR, I>;
+  const float ws = w[T::s];
+  const int xx = x + T::dx, zz = z + T::dz;
+  if (ws != 0.f && xx >= 0 && xx < M && zz >= 0 && zz < M)
+    acc += ws * src[xx * M + zz];
+}
+
+template <int PAR, int... I>
+HYTEG_DEVICE float p2_face_taps_2d(const float* src, int x, int z, int M,
+                                   const float* w,
+                                   std::integer_sequence<int, I...>) {
+  float acc = 0.f;
+  (p2_face_tap_2d<PAR, I>(acc, src, x, z, M, w), ...);
+  return acc;
+}
+
+// dst at an in-triangle node on a face (x or z is 0) of the face block
+// src, on its own row of the face's 48 (W): row (f * 4 + par) * 3 + k,
+// f = [x == 0] | [z == 0] << 1, k = min(2, M - 1 - x - z); the sum over
+// the parity's structural taps, each read tested.
+HYTEG_DEVICE float p2_face_point_2d(const float* src, int x, int z, int M,
+                                    const float* W) {
+  const int f = (x == 0) | ((z == 0) << 1);
+  const int par = ((x & 1) << 1) | (z & 1);
+  const int k = M - 1 - x - z < 2 ? M - 1 - x - z : 2;
+  const float* w = W + ((f * 4 + par) * 3 + k) * kP2Dirs2D;
+#define HYTEG_P2_FACE_2D(P)                                  \
+  case P:                                                    \
+    return p2_face_taps_2d<P>(src, x, z, M, w,               \
+                              std::make_integer_sequence<int, kP2NTaps2D[P]>{});
+  switch (par) {
+    HYTEG_P2_FACE_2D(0) HYTEG_P2_FACE_2D(1) HYTEG_P2_FACE_2D(2)
+    default:
+      return p2_face_taps_2d<3>(src, x, z, M, w,
+                                std::make_integer_sequence<int, kP2NTaps2D[3]>{});
+  }
+#undef HYTEG_P2_FACE_2D
+}
+
+// -- the node pair's row windows (2D) ---------------------------------------
+// A lane's pair (za odd, zb = za + 1) of row x needs, of row x + dx, the
+// elements za + dz for each tap (dx, dz) of za's parity list and
+// za + 1 + dz for each of zb's: one window [lo, hi] relative to za. The
+// window is read with 8-byte pair loads from the first element at an
+// 8-byte boundary at or before za + lo, so at most one element more on
+// each side. Whether za + lo is at such a boundary is a compile-time
+// case: A = the parity of the float address of (x, za), the same for
+// every lane and chunk of the row (M and z0 are odd, lanes step by 2).
+
+// lo (hi == false) or hi of the pair's window in row x + dx, PX = x & 1;
+// lo > hi when neither list has a tap with that dx.
+template <int PX>
+HYTEG_HD constexpr int p2_pair_reach_2d(int dx, bool hi) {
+  int r = hi ? -99 : 99;
+  for (int side = 0; side < 2; ++side) {
+    const int par = 2 * PX + 1 - side;  // za's list, then zb's
+    for (int i = 0; i < kP2NTaps2D[par]; ++i) {
+      const int s = kP2TapList2D[par][i];
+      const int d = kP2DirList2D[s][1] + side;
+      if (kP2DirList2D[s][0] == dx && (hi ? d > r : d < r)) r = d;
+    }
+  }
+  return r;
+}
+
+template <int PX, int A, int DX>
+struct P2Window2D {
+  static constexpr int lo = p2_pair_reach_2d<PX>(DX, false);
+  static constexpr int hi = p2_pair_reach_2d<PX>(DX, true);
+  // first element read, at an 8-byte boundary; n pair loads
+  static constexpr int start = ((A + DX + lo) & 1) ? lo - 1 : lo;
+  static constexpr int n = (hi - start) / 2 + 1;
+};
+
+struct P2Pair {
+  float a, b;
+};
+
+// Two floats from an 8-byte boundary (one 8-byte load on the card).
+HYTEG_DEVICE P2Pair p2_load_pair(const float* q) {
+  HYTEG_PAIR_LOAD_HOOK(q);
+#ifdef __CUDACC__
+  const float2 t = *reinterpret_cast<const float2*>(q);
+  return {t.x, t.y};
+#else
+  return {q[0], q[1]};
+#endif
+}
+
+// acc += the taps of list PAR with dx == DX, v holding row x + DX from
+// element (za + OFF) on.
+template <int PAR, int DX, int OFF, int I>
+HYTEG_DEVICE void p2_window_tap(float& acc, const float* v,
+                                const P2Weights2D<PAR>& w) {
+  if constexpr (P2Tap2D<PAR, I>::dx == DX)
+    acc += w.v[I] * v[P2Tap2D<PAR, I>::dz - OFF];
+}
+
+template <int PAR, int DX, int OFF, int... I>
+HYTEG_DEVICE void p2_window_taps(float& acc, const float* v,
+                                 const P2Weights2D<PAR>& w,
+                                 std::integer_sequence<int, I...>) {
+  (p2_window_tap<PAR, DX, OFF, I>(acc, v, w), ...);
+}
+
+// The pair's taps in row x + DX from its window.
+template <int PX, int A, int DX>
+HYTEG_DEVICE void p2_pair_dx_2d(const float* p, int M,
+                                const P2Weights2D<2 * PX + 1>& wa,
+                                const P2Weights2D<2 * PX>& wb, float& acc_a,
+                                float& acc_b) {
+  using Win = P2Window2D<PX, A, DX>;
+  if constexpr (Win::lo <= Win::hi) {
+    constexpr int pa = 2 * PX + 1, pb = 2 * PX;
+    float v[2 * Win::n];
+    const float* q = p + DX * M + Win::start;
+#pragma unroll
+    for (int k = 0; k < Win::n; ++k) {
+      const P2Pair t = p2_load_pair(q + 2 * k);
+      v[2 * k] = t.a;
+      v[2 * k + 1] = t.b;
+    }
+    p2_window_taps<pa, DX, Win::start>(
+        acc_a, v, wa, std::make_integer_sequence<int, kP2NTaps2D[pa]>{});
+    p2_window_taps<pb, DX, Win::start - 1>(
+        acc_b, v, wb, std::make_integer_sequence<int, kP2NTaps2D[pb]>{});
+  }
+}
+
+// dst at the pair za, za + 1 (both off the faces, shell key 2), p
+// pointing at za: rows x - 2 .. x + 2 each through its window, the taps
+// of each node in ascending s (the lists are ordered by dx first).
+template <int PX, int A>
+HYTEG_DEVICE P2Pair p2_pair_2d(const float* p, int M,
+                               const P2Weights2D<2 * PX + 1>& wa,
+                               const P2Weights2D<2 * PX>& wb) {
+  float acc_a = 0.f, acc_b = 0.f;
+  p2_pair_dx_2d<PX, A, -2>(p, M, wa, wb, acc_a, acc_b);
+  p2_pair_dx_2d<PX, A, -1>(p, M, wa, wb, acc_a, acc_b);
+  p2_pair_dx_2d<PX, A, 0>(p, M, wa, wb, acc_a, acc_b);
+  p2_pair_dx_2d<PX, A, 1>(p, M, wa, wb, acc_a, acc_b);
+  p2_pair_dx_2d<PX, A, 2>(p, M, wa, wb, acc_a, acc_b);
+  return {acc_a, acc_b};
+}
+
+// The nodes z = 1 .. r - 1 of row x >= 1 (r = M - x), PX = x & 1, A the
+// parity of the float address of src's (x, 1), the row starting at
+// offset row: lane l of the warp takes the node pair za = z0 + 2 l (odd
+// z) and zb = za + 1 (even z), z0 = 1, 65, ..., so the warp needs the two
+// parity lists pa = 2 PX + 1 and pb = 2 PX only. The shell-key-2 rows of
+// both (W off the faces, rows par * 3 + 2) are held in registers for the
+// whole row. A pair with both nodes at shell key 2 (zb <= r - 3) reads
+// its rows through pair windows (p2_pair_2d) and is stored with one
+// 8-byte store where (x, za) of dst is at an 8-byte boundary; the nodes
+// at shell keys 1 and 0 (the last two) run p2_interior_node_2d on their
+// rows of W.
+template <int PX, int A, class Out>
+HYTEG_DEVICE void p2_interior_row_2d(const float* src, const float* W,
+                                     const Out& out, int row, int r, int M,
+                                     int lane) {
+  constexpr int pa = 2 * PX + 1, pb = 2 * PX;
+  const P2Weights2D<pa> wa = p2_weights_2d<pa>(W + (pa * 3 + 2) * kP2Dirs2D);
+  const P2Weights2D<pb> wb = p2_weights_2d<pb>(W + (pb * 3 + 2) * kP2Dirs2D);
+  const bool pair_store = out.to_aligned(row + 1) % 2 == 0;
+  for (int z0 = 1; z0 < r; z0 += 64) {
+    const int za = z0 + 2 * lane, zb = za + 1;
+    if (zb < r - 2) {
+      const P2Pair y = p2_pair_2d<PX, A>(src + row + za, M, wa, wb);
+      if (pair_store) {
+        out.pair(row + za, y.a, y.b);
+      } else {
+        out(row + za, y.a);
+        out(row + zb, y.b);
+      }
+      continue;
+    }
+    if (za < r)
+      out(row + za, p2_interior_node_2d<pa>(
+                        src + row + za, M,
+                        za < r - 2 ? wa : p2_weights_2d<pa>(
+                            W + (pa * 3 + r - 1 - za) * kP2Dirs2D)));
+    if (zb < r)
+      out(row + zb, p2_interior_node_2d<pb>(
+                        src + row + zb, M,
+                        p2_weights_2d<pb>(W + (pb * 3 + r - 1 - zb) * kP2Dirs2D)));
+  }
+}
+
+// Every slot of rows x0 .. x0 + kBandRows2D - 1 (those < M) of one face,
+// each written once through out: a thread block's share of kernel B5's
+// 2D form, run by thread (warp, lane) of kPlaneWarps warps. W: the face's
+// 48 x 19 rows (staged in shared memory by the kernel). Warp w takes the
+// rows x0 + 2 w (even) and x0 + 2 w + 1 (odd), so each warp runs one
+// 28-tap and one 18-tap pair list (x0 is even).
+//  - Row 0 is all face: its nodes go through p2_face_point_2d in pairs
+//    (2 lane, 2 lane + 1 of a stride of 64), one node after the other so
+//    that at each step the lanes hold one parity.
+//  - Row x >= 1 meets the triangle in r = M - x nodes: lane 0 takes the
+//    face node z = 0, p2_interior_row_2d the nodes z = 1 .. r - 1 (one of
+//    four compile-time cases by x & 1 and the row's alignment A), and the
+//    slots z = r .. M - 1 are a store-only zero run (zero_run).
+template <class Out>
+HYTEG_DEVICE void p2_const_apply_band_2d(const float* src, const float* W,
+                                         const Out& out, int x0, int M,
+                                         int warp, int lane) {
+  for (int x = x0 + 2 * warp; x <= x0 + 2 * warp + 1 && x < M; ++x) {
+    const int row = x * M, r = M - x;
+    if (x == 0) {
+      for (int z = 2 * lane; z < M; z += 64) {
+        out(z, p2_face_point_2d(src, 0, z, M, W));
+        if (z + 1 < M) out(z + 1, p2_face_point_2d(src, 0, z + 1, M, W));
+      }
+      continue;
+    }
+    if (lane == 0) out(row, p2_face_point_2d(src, x, 0, M, W));
+    const int A = (int)((reinterpret_cast<uintptr_t>(src + row + 1) >> 2) & 1);
+    switch (((x & 1) << 1) | A) {
+      case 0: p2_interior_row_2d<0, 0>(src, W, out, row, r, M, lane); break;
+      case 1: p2_interior_row_2d<0, 1>(src, W, out, row, r, M, lane); break;
+      case 2: p2_interior_row_2d<1, 0>(src, W, out, row, r, M, lane); break;
+      default: p2_interior_row_2d<1, 1>(src, W, out, row, r, M, lane);
+    }
+    zero_run(out, row + r, row + M, lane, 32);
+  }
 }
 
 }  // namespace hyteg

@@ -22,6 +22,15 @@ struct CellStore {
     const unsigned word = (unsigned)(reinterpret_cast<uintptr_t>(dst + i) >> 2);
     return (int)((0u - word) & 3u);
   }
+  // a and b into slots i and i + 1, i at an 8-byte boundary
+  HYTEG_DEVICE void pair(int i, float a, float b) const {
+#ifdef __CUDACC__
+    *reinterpret_cast<float2*>(dst + i) = make_float2(a, b);
+#else
+    dst[i] = a;
+    dst[i + 1] = b;
+#endif
+  }
   // zeros into slots i .. i + 3, i at a 16-byte boundary
   HYTEG_DEVICE void zero4(int i) const {
 #ifdef __CUDACC__

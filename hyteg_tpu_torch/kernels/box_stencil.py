@@ -70,7 +70,8 @@ def box_apply(u: torch.Tensor, w_vecs: torch.Tensor, dims) -> torch.Tensor:
     u: (X, Y*Z) f32 or bf16; w_vecs: (3, 15, Y*Z) f32 from
     kuhn.lane_weights. A CPU tensor runs the plain version; a CUDA tensor
     launches kernel B1 (csrc/box_stencil.cu) and counts the launch in
-    ``box_apply.launches``."""
+    ``box_apply.launches`` and ``box_apply.launches_by_rows[X]`` (X
+    tells a hierarchy's levels apart)."""
     if u.device.type == "cpu":
         return box_apply_torch(u, w_vecs, dims)
     X, Y, Z = dims
@@ -84,7 +85,9 @@ def box_apply(u: torch.Tensor, w_vecs: torch.Tensor, dims) -> torch.Tensor:
         build.current_stream())
     build.check_launch(rc, "box_apply")
     box_apply.launches += 1
+    box_apply.launches_by_rows[X] = box_apply.launches_by_rows.get(X, 0) + 1
     return y
 
 
 box_apply.launches = 0
+box_apply.launches_by_rows = {}

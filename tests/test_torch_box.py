@@ -7,9 +7,10 @@ The JAX side runs as its own CPU tests run it: the XLA formulation
 mode. Inputs are made with numpy from a seed and carried over through
 hyteg_tpu_torch.interop.
 
-B1's per-point math (csrc/box_stencil.cuh) is also compiled with the host
-C++ compiler and held against the plain version, so the arithmetic that
-runs on the card is checked here without a GPU.
+B1's thread walk (csrc/box_stencil.cuh: box_apply_thread, box_lane_walk)
+is also compiled with the host C++ compiler, run thread block by thread
+block through a counting store and held against the plain version, so
+the code that runs on the card is checked here without a GPU.
 
 Tolerances: tables exact; lane weights from the same element matrices
 1e-7 of their largest entry (f32 sums in another order); element matrices
@@ -42,6 +43,8 @@ from hyteg_tpu_torch.operators import forms as tforms
 from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
 from hyteg_tpu_torch.structured import kuhn as tkuhn
 from hyteg_tpu_torch.structured.box import rowclass_mul
+
+from chip_smoke import bf16_ulp_excess
 
 torch.set_num_threads(1)
 
@@ -329,7 +332,7 @@ def test_lane_weights_round_trip():
 
 
 # ---------------------------------------------------------------------------
-# kernel B1's per-point math, compiled for the host
+# kernel B1's thread walk, compiled for the host
 # ---------------------------------------------------------------------------
 
 CSRC = pathlib.Path(tk.__file__).resolve().parent.parent / "csrc"
@@ -359,28 +362,45 @@ static uint16_t bf16_rne(float f) {  // round to nearest even (finite f)
   b += 0x7fffu + ((b >> 16) & 1u);
   return (uint16_t)(b >> 16);
 }
-// Runs the per-point function the kernel runs, one node after another,
-// with the weights of each node's row class.
-template <class Load>
-static float point(const Load& load, const float* w, int x, int lane, int X,
-                   int L, int Z) {
-  float wv[kBoxDirs];
-  box_load_weights(LoadF32{w}, wv, box_row_class(x, X), lane, L);
-  return box_point(load, wv, x, lane, X, L, Z);
+struct StoreF32 {
+  float* p;
+  int* count;
+  void operator()(long long i, float v) const {
+    p[i] = v;
+    if (count) ++count[i];
+  }
+};
+struct StoreBF16 {
+  uint16_t* p;
+  int* count;
+  void operator()(long long i, float v) const {
+    p[i] = bf16_rne(v);
+    if (count) ++count[i];
+  }
+};
+// Kernel B1's thread blocks one after another, every thread (tz, ty) of
+// each through the kernel's own code (box_apply_thread), with chunks of
+// `rows` rows (0: the kernel's, box_chunk_rows(X)). count: null, or one int per
+// slot of the block.
+template <class Load, class Store>
+static void run(const Load& load, const float* w, const Store& store, int X,
+                int Y, int Z, int rows) {
+  if (rows == 0) rows = box_chunk_rows(X);
+  for (int bx = 0; bx < (X + rows - 1) / rows; ++bx)
+    for (int by = 0; by < (Y + kBoxTileY - 1) / kBoxTileY; ++by)
+      for (int bz = 0; bz < (Z + kBoxTileZ - 1) / kBoxTileZ; ++bz)
+        for (int ty = 0; ty < kBoxTileY; ++ty)
+          for (int tz = 0; tz < kBoxTileZ; ++tz)
+            box_apply_thread(load, LoadF32{w}, store, bz, by, bx, tz, ty,
+                             rows, X, Y, Z);
 }
 extern "C" void box_apply_f32(const float* u, const float* w, float* y, int X,
-                              int Y, int Z) {
-  const int L = Y * Z;
-  for (int x = 0; x < X; ++x)
-    for (int l = 0; l < L; ++l)
-      y[(long long)x * L + l] = point(LoadF32{u}, w, x, l, X, L, Z);
+                              int Y, int Z, int rows, int* count) {
+  run(LoadF32{u}, w, StoreF32{y, count}, X, Y, Z, rows);
 }
 extern "C" void box_apply_bf16(const uint16_t* u, const float* w, uint16_t* y,
-                               int X, int Y, int Z) {
-  const int L = Y * Z;
-  for (int x = 0; x < X; ++x)
-    for (int l = 0; l < L; ++l)
-      y[(long long)x * L + l] = bf16_rne(point(LoadBF16{u}, w, x, l, X, L, Z));
+                               int X, int Y, int Z, int rows, int* count) {
+  run(LoadBF16{u}, w, StoreBF16{y, count}, X, Y, Z, rows);
 }
 extern "C" void box_dirs(int* out) {
   for (int s = 0; s < kBoxDirs; ++s)
@@ -405,7 +425,7 @@ def host_box_kernel(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.box_apply_f32, lib.box_apply_bf16):
-        fn.argtypes = [P, P, P, I, I, I]
+        fn.argtypes = [P, P, P, I, I, I, I, P]
     lib.box_dirs.argtypes = [P]
     return lib
 
@@ -426,13 +446,49 @@ def test_kernel_point_math_matches_plain(host_box_kernel, m, ext, level, form):
     ref = tk.box_apply_torch(u, w, td.dims)
     out = torch.empty_like(u)
     host_box_kernel.box_apply_f32(u.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  X, Y, Z)
+                                  X, Y, Z, 0, None)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
     ub = u.to(torch.bfloat16)
     ref = tk.box_apply_torch(ub, w, td.dims).to(torch.float32)
     out = torch.empty_like(ub)
     host_box_kernel.box_apply_bf16(ub.data_ptr(), w.data_ptr(),
-                                   out.data_ptr(), X, Y, Z)
+                                   out.data_ptr(), X, Y, Z, 0, None)
     err = (out.to(torch.float32) - ref).abs().max().item()
     assert err <= BF16_ULP * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [0, 5])
+@pytest.mark.parametrize("m", [(1, 2, 3), (2, 1, 1), (2, 2, 2)])
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_kernel_walk_writes_every_node_once(host_box_kernel, level, m, rows):
+    """Kernel B1's thread blocks (tiles of 32 z x 8 y lanes, chunks of the
+    kernel's rows (rows = 0: 64 at these sizes) or of 5, so that chunks
+    start past row 0 at every level) at box levels 1-4 on m = (1, 2, 3),
+    (2, 1, 1), (2, 2, 2): X, Y and Z are multiples of no tile. Every node
+    is written exactly once; f32 matches the plain version to 1e-5 of
+    max|y|, bf16 within one bf16 ulp per element (chip_smoke.py's gate).
+    Random weights, all 15 nonzero at every lane (the operators' own have
+    exact zeros that would hide a wrong read), and a random source."""
+    td = BoxDomain(m, level, device="cpu")
+    X, Y, Z = td.dims
+    w = torch.tensor(_rand((3, 15, Y * Z), 70 + level))
+    u = torch.tensor(_rand(td.block_shape, 60 + level))
+    ref = tk.box_apply_torch(u, w, td.dims)
+    out = torch.full_like(u, float("nan"))
+    count = torch.zeros(u.shape, dtype=torch.int32)
+    host_box_kernel.box_apply_f32(u.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                  X, Y, Z, rows, count.data_ptr())
+    assert (count == 1).all()
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * scale
+
+    ub = u.to(torch.bfloat16)
+    ref_b = tk.box_apply_torch(ub, w, td.dims)
+    out_b = torch.full_like(ub, float("nan"))
+    count.zero_()
+    host_box_kernel.box_apply_bf16(ub.data_ptr(), w.data_ptr(),
+                                   out_b.data_ptr(), X, Y, Z, rows,
+                                   count.data_ptr())
+    assert (count == 1).all()
+    assert bf16_ulp_excess(out_b, ref_b, scale) <= 1.0

@@ -1,7 +1,8 @@
 """The 2D arm of the PyTorch port's P2 path (macro-faces): the stencil and
 face tables, the node-grid masks, element matrices, the general P2 apply
-and diagonal, kernel B5's 2D form (plain version, and its CUDA per-point
-math compiled with the host C++ compiler), the quadratic transfers and
+and diagonal, kernel B5's 2D form (plain version, and its CUDA thread
+walk compiled with the host C++ compiler and run thread block by thread
+block through a counting store), the quadratic transfers and
 the P2 GMG stack, against the JAX package on identical numpy-seeded
 inputs.
 
@@ -279,23 +280,78 @@ def test_2d_p2_wrapper_rejects_non_cpu_non_cuda_tensors():
 
 HOST_HARNESS = r"""
 #include <cmath>
+#include <cstdint>
+// Every pair load must start at an 8-byte boundary and overlap the face
+// it serves (a window may start one element before the face only where
+// the face does not start at an 8-byte boundary).
+static const float* g_face_lo;
+static const float* g_face_hi;
+static long long g_bad_loads;
+static void check_pair_load(const float* q) {
+  if ((reinterpret_cast<uintptr_t>(q) & 7) != 0 || q + 1 < g_face_lo ||
+      q >= g_face_hi)
+    ++g_bad_loads;
+}
+#define HYTEG_PAIR_LOAD_HOOK(q) check_pair_load(q)
 #define HYTEG_DEVICE inline
 #include "p2_const_stencil.cuh"
 using namespace hyteg;
-// Runs the 2D per-point function kernel B5 runs, one node after another.
-extern "C" void p2_apply_2d(const float* src, const float* W, float* dst,
-                            int C, int M, const int* dirs) {
-  P2Tables2D t;
-  for (int s = 0; s < kP2Dirs2D; ++s) {
-    t.dx[s] = dirs[2 * s];
-    t.dz[s] = dirs[2 * s + 1];
+// Counts each slot's writes beside the store, and pair stores that do not
+// start at an 8-byte boundary.
+struct CountStore {
+  CellStore cell;
+  int* count;
+  void operator()(int i, float v) const { cell(i, v); ++count[i]; }
+  int to_aligned(int i) const { return cell.to_aligned(i); }
+  void pair(int i, float a, float b) const {
+    if ((reinterpret_cast<uintptr_t>(cell.dst + i) & 7) != 0) ++g_bad_loads;
+    cell.pair(i, a, b);
+    ++count[i];
+    ++count[i + 1];
   }
-  const long long cell = (long long)M * M;
-  for (int c = 0; c < C; ++c)
-    for (long long q = 0; q < cell; ++q)
-      dst[c * cell + q] = p2_point_2d(src + c * cell, (int)(q / M),
-                                      (int)(q % M), M, t,
-                                      W + (long long)c * kP2Rows2D * kP2Dirs2D);
+  void zero4(int i) const {
+    cell.zero4(i);
+    for (int k = 0; k < 4; ++k) ++count[i + k];
+  }
+};
+// Kernel B5's 2D thread blocks one after another: per face and band of
+// kBandRows2D rows, every thread (warp, lane) of the block through the
+// same walk (p2_const_apply_band_2d) on the face's 48 rows. count: null,
+// or one int per slot of the block. Returns the number of pair loads and
+// pair stores that broke their rule (check_pair_load, CountStore::pair).
+extern "C" long long p2_apply_2d(const float* src, const float* W, float* dst,
+                                 int C, int M, int* count) {
+  const long long face = (long long)M * M;
+  g_bad_loads = 0;
+  for (int c = 0; c < C; ++c) {
+    const float* Wc = W + (long long)c * kP2Rows2D * kP2Dirs2D;
+    g_face_lo = src + c * face;
+    g_face_hi = g_face_lo + face;
+    for (int x0 = 0; x0 < M; x0 += kBandRows2D)
+      for (int tid = 0; tid < kPlaneWarps * 32; ++tid) {
+        if (count)
+          p2_const_apply_band_2d(src + c * face, Wc,
+                                 CountStore{CellStore{dst + c * face},
+                                            count + c * face},
+                                 x0, M, tid >> 5, tid & 31);
+        else
+          p2_const_apply_band_2d(src + c * face, Wc,
+                                 CellStore{dst + c * face}, x0, M, tid >> 5,
+                                 tid & 31);
+      }
+  }
+  return g_bad_loads;
+}
+// The compile-time tables: kP2DirList2D (19 x 2), kP2NTaps2D (4) and
+// kP2TapList2D (4 x 19).
+extern "C" void p2_tap_tables_2d(int* dirs, int* ntaps, int* taps) {
+  for (int s = 0; s < kP2Dirs2D; ++s)
+    for (int d = 0; d < 2; ++d) dirs[2 * s + d] = kP2DirList2D[s][d];
+  for (int p = 0; p < 4; ++p) {
+    ntaps[p] = kP2NTaps2D[p];
+    for (int i = 0; i < kP2Dirs2D; ++i)
+      taps[p * kP2Dirs2D + i] = kP2TapList2D[p][i];
+  }
 }
 """
 
@@ -314,23 +370,79 @@ def host_kernel(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.p2_apply_2d.argtypes = [P, P, P, I, I, P]
+    lib.p2_apply_2d.restype = ctypes.c_longlong
+    lib.p2_tap_tables_2d.argtypes = [P, P, P]
     return lib
+
+
+def _host_weights(tsp, kind):
+    et = top.compute_p2_elmats(tsp, kind)
+    return tk.p2_folded_weights(tk.p2_stencil_weights(et, 2),
+                                tk.p2_face_weights(et, 2)).contiguous()
 
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("name,level", CASES + [("rect", 3)])
 def test_kernel_2d_point_math_matches_plain(host_kernel, name, level, kind):
     _, tsp = _spaces(name, level)
-    et = top.compute_p2_elmats(tsp, kind)
-    W = tk.p2_folded_weights(tk.p2_stencil_weights(et, 2),
-                             tk.p2_face_weights(et, 2)).contiguous()
+    W = _host_weights(tsp, kind)
     xt = T(_block(_spaces(name, level)[0], 20 + level))
     ref = tk.p2_const_apply_torch(xt, W, level, tsp.pitch, 2)
     out = torch.full_like(xt, float("nan"))
-    host_kernel.p2_apply_2d(xt.data_ptr(), W.data_ptr(), out.data_ptr(),
-                            xt.shape[0], tsp.M, tk._kernel_dirs(2).ctypes.data)
+    assert host_kernel.p2_apply_2d(xt.data_ptr(), W.data_ptr(),
+                                   out.data_ptr(), xt.shape[0], tsp.M,
+                                   None) == 0
     _close(out, ref, 1e-5)
     assert not out[:, ~tsp.vertex_mask_t.bool()].any()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", ["rect", "annulus"])
+@pytest.mark.parametrize("level", [0, 1, 2, 3, 4])
+def test_kernel_2d_walk_writes_every_node_once(host_kernel, name, level,
+                                               kind):
+    """The 2D kernel's walk over its thread blocks (band of rows, face) at
+    P2 levels 0-4 (M = 3 ... 33): every slot of the block is written
+    exactly once, exactly 0 past the triangle whatever the source holds
+    there, and each node as the plain version computes it, to 1e-5 of
+    max|y| (the operator's own weights, the source random everywhere);
+    every pair load and pair store at an 8-byte boundary, every pair load
+    overlapping its face (faces start at both parities here: M^2 is odd)."""
+    _, tsp = _spaces(name, level)
+    W = _host_weights(tsp, kind)
+    rng = np.random.default_rng(30 + level)
+    src = torch.as_tensor(
+        rng.standard_normal(tsp.block_shape).astype(np.float32))
+    ref = tk.p2_const_apply_torch(src, W, level, tsp.pitch, 2)
+    dst = torch.full_like(src, float("nan"))
+    count = torch.zeros(src.shape, dtype=torch.int32)
+    assert host_kernel.p2_apply_2d(src.data_ptr(), W.data_ptr(),
+                                   dst.data_ptr(), src.shape[0], tsp.M,
+                                   count.data_ptr()) == 0
+    assert (count == 1).all()
+    inside = tsp.vertex_mask_t.bool()
+    assert (dst[:, ~inside] == 0).all()
+    assert (dst[:, inside] - ref[:, inside]).abs().max().item() <= (
+        1e-5 * ref.abs().max().item())
+
+
+def test_kernel_2d_tap_lists_match_jax_tables(host_kernel):
+    """The 2D kernel's compile-time directions equal the JAX package's
+    p2_stencil_tables(2), and each parity's tap list holds exactly the
+    directions that its _nz_tables(2) marks structurally nonzero in some
+    shell slot, in ascending order; no face correction adds one."""
+    dirs = np.zeros((19, 2), dtype=np.int32)
+    ntaps = np.zeros(4, dtype=np.int32)
+    taps = np.zeros((4, 19), dtype=np.int32)
+    host_kernel.p2_tap_tables_2d(dirs.ctypes.data, ntaps.ctypes.data,
+                                 taps.ctypes.data)
+    np.testing.assert_array_equal(dirs, jk.p2_stencil_tables(2)[0])
+    np.testing.assert_array_equal(dirs, tk._kernel_dirs(2))
+    nzm, nzf = jk._nz_tables(2)
+    for par in range(4):
+        want = np.nonzero(nzm[par].any(-1))[0]
+        np.testing.assert_array_equal(taps[par, :ntaps[par]], want)
+        assert not (nzf[:, par].any(-1).any(0) & ~nzm[par].any(-1)).any()
 
 
 # ---------------------------------------------------------------------------
