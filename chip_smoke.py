@@ -12,8 +12,10 @@ read just after:
   fixed-iteration CG coarse solve) on the 48-cell unit-cube macro mesh at
   levels 6 and 7 (kernels B2, B3), B2 and B3 first held against their
   plain versions at every level the level-7 stack launches them at
-  (2-7, pitch 129, B2 timed at each), with a torch.profiler breakdown
-  of one level-7 V-cycle and B2's launches in it by level;
+  (2-7, pitch 129, B2 timed at each; B3 also with a coefficient in the
+  three means at each, and timed in each at level 7: ``b3_coeff``),
+  with a torch.profiler breakdown of one level-7 V-cycle and B2's
+  launches in it by level;
 - the structured box path: box GMG V(2,2) solves of the manufactured
   Poisson problem on m = (2, 2, 2) at levels 6 and 7, then at level 9,
   1,076,890,625 DoFs on one card (kernel B1, f32 and bf16 storage, held
@@ -44,11 +46,14 @@ read just after:
 - the 2D arm on macro-faces (the 2D forms of B2, B3, B4 and B5): the
   kernels against their plain versions on the 12-face annulus at level 4
   and on the 32-face rectangle mesh_rectangle(nx=4, ny=4) at P1 level 11
-  / P2 level 10, B5-2D also at every other P2 level 1-9 of the stack,
-  timed beside its bound at each; the P1 GMG solve of sin(pi x)
-  sin(pi y) at level 11,
-  67,125,249 DoFs, its rate gated on A x = 0 from a random start, with a
-  torch.profiler breakdown of one V-cycle; the P1 coefficient operator at
+  / P2 level 10, B2-2D and B3-2D also at every other P1 level 2-10 and
+  B5-2D at every other P2 level 1-9 of the stacks, B2-2D and B5-2D
+  timed beside their bounds at each (``b2_2d_levels``,
+  ``b5_2d_levels``); the P1 GMG solve of sin(pi x) sin(pi y) at level
+  11, 67,125,249 DoFs, its rate gated on A x = 0 from a random start,
+  with a torch.profiler breakdown of one V-cycle, B2-2D's launches in it
+  by level and its ms lost against its per-level bounds; the P1
+  coefficient operator at
   level 11; the P2 GMG stack at P2 level 10, 67,125,249 DoFs, gated on a
   seeded rhs and on A x = 0, with a breakdown of one V-cycle and B5-2D's
   launches in it by level; the manufactured P2 solve at levels 1-3.
@@ -83,9 +88,8 @@ PITCH = (1 << 7) + 1  # one lane pitch for every level, as a GMG stack uses
 N_CYCLES = 8
 MIN_LEVEL = 2
 # B2 and B3 vs plain at every level the level-7 GMG stack launches them at
-# (pitch 129); B3 with a coefficient at level 4
+# (pitch 129), B3 also with a coefficient
 CHECK_LEVELS = tuple(range(MIN_LEVEL, SLICE_LEVELS[-1] + 1))
-COEFF_CHECK_LEVEL = 4
 COARSE_ITERS = 30
 B2_RTOL = 1e-5        # f32, 15-term sums taken in another order
 B3_RTOL = 1e-6        # f32, <= 24-term sums taken in another order
@@ -152,6 +156,9 @@ LEVEL_2D = 11         # N = 2049: (32, 2049, 2049) f32 = 537 MB, 67,125,249 DoFs
 P2_LEVEL_2D = 10      # the same node grid and DoF count
 # (mesh, P1 level, P2 level) of the 2D kernels-vs-plain checks
 KERNEL_CHECKS_2D = (("annulus", 4, 4), ("rect", LEVEL_2D, P2_LEVEL_2D))
+# the other levels of the rect P1 stack: B2-2D and B3-2D checked and B2-2D
+# timed beside its bound at each
+P1_CHECK_LEVELS_2D = tuple(range(MIN_LEVEL, LEVEL_2D))
 # B5-2D vs plain also at every other level the rect P2 stack launches it
 # at, each timed beside its bound
 P2_CHECK_LEVELS_2D = tuple(range(1, P2_LEVEL_2D))
@@ -254,11 +261,11 @@ def exact(dim: int):
     return u, lambda p: dim * math.pi ** 2 * u(p)
 
 
-def check_kernels(storage, level: int, device, seed: int,
-                  with_coeff: bool) -> dict:
+def check_kernels(storage, level: int, device, seed: int) -> dict:
     """Kernels B2 and B3 against their plain versions at one level (3D
-    with pitch 129, or 2D); B3 also with a coefficient in the three means
-    when ``with_coeff``."""
+    with pitch 129, or 2D), B2's Laplace apply timed beside its bound
+    (``b2_ms``, ``b2_bound_ms``); B3 also with a coefficient in the three
+    means."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.indexing import micro
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
@@ -291,24 +298,24 @@ def check_kernels(storage, level: int, device, seed: int,
               f"B2 {name} level {level}: nonzero outside the tet / padding")
         out[f"b2_{name}_max_abs_err"] = err
         out[f"b2_{name}_max_abs"] = scale
-        if name == "laplace" and dim == 3:
+        if name == "laplace":
             out["b2_ms"] = median_ms(
                 lambda: b2.p1_const_apply(x, A, E, level, dim, pitch), 10,
                 batch=10)
-            read = simplex_read_bytes(sp, micro.stencil_directions(3),
+            read = simplex_read_bytes(sp, micro.stencil_directions(dim),
                                       x.shape[0])
+            # a multiply-add per direction at each simplex slot
+            points = tet_points(sp.n) if dim == 3 else tri_points(sp.n)
             out["b2_bound_ms"] = bound(
                 nbytes(x) + read + nbytes(A, E),
-                30 * x.shape[0] * tet_points(sp.n))[0]
+                2 * (15 if dim == 3 else 7) * x.shape[0] * points)[0]
         del x, y, y_ref
         # B3: diagonal (Laplace and mass), lumped (mass; Laplace row sums
-        # vanish), and the coefficient modes at the small level only
+        # vanish), and the coefficient modes
+        co = torch.rand(sp.block_shape, generator=gen, device=device)
+        co = (0.5 + 1.5 * co) * sp.vertex_mask_t
         cases = [(False, None, "arithmetic"), (True, None, "arithmetic")]
-        if with_coeff:
-            co = torch.rand(sp.block_shape, generator=gen, device=device)
-            co = (0.5 + 1.5 * co) * sp.vertex_mask_t
-            cases += [(lumped, co, m) for lumped in (False, True)
-                      for m in MODES]
+        cases += [(lumped, co, m) for lumped in (False, True) for m in MODES]
         for lumped, co, mode in cases:
             if lumped and name == "laplace":
                 continue
@@ -1177,13 +1184,25 @@ def run_2d(device, card: str) -> dict:
     # -- kernels_2d: B2-2D, B3-2D, B5-2D against their plain versions ------
     p1c, p2c = [], []
     for i, (mesh, lv, lv2) in enumerate(KERNEL_CHECKS_2D):
-        p1c.append(check_kernels(storages[mesh], lv, device, seed=100 + i,
-                                 with_coeff=True))
+        p1c.append(check_kernels(storages[mesh], lv, device, seed=100 + i))
         torch.cuda.empty_cache()
         p2c.append(check_p2_kernels(storages[mesh], lv2, device, seed=110 + i,
                                     vs_general=lv2 == P2_LEVEL_2D))
         torch.cuda.empty_cache()
         emit("kernels_2d", card=card, mesh=mesh, p1=p1c[-1], p2=p2c[-1])
+    rect_p1 = [c for c, (mesh, *_) in zip(p1c, KERNEL_CHECKS_2D)
+               if mesh == "rect"]
+    for lv in P1_CHECK_LEVELS_2D:
+        rect_p1.append(check_kernels(storages["rect"], lv, device,
+                                     seed=170 + lv))
+        emit("p1_kernels_2d", card=card, mesh="rect", **rect_p1[-1])
+    p1c += rect_p1[1:]
+    torch.cuda.empty_cache()
+    # B2-2D's ms and bound at every level of the rect P1 stack
+    b2_levels = {c["level"]: (c["b2_ms"], c["b2_bound_ms"]) for c in rect_p1}
+    emit("b2_2d_levels", card=card, level=sorted(b2_levels),
+         b2_2d_ms=[b2_levels[lv][0] for lv in sorted(b2_levels)],
+         b2_2d_bound_ms=[b2_levels[lv][1] for lv in sorted(b2_levels)])
     rect_p2 = [c for c, (mesh, *_) in zip(p2c, KERNEL_CHECKS_2D)
                if mesh == "rect"]
     for lv in P2_CHECK_LEVELS_2D:
@@ -1256,13 +1275,18 @@ def run_2d(device, card: str) -> dict:
     kern = conv2d_stencil(A.sum(-1), micro.stencil_directions(2))
     lib["p1_const_apply_2d"] = median_ms(
         lambda: F.conv2d(xv, kern, padding=1, groups=C), 10, batch=10)
+    prof = cycle_profile(lambda: stack.gmg.cycle(x, b), t["vcycle_2d"], {
+        "p1_const_apply_2d": ("p1_const_apply_2d_kernel",),
+        "p1_diagonal_local_2d": ("p1_diag_2d_kernel",)})
+    by_level = launches_by_level(stack, x, b, b2.p1_const_apply, dim=2)
     emit("gmg_2d_timings", card=card, level=L, ms={
-        k: t[k] for k in ("apply_raw_2d", "vcycle_2d")},
-        profile=cycle_profile(lambda: stack.gmg.cycle(x, b), t["vcycle_2d"], {
-            "p1_const_apply_2d": ("p1_const_apply_2d_kernel",),
-            "p1_diagonal_local_2d": ("p1_diag_2d_kernel",)}))
+        k: t[k] for k in ("apply_raw_2d", "vcycle_2d")}, profile=prof,
+        b2_2d_launches_by_level=by_level,
+        b2_2d_ms_lost_per_cycle=ms_lost(
+            prof["kernels"]["p1_const_apply_2d"]["ms"], by_level,
+            {lv: v[1] for lv, v in b2_levels.items()}))
     block_elements = x.numel()
-    del stack, sp, op, A, E, elm, x, b, xv, kern
+    del stack, sp, op, A, E, elm, x, b, xv, kern, prof
     torch.cuda.empty_cache()
 
     # -- coeff_2d: the P1 coefficient operator (B4-2D; B3-2D with k) -------
@@ -1394,6 +1418,7 @@ def main() -> int:
     from hyteg_tpu_torch.indexing import micro
     from hyteg_tpu_torch.kernels import p2_const_stencil as b5
     from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.averaging import MODES
     from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
     from hyteg_tpu_torch.structured import kuhn
 
@@ -1418,8 +1443,7 @@ def main() -> int:
     storage = CellStorage(mesh_unit_cube(MESH_N))
     checks = []
     for i, level in enumerate(CHECK_LEVELS):
-        checks.append(check_kernels(storage, level, device, seed=i,
-                                    with_coeff=level == COEFF_CHECK_LEVEL))
+        checks.append(check_kernels(storage, level, device, seed=i))
         emit("kernels_vs_plain", card=card, **checks[-1])
         torch.cuda.empty_cache()
     errs = {name: max(v for c in checks for k, v in c.items()
@@ -1468,6 +1492,23 @@ def main() -> int:
         "apply_raw": median_ms(lambda: op.apply_raw(x), 10, batch=10),
         "vcycle": median_ms(lambda: stack.gmg.cycle(x, b), 20),
     }
+    # B3 with a coefficient, in each mean (the coefficient refresh of a
+    # variable-coefficient smoother)
+    kc = coeff_field(sp, device, torch.Generator(device=device).manual_seed(62),
+                     "random")
+    b3_coeff_ms = {m: median_ms(
+        lambda m=m: b3.p1_diagonal_local(elm, level, 3, sp.pitch, False, kc, m),
+        10, batch=10) for m in MODES}
+    # the block written once, the coefficient read on the tet's slots; per
+    # (element, vertex) term 4 adds of the mean, its division and a
+    # multiply-add
+    b3_coeff_bound = bound(
+        nbytes(elm) + nbytes(x) + simplex_read_bytes(sp, [(0, 0, 0)], sp.C_loc),
+        7 * 4 * sp.C_loc * sum(tet_points(sp.n - int(m))
+                               for m in micro.base_margin(3)))
+    emit("b3_coeff", card=card, level=level, ms=b3_coeff_ms,
+         bound_ms=b3_coeff_bound[0], bound_by=b3_coeff_bound[1])
+    del kc
     emit("gmg_profile", card=card, level=level, **cycle_profile(
         lambda: stack.gmg.cycle(x, b), t["vcycle"],
         {"b2": ("p1_const_apply_kernel",), "b3": ("p1_diag_kernel",)}),
@@ -1879,7 +1920,9 @@ def main() -> int:
     extra = {"box_apply": {
         "max_abs_err_bf16": errs_bf16, "ms_level9": t["box_apply_level9"],
         "plain_ms_level9": t["box_apply_level9_plain"],
-        "bound_ms_level9": b1_bounds[BOX_BIG_LEVEL]}}
+        "bound_ms_level9": b1_bounds[BOX_BIG_LEVEL]},
+        "p1_diagonal_local": {"ms_coeff": b3_coeff_ms,
+                              "bound_ms_coeff": b3_coeff_bound[0]}}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

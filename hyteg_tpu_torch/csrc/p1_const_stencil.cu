@@ -7,8 +7,9 @@
 //
 // 3D bound: device-memory bandwidth. The block is written once (412 MB
 // at level 7 on 48 cells, 83% of it zeros outside the tet or on padding
-// lanes) and the tet read once, the 15 neighbour reads hitting L1/L2:
-// 0.246 ms at 3.35 TB/s for 8 B per slot. The design this one replaced
+// lanes) and the slots a stencil over the tet reads are read once (74
+// MB), the 15 neighbour reads hitting L1/L2: 0.1450 ms at 3.35 TB/s
+// (chip_smoke.py's bound, simplex_read_bytes). The design this one replaced
 // (one thread per slot of the padded block, a 64-bit slot split per
 // thread, four bounds tests per tap and the face-group loop inside the
 // tap loop) took 1.574 ms on an H100 (NVIDIA H100 80GB HBM3, 700 W): it paid for its
@@ -30,19 +31,35 @@
 // warp's chain of row chunks (79 registers: 3 blocks, 24 warps per SM).
 //
 // 2D: a face block is (N, N) with the lane axis z itself; the triangle
-// x + z <= n fills half of it and the other half is written 0. 7 + 7
-// weights and 2 x 21 edge corrections per face are folded into shared
-// memory the same way; one thread per slot, consecutive threads on
-// consecutive z. Bound: bytes again, 8 B per slot (1.07 GB at level 11
-// on 32 faces, 0.32 ms at 3.35 TB/s).
+// x + z <= n fills half of it and the other half is written 0. Bound:
+// bytes again, the block written once (537 MB at level 11 on 32 faces)
+// and the slots a stencil over the triangle reads read once (269 MB):
+// 0.2407 ms at 3.35 TB/s. The design this one replaced (one thread per
+// slot, 524,832 blocks of 256 threads at level 11, each folding the
+// face's weights from device memory, a 64-bit slot split per thread,
+// four bounds tests per tap, a scalar 0 per slot past the triangle) took
+// 1.2232-1.2300 ms there on the same card.
+//
+// The 2D design (const_apply_band_2d in p1_const_stencil.cuh): one
+// thread block per (face, band of 8 rows x), grid (C, ceil(N / 8)), the
+// faces' first bands (the longest rows) first; a warp per row, row 0
+// (all edge) shared by the block's warps; lanes on consecutive z. Slots
+// off the edges run one unrolled 7-tap sum with no tests (compile-time
+// directions), two chunks of 32 slots in flight per lane, the interior
+// or shell weights read from shared memory at each tap; edge slots run
+// const_apply_point_2d on the 8 rows the block folds; the half past the
+// triangle is a store-only zero run. Rows x +- 1 come from L1: the
+// band's warps read them side by side. 31 registers (8 blocks, 64 warps
+// per SM): with the 14 weights in registers it took 64 and ran slower.
+// It takes 0.4016-0.4068 ms at level 11 on the same card (59-60% of the
+// bound).
 #include <cuda_runtime.h>
 
 #include "p1_const_stencil.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;                          // 2D
-constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;  // 3D
+constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;
 
 // 3D: thread block (cell c, plane x); const_apply_plane writes the plane.
 __global__ void __launch_bounds__(kPlaneThreads)
@@ -72,29 +89,32 @@ p1_const_apply_kernel(const float* __restrict__ src,
                     blockDim.x >> 5);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 2D: thread block (face c, band of kBandRows2DP1 rows x), the faces'
+// first bands (the longest rows) first; the face's 8 folded rows go to
+// shared memory, then const_apply_band_2d writes the band.
+__global__ void __launch_bounds__(kPlaneThreads, 8)
 p1_const_apply_2d_kernel(const float* __restrict__ src,
                          const float* __restrict__ A,
                          const float* __restrict__ E,
                          float* __restrict__ dst, int N,
                          hyteg::ConstTables2D t) {
   using namespace hyteg;
-  __shared__ float w_in[kConst2Dirs], w_sh[kConst2Dirs];
-  __shared__ float e_in[kConst2Groups * kConst2Dirs];
-  __shared__ float e_sh[kConst2Groups * kConst2Dirs];
-  const int c = blockIdx.y;
-  const_fold_weights<kConst2Dirs, kConst2Groups>(
-      A + (long long)c * kConst2Dirs * kConstShells,
-      E + (long long)c * kConst2Groups * kConstShells * kConst2Dirs, w_in, w_sh,
-      e_in, e_sh, threadIdx.x, blockDim.x);
+  constexpr int nA = kConst2Dirs * kConstShells;
+  constexpr int nE = kConst2Groups * kConstShells * kConst2Dirs;
+  __shared__ float a_s[nA], e_s[nE];
+  __shared__ float rows[kConst2Rows * kConst2Dirs];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < nA + nE; i += blockDim.x) {
+    if (i < nA) a_s[i] = A[c * nA + i];
+    else e_s[i - nA] = E[c * nE + i - nA];
+  }
   __syncthreads();
-  const long long cell = (long long)N * N;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= cell) return;
-  const int x = (int)(q / N);
-  const int z = (int)(q - (long long)x * N);
-  dst[c * cell + q] = const_apply_point_2d(src + c * cell, x, z, N, t, w_in,
-                                           w_sh, e_in, e_sh);
+  const_fold_rows(a_s, e_s, t, rows, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const long long face = (long long)N * N;
+  const_apply_band_2d(src + c * face, CellStore{dst + c * face},
+                      blockIdx.y * kBandRows2DP1, N, rows,
+                      threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
 }
 
 }  // namespace
@@ -117,22 +137,23 @@ extern "C" int hyteg_p1_const_apply(const float* src, const float* A,
   return (int)cudaGetLastError();
 }
 
-// The 2D form. dirs: host (7, 2) int32 stencil directions; gmask: host
-// (3,) int32 edge-group bit masks. Returns cudaGetLastError() after the
-// launch.
+// The 2D form. dirs: host (7, 2) int32 stencil directions, which must
+// equal the kernel's compile-time const2_dx, const2_dz (else
+// cudaErrorInvalidValue, nothing launched); gmask: host (3,) int32
+// edge-group bit masks. Returns cudaGetLastError() after the launch.
 extern "C" int hyteg_p1_const_apply_2d(const float* src, const float* A,
                                        const float* E, float* dst, int C,
                                        int N, const int* dirs,
                                        const int* gmask, void* stream) {
+  for (int s = 0; s < hyteg::kConst2Dirs; ++s)
+    if (dirs[2 * s] != hyteg::const2_dx(s) ||
+        dirs[2 * s + 1] != hyteg::const2_dz(s))
+      return (int)cudaErrorInvalidValue;
   hyteg::ConstTables2D t;
-  for (int s = 0; s < hyteg::kConst2Dirs; ++s) {
-    t.dx[s] = dirs[2 * s];
-    t.dz[s] = dirs[2 * s + 1];
-  }
   for (int g = 0; g < hyteg::kConst2Groups; ++g) t.gmask[g] = gmask[g];
-  const long long cell = (long long)N * N;
-  const dim3 grid((unsigned)((cell + kThreads - 1) / kThreads), (unsigned)C);
-  p1_const_apply_2d_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const int bands = (N + hyteg::kBandRows2DP1 - 1) / hyteg::kBandRows2DP1;
+  const dim3 grid((unsigned)C, (unsigned)bands);
+  p1_const_apply_2d_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
       src, A, E, dst, N, t);
   return (int)cudaGetLastError();
 }

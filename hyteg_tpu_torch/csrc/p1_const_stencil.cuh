@@ -17,6 +17,13 @@
 #ifndef HYTEG_DEVICE
 #define HYTEG_DEVICE __device__ __forceinline__
 #endif
+#ifndef HYTEG_HD
+#ifdef __CUDACC__
+#define HYTEG_HD __host__ __device__
+#else
+#define HYTEG_HD
+#endif
+#endif
 
 namespace hyteg {
 
@@ -28,62 +35,52 @@ constexpr int kConst2Dirs = 7;    // 2D stencil directions (incl. 0)
 constexpr int kConst2Groups = 3;  // 2D coordinate-edge subsets G
 
 struct ConstTables {
+  static constexpr int kDirs = kConstDirs, kGroups = kConstGroups;
   int dx[kConstDirs];             // x offset of direction s
   int dl[kConstDirs];             // lane offset dy * pitch + dz
   int gmask[kConstGroups];        // bit i set <=> coordinate i in G
 };
 
 struct ConstTables2D {
-  int dx[kConst2Dirs];            // x offset of direction s
-  int dz[kConst2Dirs];            // z (lane) offset of direction s
+  static constexpr int kDirs = kConst2Dirs, kGroups = kConst2Groups;
   int gmask[kConst2Groups];       // bit 0: x = 0, bit 1: z = 0
 };
 
-// Per-cell weights folded for the two cases of the diagonal shell:
-//   off the shell (S < n): w_in[s]  = A[s,0] + A[s,1],  e_in[G,s] = E[G,0,s] + E[G,1,s]
-//   on the shell (S == n): w_sh[s]  = A[s,0],           e_sh[G,s] = E[G,0,s]
-// (kDirs, kGroups) = (7, 3): the 2D kernel's fold (the 3D kernel folds
-// whole rows, const_fold_rows).
-template <int kDirs, int kGroups>
-HYTEG_DEVICE void const_fold_weights(const float* A, const float* E,
-                                     float* w_in, float* w_sh,
-                                     float* e_in, float* e_sh,
-                                     int tid, int nthreads) {
-  for (int s = tid; s < kDirs; s += nthreads) {
-    const float a0 = A[s * kConstShells], a1 = A[s * kConstShells + 1];
-    w_in[s] = a0 + a1;
-    w_sh[s] = a0;
-  }
-  for (int i = tid; i < kGroups * kDirs; i += nthreads) {
-    const int g = i / kDirs, s = i - g * kDirs;
-    const float e0 = E[(g * kConstShells) * kDirs + s];
-    const float e1 = E[(g * kConstShells + 1) * kDirs + s];
-    e_in[i] = e0 + e1;
-    e_sh[i] = e0;
-  }
+// The 7 directions (dx, dz) of the 2D stencil in the order of
+// micro.stencil_directions(2): (-1, 0), (-1, 1), (0, -1), (0, 0), (0, 1),
+// (1, -1), (1, 0). Compile-time, so that each tap of an unrolled sum
+// reads at a row pointer plus an immediate; the launcher refuses other
+// tables.
+HYTEG_HD constexpr int const2_dx(int s) { return s < 2 ? -1 : (s < 5 ? 0 : 1); }
+HYTEG_HD constexpr int const2_dz(int s) {
+  return s == 1 || s == 4 ? 1 : (s == 2 || s == 5 ? -1 : 0);
 }
 
-// The folded weight rows of the 3D stencil, one per position class
-// (f, sh): face set f (bit 0: x == 0, bit 1: y == 0, bit 2: z == 0) and
-// shell flag sh = [S == n], row (f * 2 + sh) of kConstRows:
+// The folded weight rows of the stencil, one per position class (f, sh):
+// face set f (3D: bit 0 x == 0, bit 1 y == 0, bit 2 z == 0; 2D: bit 0
+// x == 0, bit 1 z == 0) and shell flag sh = [S == n], row (f * 2 + sh):
 //   c_s = A[s,0] + (1 - sh) A[s,1]
 //         - sum_{G <= f} (E[G,0,s] + (1 - sh) E[G,1,s]),
 // the groups subtracted in ascending order (row 0 is the interior row,
-// row 1 the shell row off the faces). Computed once per thread block.
-constexpr int kConstRows = 16;  // 8 face sets x 2 shell flags
+// row 1 the shell row off the faces). 16 rows of 15 in 3D, 8 of 7 in 2D.
+// Computed once per thread block.
+constexpr int kConstRows = 16;   // 8 face sets x 2 shell flags
+constexpr int kConst2Rows = 8;   // 4 edge sets x 2 shell flags
 
+template <class Tables>
 HYTEG_DEVICE void const_fold_rows(const float* A, const float* E,
-                                  const ConstTables& t, float* rows, int tid,
+                                  const Tables& t, float* rows, int tid,
                                   int nthreads) {
-  for (int i = tid; i < kConstRows * kConstDirs; i += nthreads) {
-    const int k = i / kConstDirs, s = i - k * kConstDirs;
+  constexpr int kDirs = Tables::kDirs, kGroups = Tables::kGroups;
+  for (int i = tid; i < 2 * (kGroups + 1) * kDirs; i += nthreads) {
+    const int k = i / kDirs, s = i - k * kDirs;
     const int f = k >> 1, sh = k & 1;
     const float a0 = A[s * kConstShells], a1 = A[s * kConstShells + 1];
     float c = sh ? a0 : a0 + a1;
-    for (int g = 0; g < kConstGroups; ++g) {
+    for (int g = 0; g < kGroups; ++g) {
       if ((f & t.gmask[g]) != t.gmask[g]) continue;
-      const float e0 = E[(g * kConstShells) * kConstDirs + s];
-      const float e1 = E[(g * kConstShells + 1) * kConstDirs + s];
+      const float e0 = E[(g * kConstShells) * kDirs + s];
+      const float e1 = E[(g * kConstShells + 1) * kDirs + s];
       c -= sh ? e0 : e0 + e1;
     }
     rows[i] = c;
@@ -179,37 +176,88 @@ HYTEG_DEVICE void const_apply_plane(const float* src, const Out& out, int x,
   zero_run(out, x * L + (ry + 1) * pitch, (x + 1) * L, tid, nthreads);
 }
 
-// dst[x, z] of one macro-face, the 2D form of const_apply_point: 0 outside
-// the triangle (S = x + z > n); else sum_s c_s * src[p + s] over the 7
-// directions with the same shell and face rule, the face bits being
-// [x == 0] and [z == 0]. Reads are bounds-checked on x and z and
-// zero-filled beyond the block (flat.shift_read's 2D semantics).
+// dst at an in-triangle slot (x, z) (S = x + z <= n) of one macro-face,
+// any position, the 2D form of const_apply_point: sum_s c_s * src[p + s]
+// over the 7 directions with the folded row of its class (face bits
+// [x == 0], [z == 0]; shell S == n), the reads bounds-checked on x and z
+// and zero-filled beyond the block (flat.shift_read's 2D semantics). The
+// 2D kernel's path for slots on an edge (row x = 0, column z = 0).
 HYTEG_DEVICE float const_apply_point_2d(const float* src, int x, int z, int N,
-                                        const ConstTables2D& t,
-                                        const float* w_in, const float* w_sh,
-                                        const float* e_in, const float* e_sh) {
-  const int n = N - 1;
-  const int S = x + z;
-  if (S > n) return 0.f;
-  const bool shell = (S == n);
-  const float* w = shell ? w_sh : w_in;
-  const float* e = shell ? e_sh : e_in;
-  const int faces = (x == 0) | ((z == 0) << 1);
+                                        const float* rows) {
+  const int f = (x == 0) | ((z == 0) << 1);
+  const float* c = rows + (f * 2 + (x + z == N - 1)) * kConst2Dirs;
   float acc = 0.f;
   for (int s = 0; s < kConst2Dirs; ++s) {
-    float c = w[s];
-    if (faces) {
-      for (int g = 0; g < kConst2Groups; ++g)
-        if ((faces & t.gmask[g]) == t.gmask[g]) c -= e[g * kConst2Dirs + s];
-    }
-    const int xs = x + t.dx[s];
-    const int zs = z + t.dz[s];
+    const int xs = x + const2_dx(s);
+    const int zs = z + const2_dz(s);
     float v = 0.f;
-    if (xs >= 0 && xs < N && zs >= 0 && zs < N)
-      v = src[(long long)xs * N + zs];
-    acc = fmaf(c, v, acc);
+    if (xs >= 0 && xs < N && zs >= 0 && zs < N) v = src[xs * N + zs];
+    acc = fmaf(c[s], v, acc);
   }
   return acc;
+}
+
+// Rows x of a 2D thread block: one per warp.
+constexpr int kBandRows2DP1 = kPlaneWarps;
+// Chunks of 32 slots a lane takes at a time on a row, their loads all in
+// flight before their stores.
+constexpr int kChunks2DP1 = 2;
+
+// Every slot of the band of rows x0 .. x0 + kBandRows2DP1 - 1 (those < N)
+// of one face, each written once through out: a thread block's share of
+// kernel B2's 2D form, run by thread (warp, lane) of nwarps warps, lanes
+// on consecutive z. rows: the face's 8 folded rows (const_fold_rows) in
+// shared memory. Row x meets the triangle in r = N - x slots, z < r.
+//  - Row 0 is all edge: its chunks of 32 slots go to the warps in turn,
+//    every slot through const_apply_point_2d. The other rows of the band
+//    go to the warps one after another.
+//  - Row x >= 1: lane 0 takes the edge slot z = 0 (const_apply_point_2d);
+//    the slots z = 1 .. r - 1 run one unrolled 7-tap sum with no tests,
+//    kChunks2DP1 chunks at a time, on the interior row, or the shell row
+//    at z = r - 1 (S = n), read from shared memory at each tap (held in
+//    registers, the 14 weights cost the kernel half its blocks per SM).
+//    No tap leaves the block: z >= 1 and x + z <= n give x <= n - 1, and
+//    x >= 1 gives z <= n - 1, so x + dx and z + dz lie in [0, n] for
+//    every |dx|, |dz| <= 1. The same terms in the same order as
+//    const_apply_point_2d.
+//  - The slots z = r .. N - 1, past the triangle, are a store-only zero
+//    run (zero_run: 16-byte stores, no loads).
+// Rows x +- 1 are re-read by the warps of the band next to each other
+// and hit L1; offsets are 32-bit (a face holds N * N <= 2^31 slots).
+template <class Out>
+HYTEG_DEVICE void const_apply_band_2d(const float* src, const Out& out,
+                                      int x0, int N, const float* rows,
+                                      int warp, int lane, int nwarps) {
+  const volatile float* vrows = rows;
+  if (x0 == 0)
+    for (int z = warp * 32 + lane; z < N; z += nwarps * 32)
+      out(z, const_apply_point_2d(src, 0, z, N, rows));
+  const int x1 = x0 + kBandRows2DP1 < N ? x0 + kBandRows2DP1 : N;
+  for (int x = (x0 == 0 ? 1 : x0) + warp; x < x1; x += nwarps) {
+    const int row = x * N, r = N - x;
+    if (lane == 0) out(row, const_apply_point_2d(src, x, 0, N, rows));
+    for (int z0 = 1; z0 <= r - 1; z0 += 32 * kChunks2DP1) {
+      float acc[kChunks2DP1];
+#pragma unroll
+      for (int u = 0; u < kChunks2DP1; ++u) {
+        const int z = z0 + lane + 32 * u;
+        acc[u] = 0.f;
+        if (z <= r - 1) {
+          const float* p = src + row + z;
+          const volatile float* w = vrows + (z == r - 1) * kConst2Dirs;
+#pragma unroll
+          for (int s = 0; s < kConst2Dirs; ++s)
+            acc[u] = fmaf(w[s], p[const2_dx(s) * N + const2_dz(s)], acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kChunks2DP1; ++u) {
+        const int z = z0 + lane + 32 * u;
+        if (z <= r - 1) out(row + z, acc[u]);
+      }
+    }
+    zero_run(out, row + r, row + N, lane, 32);
+  }
 }
 
 }  // namespace hyteg

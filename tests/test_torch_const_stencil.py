@@ -323,24 +323,70 @@ extern "C" void const_paths(const float* src, const float* A, const float* E,
         }
   }
 }
-extern "C" void diag(const float* elm, const float* coeff, float* dst, int C,
-                     int N, int pitch, int lumped, int mode, const int* offs,
-                     const int* margins) {
-  DiagTables t;
-  for (int c = 0; c < kClasses; ++c) {
-    t.margin[c] = margins[c];
+// Thread tid of kernel B3's block for plane x, through the walk the
+// kernel's mode takes (diag_plane, or diag_plane_coeff in the mean mode).
+template <class Out>
+static void diag_block(const float* coeff, const Out& out, int x, int N,
+                       int pitch, const float* w, const float* cls, int mode,
+                       int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  if (!coeff)
+    diag_plane(out, x, N, pitch, cls, warp, lane, kPlaneWarps);
+  else if (mode == 0)
+    diag_plane_coeff<0>(coeff, out, x, N, pitch, w, warp, lane, kPlaneWarps);
+  else if (mode == 1)
+    diag_plane_coeff<1>(coeff, out, x, N, pitch, w, warp, lane, kPlaneWarps);
+  else
+    diag_plane_coeff<2>(coeff, out, x, N, pitch, w, warp, lane, kPlaneWarps);
+}
+// Kernel B3's launcher and thread blocks one after another: the table
+// check, per cell the weight and class folds, per plane x every thread of
+// the block. count: null, or one int per slot of the block. Returns the
+// launcher's error (11, cudaErrorInvalidValue) for tables it refuses,
+// else 0.
+extern "C" int diag(const float* elm, const float* coeff, float* dst, int C,
+                    int N, int pitch, int lumped, int mode, const int* offs,
+                    const int* margins, int* count) {
+  for (int t = 0; t < kClasses; ++t) {
+    if (margins[t] != kDiagMargin[t]) return 11;
     for (int a = 0; a < kVerts; ++a)
-      for (int d = 0; d < 3; ++d) t.off[c][a][d] = offs[(c * 4 + a) * 3 + d];
+      for (int d = 0; d < 3; ++d)
+        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d]) return 11;
   }
-  float w[kClasses * kVerts];
-  const int L = N * pitch;
-  const long long cell = (long long)N * L;
+  float w[kClasses * kVerts], cls[kDiagRows];
+  const long long cell = (long long)N * N * pitch;
   for (int c = 0; c < C; ++c) {
     diag_fold_weights(elm + c * kClasses * kVerts * kVerts, lumped, w, 0, 1);
-    for (long long q = 0; q < cell; ++q)
-      dst[c * cell + q] = diag_point(coeff ? coeff + c * cell : nullptr,
-                                     (int)(q / L), (int)(q % L), N, pitch, t,
-                                     w, mode);
+    diag_fold_classes(w, cls, 0, 1);
+    const float* co = coeff ? coeff + c * cell : nullptr;
+    for (int x = 0; x < N; ++x)
+      for (int tid = 0; tid < kPlaneWarps * 32; ++tid) {
+        if (count)
+          diag_block(co, CountStore{CellStore{dst + c * cell}, count + c * cell},
+                     x, N, pitch, w, cls, mode, tid);
+        else
+          diag_block(co, CellStore{dst + c * cell}, x, N, pitch, w, cls, mode,
+                     tid);
+      }
+  }
+  return 0;
+}
+// The 16 folded class values of each cell (diag_fold_classes), row
+// f * 2 + sh.
+extern "C" void diag_classes(const float* elm, int C, int lumped,
+                             float* cls) {
+  float w[kClasses * kVerts];
+  for (int c = 0; c < C; ++c) {
+    diag_fold_weights(elm + c * kClasses * kVerts * kVerts, lumped, w, 0, 1);
+    diag_fold_classes(w, cls + c * kDiagRows, 0, 1);
+  }
+}
+// The header's compile-time class tables: (6, 4, 3) offsets, (6,) margins.
+extern "C" void diag_tables(int* off, int* margin) {
+  for (int t = 0; t < kClasses; ++t) {
+    margin[t] = kDiagMargin[t];
+    for (int a = 0; a < kVerts; ++a)
+      for (int d = 0; d < 3; ++d) off[(t * kVerts + a) * 3 + d] = kDiagOff[t][a][d];
   }
 }
 """
@@ -364,7 +410,9 @@ def host_kernels(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.const_apply.argtypes = [P, P, P, P, I, I, I, P, P, P]
     lib.const_paths.argtypes = [P, P, P, P, P, I, I, I, P, P]
-    lib.diag.argtypes = [P, P, P, I, I, I, I, I, P, P]
+    lib.diag.argtypes = [P, P, P, I, I, I, I, I, P, P, P]
+    lib.diag_classes.argtypes = [P, I, I, P]
+    lib.diag_tables.argtypes = [P, P]
     return lib
 
 
@@ -398,11 +446,11 @@ def test_kernel_point_math_matches_plain(host_kernels, name, level, pitch,
             ref = tk3.p1_diagonal_local_torch(et, level, 3, tsp.pitch, lumped,
                                               co, mode)
             out = torch.empty_like(ref)
-            host_kernels.diag(et.data_ptr(),
-                              None if co is None else co.data_ptr(),
-                              out.data_ptr(), et.shape[0], tsp.N, tsp.pitch,
-                              int(lumped), MODES.index(mode),
-                              offs.ctypes.data, margins.ctypes.data)
+            assert host_kernels.diag(
+                et.data_ptr(), None if co is None else co.data_ptr(),
+                out.data_ptr(), et.shape[0], tsp.N, tsp.pitch, int(lumped),
+                MODES.index(mode), offs.ctypes.data, margins.ctypes.data,
+                None) == 0
             scale = max(ref.abs().max().item(), np.abs(elm).max())
             _assert_close(out, ref, scale, 1e-6)
 
@@ -475,3 +523,111 @@ def test_kernel_walk_writes_every_slot_once(host_kernels, level, pitch_of):
     outside = torch.as_tensor((cz >= N) | (cx + cy + cz > N - 1))
     assert (dst[:, outside] == 0).all()
     assert torch.isfinite(dst).all() and dst[:, ~outside].ne(0).any()
+
+
+@pytest.mark.parametrize("mode", [None] + list(MODES))
+@pytest.mark.parametrize("lumped", [False, True])
+@pytest.mark.parametrize("pitch_of", ["gmg", "own"])
+@pytest.mark.parametrize("level", [1, 2, 3, 4, 5, 6])
+def test_diag_walk_writes_every_slot_once(host_kernels, level, pitch_of,
+                                          lumped, mode):
+    """Kernel B3's walk over all its thread blocks (plane x, cell) through
+    a counting store, at the GMG stack's shared pitch 129 and at the
+    level's own pitch N (levels 5 and 6: rows longer than one chunk of 32
+    lanes), without a coefficient and in each mean: every
+    slot written exactly once, exactly 0 outside the tet and on padding
+    lanes, every slot equal to the plain version; and the same result
+    whatever the coefficient holds outside the tet (it is not read
+    there)."""
+    N = (1 << level) + 1
+    pitch = 129 if pitch_of == "gmg" else N
+    rng = np.random.default_rng(200 + level)
+    elm = torch.as_tensor(
+        rng.standard_normal((2, 6, 4, 4)).astype(np.float32))
+    cx, cy, cz = block_coords(N, pitch)
+    inside = torch.as_tensor((cz < N) & (cx + cy + cz <= N - 1))
+    co = None
+    if mode is not None:
+        co = torch.as_tensor(
+            rng.uniform(0.5, 2.0, (2, N, N * pitch)).astype(np.float32))
+        co = co * inside
+    avg = mode or "arithmetic"
+    ref = tk3.p1_diagonal_local_torch(elm, level, 3, pitch, lumped, co, avg)
+    offs, margins = tk3._kernel_tables()
+    outs = []
+    for c in ([co, co.masked_fill(~inside, float("nan"))] if co is not None
+              else [None]):
+        out = torch.full_like(ref, float("nan"))
+        count = torch.zeros(ref.shape, dtype=torch.int32)
+        assert host_kernels.diag(
+            elm.data_ptr(), None if c is None else c.data_ptr(),
+            out.data_ptr(), 2, N, pitch, int(lumped), MODES.index(avg),
+            offs.ctypes.data, margins.ctypes.data, count.data_ptr()) == 0
+        assert (count == 1).all()
+        assert (out[:, ~inside] == 0).all()
+        outs.append(out)
+    _assert_close(outs[0], ref, ref.abs().max().item(), 1e-6)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_diag_launcher_refuses_other_tables(host_kernels):
+    """The B3 launcher (mirrored by the host harness) takes only the class
+    tables its walk was compiled with."""
+    offs, margins = tk3._kernel_tables()
+    elm = torch.zeros((1, 6, 4, 4))
+    out = torch.empty((1, 3, 9))
+    for o, m in ((offs[::-1].copy(), margins), (offs, margins + 1)):
+        assert host_kernels.diag(elm.data_ptr(), None, out.data_ptr(), 1, 3,
+                                 3, 0, 0, o.ctypes.data, m.ctypes.data,
+                                 None) == 11
+
+
+@pytest.mark.parametrize("lumped", [False, True])
+def test_diag_class_rule_matches_jax(host_kernels, lumped):
+    """The rule kernel B3 stores by: from the JAX package's micro tables,
+    margin[t] - |off[t, a]| is 0 or 1 and every offset 0 or 1, so which
+    element bases are valid at an in-tet slot depends only on its face set
+    f and [S == n]; the header's compile-time tables are the JAX ones; and
+    the 16 folded class values equal the JAX plain diagonal at one slot of
+    each of the 15 classes that occur (level 3, random element
+    matrices)."""
+    from hyteg_tpu.indexing import micro as jmicro
+
+    offs, margins = jmicro.offsets(3), jmicro.base_margin(3)
+    gap = margins[:, None] - offs.sum(-1)
+    assert np.isin(gap, (0, 1)).all() and np.isin(offs, (0, 1)).all()
+    off_h = np.zeros((6, 4, 3), np.int32)
+    margin_h = np.zeros(6, np.int32)
+    host_kernels.diag_tables(off_h.ctypes.data, margin_h.ctypes.data)
+    assert (off_h == offs).all() and (margin_h == margins).all()
+
+    level, C = 3, 2
+    n = 1 << level
+    N = n + 1
+    rng = np.random.default_rng(7 + lumped)
+    elm = rng.standard_normal((C, 6, 4, 4)).astype(np.float32)
+    args = (jnp.asarray(elm), level, 3, (C, N, N * N), N, None)
+    if lumped:
+        ref = jop._p1_diag_local(*args, lambda e, t, a: e[:, t, a, :].sum(-1),
+                                 "arithmetic")
+    else:
+        ref = jop.p1_diagonal_local(*args)
+    ref = np.asarray(ref).reshape(C, N, N, N)
+    cls = np.zeros((C, 16), np.float32)
+    host_kernels.diag_classes(elm.ctypes.data, C, int(lumped), cls.ctypes.data)
+    seen = {}
+    for x in range(N):
+        for y in range(N - x):
+            for z in range(N - x - y):
+                f = (x == 0) | ((y == 0) << 1) | ((z == 0) << 2)
+                k = 2 * f + (x + y + z == n)
+                # the rule itself: the valid (t, a) at this slot
+                valid = tuple(bool((np.array((x, y, z)) >= offs[t, a]).all()
+                                   and x + y + z - offs[t, a].sum()
+                                   <= n - margins[t])
+                              for t in range(6) for a in range(4))
+                assert seen.setdefault(k, (x, y, z, valid))[3] == valid
+    assert sorted(seen) == [k for k in range(16) if k != 15]
+    scale = max(np.abs(ref).max(), np.abs(elm).max())
+    for k, (x, y, z, _) in seen.items():
+        assert np.abs(cls[:, k] - ref[:, x, y, z]).max() <= 1e-6 * scale

@@ -362,29 +362,50 @@ HOST_HARNESS = r"""
 #include "p1_const_stencil.cuh"
 #include "p1_tri.cuh"
 using namespace hyteg;
-// Runs the 2D per-point functions the kernels run, one point after another.
-extern "C" void const_apply_2d(const float* src, const float* A,
-                               const float* E, float* dst, int C, int N,
-                               const int* dirs, const int* gmask) {
+// Counts each slot's writes beside the store.
+struct CountStore {
+  CellStore cell;
+  int* count;
+  void operator()(int i, float v) const { cell(i, v); ++count[i]; }
+  int to_aligned(int i) const { return cell.to_aligned(i); }
+  void zero4(int i) const {
+    cell.zero4(i);
+    for (int k = 0; k < 4; ++k) ++count[i + k];
+  }
+};
+// Kernel B2's 2D launcher and thread blocks one after another: the
+// direction check, per face the weight fold, per band of rows every
+// thread (warp, lane) of the block through the same walk
+// (const_apply_band_2d). count: null, or one int per slot. Returns the
+// launcher's error (11, cudaErrorInvalidValue) for directions it
+// refuses, else 0.
+extern "C" int const_apply_2d(const float* src, const float* A,
+                              const float* E, float* dst, int C, int N,
+                              const int* dirs, const int* gmask, int* count) {
+  for (int s = 0; s < kConst2Dirs; ++s)
+    if (dirs[2 * s] != const2_dx(s) || dirs[2 * s + 1] != const2_dz(s))
+      return 11;
   ConstTables2D t;
-  for (int s = 0; s < kConst2Dirs; ++s) {
-    t.dx[s] = dirs[2 * s];
-    t.dz[s] = dirs[2 * s + 1];
-  }
   for (int g = 0; g < kConst2Groups; ++g) t.gmask[g] = gmask[g];
-  float w_in[kConst2Dirs], w_sh[kConst2Dirs];
-  float e_in[kConst2Groups * kConst2Dirs], e_sh[kConst2Groups * kConst2Dirs];
-  const long long cell = (long long)N * N;
+  float rows[kConst2Rows * kConst2Dirs];
+  const long long face = (long long)N * N;
   for (int c = 0; c < C; ++c) {
-    const_fold_weights<kConst2Dirs, kConst2Groups>(
-        A + c * kConst2Dirs * kConstShells,
-        E + c * kConst2Groups * kConstShells * kConst2Dirs, w_in, w_sh, e_in,
-        e_sh, 0, 1);
-    for (long long q = 0; q < cell; ++q)
-      dst[c * cell + q] = const_apply_point_2d(src + c * cell, (int)(q / N),
-                                               (int)(q % N), N, t, w_in, w_sh,
-                                               e_in, e_sh);
+    const_fold_rows(A + c * kConst2Dirs * kConstShells,
+                    E + c * kConst2Groups * kConstShells * kConst2Dirs, t,
+                    rows, 0, 1);
+    for (int x0 = 0; x0 < N; x0 += kBandRows2DP1)
+      for (int tid = 0; tid < kPlaneWarps * 32; ++tid) {
+        if (count)
+          const_apply_band_2d(src + c * face,
+                              CountStore{CellStore{dst + c * face},
+                                         count + c * face},
+                              x0, N, rows, tid >> 5, tid & 31, kPlaneWarps);
+        else
+          const_apply_band_2d(src + c * face, CellStore{dst + c * face}, x0,
+                              N, rows, tid >> 5, tid & 31, kPlaneWarps);
+      }
   }
+  return 0;
 }
 extern "C" void diag_2d(const float* elm, const float* coeff, float* dst,
                         int C, int N, int lumped, int mode) {
@@ -429,7 +450,7 @@ def host_kernels(tmp_path_factory):
                    check=True, capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.const_apply_2d.argtypes = [P, P, P, P, I, I, P, P]
+    lib.const_apply_2d.argtypes = [P, P, P, P, I, I, P, P, P]
     lib.diag_2d.argtypes = [P, P, P, I, I, I, I]
     lib.apply_2d.argtypes = [P, P, P, P, I, I, I]
     return lib
@@ -461,9 +482,9 @@ def test_kernel_2d_point_math_matches_plain(host_kernels, name, level, form):
     ref = tk.p1_const_apply_torch(xt, A, level, 2, tsp.pitch, E=E)
     out = torch.full_like(xt, float("nan"))
     dirs, gmask = tk._kernel_tables(2)
-    host_kernels.const_apply_2d(xt.data_ptr(), A.data_ptr(), E.data_ptr(),
-                                out.data_ptr(), C, N, dirs.ctypes.data,
-                                gmask.ctypes.data)
+    assert host_kernels.const_apply_2d(
+        xt.data_ptr(), A.data_ptr(), E.data_ptr(), out.data_ptr(), C, N,
+        dirs.ctypes.data, gmask.ctypes.data, None) == 0
     _close(out, ref, 1e-5)
     assert not out[:, outside].any()
 
@@ -486,6 +507,65 @@ def test_kernel_2d_point_math_matches_plain(host_kernels, name, level, form):
         _close(out, ref, 1e-5)
         assert not out[:, outside].any()
 
+
+@functools.lru_cache(maxsize=None)
+def _torch_space(name, level):
+    return P1Space(_storages(name)[1], level, device="cpu")
+
+
+# levels 0-5 on both meshes, and rect at 6 and 7, whose rows hold more
+# than one step of a lane's chunks (2 x 32 slots)
+WALK_CASES_2D = ([(name, lv) for name in ("rect", "annulus")
+                  for lv in range(6)] + [("rect", 6), ("rect", 7)])
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("name,level", WALK_CASES_2D)
+def test_kernel_2d_walk_writes_every_slot_once(host_kernels, name, level,
+                                               form):
+    """Kernel B2's 2D walk over all its thread blocks (band of rows, face)
+    through a counting store: every slot of the face block written exactly
+    once, the slots past the triangle exactly 0 whatever the source holds
+    there, and, for a source that is 0 there (as the operator keeps it:
+    the shell's taps past the triangle carry zero weight), every slot
+    equal to the plain version."""
+    tsp = _torch_space(name, level)
+    et = compute_elmats(tsp, FORMS[form][1],
+                        torch.as_tensor(tsp.cell_vertices(0))).contiguous()
+    C, N = tsp.C_loc, tsp.N
+    A = tk.stencil_weights(et, 2).contiguous()
+    E = tk.face_weights_full(et, 2).contiguous()
+    xt = T(_rand(tsp.block_shape, tsp.vertex_mask, 50 + level))
+    ref = tk.p1_const_apply_torch(xt, A, level, 2, tsp.pitch, E=E)
+    outside = ~tsp.vertex_mask_t.bool().expand(xt.shape)
+    dirs, gmask = tk._kernel_tables(2)
+    for src in (xt, xt.masked_fill(outside, float("nan"))):
+        out = torch.full_like(xt, float("nan"))
+        count = torch.zeros(xt.shape, dtype=torch.int32)
+        assert host_kernels.const_apply_2d(
+            src.data_ptr(), A.data_ptr(), E.data_ptr(), out.data_ptr(), C, N,
+            dirs.ctypes.data, gmask.ctypes.data, count.data_ptr()) == 0
+        assert (count == 1).all()
+        assert (out[outside] == 0).all()
+        if src is xt:
+            _close(out, ref, 1e-5)
+
+
+def test_kernel_2d_launcher_refuses_other_dirs(host_kernels):
+    """The B2-2D launcher (mirrored by the host harness) takes only the
+    direction table its walk was compiled with, micro.stencil_directions(2)
+    in its order."""
+    tsp = _torch_space("rect", 1)
+    et = compute_elmats(tsp, tforms.laplace_form,
+                        torch.as_tensor(tsp.cell_vertices(0))).contiguous()
+    A = tk.stencil_weights(et, 2).contiguous()
+    E = tk.face_weights_full(et, 2).contiguous()
+    x = torch.zeros(tsp.block_shape)
+    dirs, gmask = tk._kernel_tables(2)
+    for d in (dirs[::-1].copy(), dirs + 1):
+        assert host_kernels.const_apply_2d(
+            x.data_ptr(), A.data_ptr(), E.data_ptr(), x.data_ptr(),
+            tsp.C_loc, tsp.N, d.ctypes.data, gmask.ctypes.data, None) == 11
 
 # ---------------------------------------------------------------------------
 # grid transfers
