@@ -27,8 +27,11 @@ read just after:
   unit cube at levels 6 and 7 and on the 1920-cell spherical shell at
   level 5, with a torch.profiler breakdown of chained applies at level 7;
 - the variable-coefficient P1 operator (kernel B4, and B3 with a
-  coefficient) at level 7: B4 in the three averaging modes, B4 with k = 1
-  against B2, and the operator's symmetry and positivity;
+  coefficient) at level 7: B4 against its plain version at every P1
+  level 2-7 (pitch 129) without a coefficient and in the three averaging
+  modes on two coefficients, B4 with k = 1 against B2, the operator's
+  symmetry and positivity, and B4 timed in each mode beside its bound
+  (``b4_coeff``, with B4-2D's at level 11);
 - the P2 path (kernel B5): B5 against its plain version at every P2
   level the stack launches it at (1-6, pitch 129, timed at each);
   bench_vcycle.py's bench_p2 GMG stack on the unit cube at P2 level 6,
@@ -46,8 +49,8 @@ read just after:
 - the 2D arm on macro-faces (the 2D forms of B2, B3, B4 and B5): the
   kernels against their plain versions on the 12-face annulus at level 4
   and on the 32-face rectangle mesh_rectangle(nx=4, ny=4) at P1 level 11
-  / P2 level 10, B2-2D and B3-2D also at every other P1 level 2-10 and
-  B5-2D at every other P2 level 1-9 of the stacks, B2-2D and B5-2D
+  / P2 level 10, B2-2D, B3-2D and B4-2D also at every other P1 level
+  2-10 and B5-2D at every other P2 level 1-9 of the stacks, B2-2D and B5-2D
   timed beside their bounds at each (``b2_2d_levels``,
   ``b5_2d_levels``); the P1 GMG solve of sin(pi x) sin(pi y) at level
   11, 67,125,249 DoFs, its rate gated on A x = 0 from a random start,
@@ -73,6 +76,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 import time
 
@@ -134,8 +138,9 @@ P2_MANUFACTURED = (3, 4, 5)  # error drop gated from 3 to 4; 5 reported
 P2_MANUFACTURED_CYCLES = 8
 P2_ERR_DROP_MIN = 5.0  # O(h^3) predicts 8
 B5_RTOL = 1e-5        # f32, 65-term sums taken in another order
-# the variable-coefficient P1 operator (kernel B4)
-B4_CHECKS = (4, 7)    # P1 levels, pitch 129
+# the variable-coefficient P1 operator (kernel B4): checked at every P1
+# level the level-7 stack has (pitch 129)
+B4_CHECKS = CHECK_LEVELS
 B4_RTOL = 1e-5        # f32, 96-term sums and coefficient means reordered
 SYM_RTOL = 1e-4       # <w, A v> against <v, A w>
 # the dissection probes (kernels P2): (m, level, rows) of the box checks
@@ -162,7 +167,9 @@ P1_CHECK_LEVELS_2D = tuple(range(MIN_LEVEL, LEVEL_2D))
 # B5-2D vs plain also at every other level the rect P2 stack launches it
 # at, each timed beside its bound
 P2_CHECK_LEVELS_2D = tuple(range(1, P2_LEVEL_2D))
-B4_CHECKS_2D = (("annulus", 4), ("rect", LEVEL_2D))
+# B4-2D on the annulus at level 4 and at every level 2-11 of the rect stack
+B4_CHECKS_2D = (("annulus", 4),) + tuple(
+    ("rect", lv) for lv in range(MIN_LEVEL, LEVEL_2D + 1))
 # f32 puts a floor under a 2D solve's nodal error and residual that rises
 # with the level (b ~ h^2 against A x rounded at |x| ~ 1): the O(h^2) drop
 # is gated from level 5 to 6, level 7 reports where the floor begins, and
@@ -237,6 +244,26 @@ LIBRARY_CALLS = {
     "p1_apply_local_2d": None,  # per-element coefficient means: no conv form
     "p2_const_apply_2d": None,  # weights vary with node parity: no conv form
 }
+
+
+def ptxas_by_function(log: str) -> dict:
+    """ptxas -v's report per compiled function, by mangled name: spill
+    stores in bytes and, for a kernel, its registers."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                out[name]["spill_stores"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -881,9 +908,9 @@ def coeff_field(sp, device, gen, kind: str) -> torch.Tensor:
 
 
 def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
-    """Kernel B4 against its plain version in the three averaging modes and
-    for two coefficients, and with k = 1 against B2, at one P1 level (3D
-    with pitch 129, or 2D)."""
+    """Kernel B4 against its plain version without a coefficient and in the
+    three averaging modes for two coefficients, and with k = 1 against B2,
+    at one P1 level (3D with pitch 129, or 2D)."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b4
@@ -898,20 +925,22 @@ def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
     x = torch.randn(sp.block_shape, generator=gen, device=device)
     x *= sp.vertex_mask_t
     out = {"level": level, "block": list(sp.block_shape)}
-    for ck in ("linear", "random"):
-        k = coeff_field(sp, device, gen, ck)
-        for mode in MODES:
-            y = b4.p1_apply_local(x, op.elmats, level, dim, pitch, k, mode)
+    for ck in ("none", "linear", "random"):
+        k = None if ck == "none" else coeff_field(sp, device, gen, ck)
+        for mode in MODES if k is not None else ("arithmetic",):
             y_ref = b4.p1_apply_local_torch(x, op.elmats, level, dim, pitch, k,
                                             mode)
-            err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
+            scale = y_ref.abs().max().item()
+            tag = ck if k is None else f"{ck}_{mode}"
+            y = b4.p1_apply_local(x, op.elmats, level, dim, pitch, k, mode)
+            err = max_abs_diff(y, y_ref)
             check(math.isfinite(err) and err <= B4_RTOL * scale,
-                  f"B4 {ck} {mode} level {level}: max|dy| {err} > "
+                  f"B4 {tag} level {level}: max|dy| {err} > "
                   f"{B4_RTOL} * {scale}")
             check(not y[:, ~sp.vertex_mask_t.bool()].any().item(),
-                  f"B4 {ck} {mode} level {level}: nonzero outside the tet")
-            out[f"b4_{ck}_{mode}_max_abs_err"] = err
-            out[f"b4_{ck}_{mode}_max_abs"] = scale
+                  f"B4 {tag} level {level}: nonzero outside the simplex")
+            out[f"b4_{tag}_max_abs_err"] = err
+            out[f"b4_{tag}_max_abs"] = scale
             del y, y_ref
     ones = sp.vertex_mask_t.expand(sp.block_shape).contiguous()
     y = b4.p1_apply_local(x, op.elmats, level, dim, pitch, ones)
@@ -921,6 +950,19 @@ def check_coeff_kernels(storage, level: int, device, seed: int) -> dict:
           f"B4 k=1 vs B2 level {level}: max|dy| {err} > {B4_RTOL} * {scale}")
     out["b4_unit_vs_b2_max_abs_err"] = err
     return out
+
+
+def b4_mode_line(level: int, ms: dict, bound_ms: float,
+                 bound_ms_none: float, apply_raw_coeff_ms: float) -> dict:
+    """B4's ms without a coefficient ("none") and in each mean, beside
+    its bound with a coefficient and without one, each one's share of its
+    bound, and the operator's apply_raw with the linear coefficient (the
+    user's call: B4 and the exchange)."""
+    return {"level": level, "ms": ms, "bound_ms": bound_ms,
+            "bound_ms_none": bound_ms_none,
+            "apply_raw_coeff_ms": apply_raw_coeff_ms,
+            "share": {m: (bound_ms_none if m == "none" else bound_ms) / v
+                      for m, v in ms.items()}}
 
 
 def symmetric_positive(sp, apply, seed: int, what: str) -> dict:
@@ -1174,6 +1216,7 @@ def run_2d(device, card: str) -> dict:
     from hyteg_tpu_torch.kernels import p2_const_stencil as b5
     from hyteg_tpu_torch.mesh.meshinfo import mesh_annulus, mesh_rectangle
     from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.averaging import MODES
     from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
     from hyteg_tpu_torch.primitives.storage import CellStorage
 
@@ -1336,6 +1379,17 @@ def run_2d(device, card: str) -> dict:
         nbytes(x) + 2 * simplex_read_bytes(sp, [(0, 0)], C) + nbytes(elm),
         24 * C * sum(
         tri_points(sp.n - int(m)) for m in margins))
+    b4_ms = {"none": t["p1_apply_local_2d_no_coeff"],
+             "arithmetic": t["p1_apply_local_2d"]}
+    for m in MODES[1:]:
+        b4_ms[m] = median_ms(
+            lambda m=m: b34.p1_apply_local(x, elm, L, 2, sp.pitch, k, m), 10,
+            batch=10)
+    b4_coeff = b4_mode_line(
+        L, b4_ms, bound(*work["p1_apply_local_2d"])[0],
+        bound(nbytes(x) + simplex_read_bytes(sp, [(0, 0)], C) + nbytes(elm),
+              18 * C * sum(tri_points(sp.n - int(m)) for m in margins))[0],
+        t["apply_raw_coeff_2d"])
     del sp, op, k, dinv, x, elm
     torch.cuda.empty_cache()
 
@@ -1395,7 +1449,8 @@ def run_2d(device, card: str) -> dict:
     check(drop >= P2_ERR_DROP_MIN, f"2D P2 nodal error dropped {drop}x from "
           f"level {lo} to {hi}, < {P2_ERR_DROP_MIN}x")
     return {"errs": errs, "launches": launches, "ms": t, "work": work,
-            "library_ms": lib, "block_elements": block_elements}
+            "library_ms": lib, "block_elements": block_elements,
+            "b4_coeff": b4_coeff}
 
 
 def main() -> int:
@@ -1436,8 +1491,7 @@ def main() -> int:
     so, build_s, log = build.build()
     build.library()
     emit("build", seconds=build_s, library=str(so.relative_to(build.PKG_DIR.parent)),
-         ptxas=[l.strip() for l in log.splitlines()
-                if "registers" in l or "spill" in l])
+         ptxas=ptxas_by_function(log))
 
     # -- the macro-tet path (B2, B3) ------------------------------------------
     storage = CellStorage(mesh_unit_cube(MESH_N))
@@ -1577,6 +1631,20 @@ def main() -> int:
         nbytes(x) + 2 * simplex_read_bytes(sp, [(0, 0, 0)], sp.C_loc)
         + nbytes(elm), 40 * sp.C_loc * sum(
             tet_points(sp.n - int(m)) for m in micro.base_margin(3)))
+    # B4 at level 7 in each mean and without a coefficient (bound: no
+    # coefficient read, 16 multiply-adds per element and vertex)
+    b4_ms = {"none": t["p1_apply_local_no_coeff"],
+             "arithmetic": t["p1_apply_local"]}
+    for m in MODES[1:]:
+        b4_ms[m] = median_ms(
+            lambda m=m: b4.p1_apply_local(x, elm, lv, 3, PITCH, k, m), 10,
+            batch=10)
+    b4_bound_none = bound(
+        nbytes(x) + simplex_read_bytes(sp, [(0, 0, 0)], sp.C_loc)
+        + nbytes(elm), 32 * sp.C_loc * sum(
+            tet_points(sp.n - int(m)) for m in micro.base_margin(3)))[0]
+    b4_coeff = {"3d": b4_mode_line(lv, b4_ms, bounds["p1_apply_local"][0],
+                                   b4_bound_none, t["apply_raw_coeff"])}
     del sp, op, k, dinv, x, elm
     torch.cuda.empty_cache()
 
@@ -1649,6 +1717,8 @@ def main() -> int:
 
     # -- the 2D arm (B2-2D, B3-2D, B4-2D, B5-2D) -----------------------------
     arm2d = run_2d(device, card)
+    b4_coeff["2d"] = arm2d["b4_coeff"]
+    emit("b4_coeff", card=card, **b4_coeff)
 
     # -- the paired-tet engine (B6, B7, B8): bench_tet's path ----------------
     storages = {"cube": storage, "shell": tetpair_storage("shell")}
@@ -1922,7 +1992,12 @@ def main() -> int:
         "plain_ms_level9": t["box_apply_level9_plain"],
         "bound_ms_level9": b1_bounds[BOX_BIG_LEVEL]},
         "p1_diagonal_local": {"ms_coeff": b3_coeff_ms,
-                              "bound_ms_coeff": b3_coeff_bound[0]}}
+                              "bound_ms_coeff": b3_coeff_bound[0]},
+        "p1_apply_local": {"ms_by_mode": b4_coeff["3d"]["ms"],
+                           "bound_ms_no_coeff": b4_coeff["3d"]["bound_ms_none"]},
+        "p1_apply_local_2d": {
+            "ms_by_mode": b4_coeff["2d"]["ms"],
+            "bound_ms_no_coeff": b4_coeff["2d"]["bound_ms_none"]}}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

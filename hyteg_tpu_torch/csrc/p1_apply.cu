@@ -4,60 +4,104 @@
 //
 // Replaces hyteg_tpu/kernels/p1_stencil.py::p1_apply_local_pallas_flat.
 // The Pallas kernel scatters the 6 x 4 (class, vertex) rows with 8 read
-// rolls and 8 write rolls of a VMEM-resident block. Here one thread per
-// output slot gathers the same terms from the 24 element bases around it
-// (the gather form of kernel B3, csrc/p1_diag.cu), reading the 15
-// neighbouring src values (and coefficient terms) once into registers:
-// no atomics, each slot written once. Interface rows hold partial sums;
-// the additive exchange follows in the caller.
+// rolls and 8 write rolls of a VMEM-resident block. Here each output slot
+// gathers the same terms from the 24 element bases around it (the gather
+// form of kernel B3): no atomics, each slot written once. Interface rows
+// hold partial sums; the additive exchange follows in the caller.
 //
-// Bound: device-memory bandwidth, 12 B per slot with a coefficient (read
-// src and coeff, write dst), 8 B without; the 15-point neighbourhood
-// reads hit L1/L2. Per slot in the tet: 24 base tests, 96 multiply-adds
-// and, for the harmonic and geometric means, 15 divisions or logarithms
-// and 24 divisions or exponentials. The 96 element-matrix entries of a
-// cell sit in shared memory. Grid (ceil(N*L / 256), C), consecutive
-// threads on consecutive lanes.
+// Bound: device-memory bandwidth, one write of the block plus the reads
+// of src and the coefficient on the tet's slots (0.1650 ms at level 7 on
+// 48 cells at 3.35 TB/s). Per in-tet slot 96 multiply-adds, 24 means of 4
+// terms and, in the harmonic and geometric means, a division or a
+// logarithm per transform and a division or an exponential per mean.
+//
+// The design (p1_apply.cuh): one thread block per (cell, plane x), grid
+// (C, N), the cells' plane 0 first, warps on the tet's rows from z = 0
+// and store-only zero runs past the tet and on padding lanes, as B2's and
+// B3's plane walks. The mean is a template argument. A slot off the faces
+// and the shell runs one untested sum from compile-time neighbour and
+// vertex lists: its 15 neighbours read once, each coefficient value
+// transformed once, its 24 means formed from its registers; the 96
+// element-matrix entries sit in shared memory and are read as 16-byte
+// rows where they are used. Face and shell slots run the tested
+// p1_apply_point, a call of its own, as one list over the block's
+// threads. The design this one replaced (one thread per slot of the
+// padded block, 83% of them outside the tet or on padding lanes, 24 base
+// tests per slot, the mean a run-time branch) took 2.42-2.44 ms in the
+// arithmetic mean at level 7 on an H100 (NVIDIA H100 80GB HBM3, 700 W).
+//
+// A staged form that transformed each coefficient value of a tile of 8
+// rows x 64 slots once, in shared memory (4.78 transforms per in-tet slot
+// at level 7 instead of 14.82), ran slower than this one on the card in
+// every mean and was dropped (PERF.md, PR 10).
 #include <cuda_runtime.h>
 
 #include "p1_apply.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kElm = hyteg::kApplyClasses * hyteg::kApplyVerts *
-                     hyteg::kApplyVerts;
+constexpr int kElm = hyteg::kClasses * hyteg::kVerts * hyteg::kVerts;
 
-__global__ void __launch_bounds__(kThreads)
+// Least blocks per SM each kernel is compiled for (caps its registers at
+// 65536 / (256 * blocks)), by mode (none, arithmetic, harmonic,
+// geometric); the fastest of 2, 3 and 4 on the card.
+constexpr int kApplyMinBlocks[4] = {3, 3, 4, 4};
+
+// Thread block (cell c, plane x). MODE -1: no coefficient; 0-2: the mean.
+template <int MODE>
+__global__ void __launch_bounds__(hyteg::kApplyThreads,
+                                  kApplyMinBlocks[MODE + 1])
 p1_apply_kernel(const float* __restrict__ src, const float* __restrict__ coeff,
                 const float* __restrict__ elmats, float* __restrict__ dst,
-                int N, int pitch, int mode) {
-  __shared__ float elm[kElm];
-  const int c = blockIdx.y;
+                int N, int pitch) {
+  using namespace hyteg;
+  __shared__ __align__(16) float e_s[kElm];
+  const int c = blockIdx.x;
   for (int i = threadIdx.x; i < kElm; i += blockDim.x)
-    elm[i] = elmats[(long long)c * kElm + i];
+    e_s[i] = elmats[c * kElm + i];
   __syncthreads();
-  const int L = N * pitch;
-  const long long cell = (long long)N * L;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= cell) return;
-  const int x = (int)(q / L);
-  const int lane = (int)(q - (long long)x * L);
-  dst[c * cell + q] = hyteg::p1_apply_point(
-      src + c * cell, coeff ? coeff + c * cell : nullptr, x, lane, N, pitch,
-      elm, mode);
+  const long long cell = (long long)N * N * pitch;
+  apply_plane<MODE>(src + c * cell, MODE < 0 ? nullptr : coeff + c * cell,
+                    CellStore{dst + c * cell}, blockIdx.y, N, pitch, e_s,
+                    threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
+}
+
+template <int MODE>
+void launch(const float* src, const float* coeff, const float* elmats,
+            float* dst, int C, int N, int pitch, cudaStream_t s) {
+  p1_apply_kernel<MODE><<<dim3((unsigned)C, (unsigned)N),
+                          hyteg::kApplyThreads, 0, s>>>(src, coeff, elmats,
+                                                        dst, N, pitch);
 }
 
 }  // namespace
 
-// coeff may be null (then mode is ignored). Returns cudaGetLastError()
-// after the launch.
+// offs: host (6, 4, 3) int32 class vertex offsets and margins: host (6,)
+// int32, which must equal the kernel's compile-time kDiagOff and
+// kDiagMargin (else cudaErrorInvalidValue, nothing launched); coeff may
+// be null (then mode is ignored). Returns cudaGetLastError() after the
+// launch.
 extern "C" int hyteg_p1_apply(const float* src, const float* coeff,
                               const float* elmats, float* dst, int C, int N,
-                              int pitch, int mode, void* stream) {
-  const long long cell = (long long)N * N * pitch;
-  const dim3 grid((unsigned)((cell + kThreads - 1) / kThreads), (unsigned)C);
-  p1_apply_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, coeff, elmats, dst, N, pitch, mode);
+                              int pitch, int mode, const int* offs,
+                              const int* margins, void* stream) {
+  using namespace hyteg;
+  for (int t = 0; t < kClasses; ++t) {
+    if (margins[t] != kDiagMargin[t]) return (int)cudaErrorInvalidValue;
+    for (int a = 0; a < kVerts; ++a)
+      for (int d = 0; d < 3; ++d)
+        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d])
+          return (int)cudaErrorInvalidValue;
+  }
+  if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!coeff)
+    launch<-1>(src, coeff, elmats, dst, C, N, pitch, s);
+  else if (mode == 0)
+    launch<0>(src, coeff, elmats, dst, C, N, pitch, s);
+  else if (mode == 1)
+    launch<1>(src, coeff, elmats, dst, C, N, pitch, s);
+  else
+    launch<2>(src, coeff, elmats, dst, C, N, pitch, s);
   return (int)cudaGetLastError();
 }

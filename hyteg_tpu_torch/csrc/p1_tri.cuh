@@ -10,7 +10,9 @@
 #define HYTEG_DEVICE __device__ __forceinline__
 #endif
 
-#include "p1_apply.cuh"  // coeff_term, coeff_finish
+#include <utility>
+
+#include "p1_apply.cuh"  // coeff_term, coeff_finish, kApplyThreads
 
 namespace hyteg {
 
@@ -127,6 +129,273 @@ HYTEG_DEVICE float p1_apply_point_2d(const float* src, const float* coeff,
     }
   }
   return acc;
+}
+
+// -- the walk of kernel B4-2D over one band of rows of a face --------------
+// One thread block of kApplyThreads threads per (face, band of
+// kApplyR2 rows x0 .. x0 + kApplyR2 - 1), as B2-2D's band walk
+// (const_apply_band_2d): a warp per row, lanes on consecutive z. Row x
+// meets the triangle in r = N - x slots, z < r; the slots z = r .. N - 1
+// are a store-only zero run. A slot off the edges and the shell (x, z >=
+// 1, S = x + z <= n - 1) has all 6 element bases valid and its elements'
+// vertices are its 7-point neighbourhood, every one in the triangle: it
+// runs one untested sum from compile-time lists; edge and shell slots
+// run the tested p1_apply_point_2d.
+
+// The micro-triangle classes, as indexing/micro.py's TRI_OFFSETS and
+// TRI_BASE_MARGIN (the launcher refuses tables that differ), and the
+// move from vertex a to vertex b of class t as a square9 index.
+constexpr int kTriOff[kTriClasses][kTriVerts][2] = {{{0, 0}, {1, 0}, {0, 1}},
+                                                    {{1, 0}, {0, 1}, {1, 1}}};
+constexpr int kTriMargin[kTriClasses] = {1, 2};
+HYTEG_HD constexpr int tri_nbr(int t, int a, int b) {
+  return (kTriOff[t][b][0] - kTriOff[t][a][0] + 1) * 3 +
+         (kTriOff[t][b][1] - kTriOff[t][a][1] + 1);
+}
+HYTEG_HD constexpr bool tri_nbr_used(int k) {
+  for (int t = 0; t < kTriClasses; ++t)
+    for (int a = 0; a < kTriVerts; ++a)
+      for (int b = 0; b < kTriVerts; ++b)
+        if (tri_nbr(t, a, b) == k) return true;
+  return false;
+}
+template <int T, int A>
+struct TriVert {
+  static constexpr int ox = kTriOff[T][A][0];
+  static constexpr int oz = kTriOff[T][A][1];
+  static constexpr int margin = kTriMargin[T];
+};
+
+// v[K] = p[move K], for the 7 moves used; transformed by MODE >= 0.
+template <int MODE, int K>
+HYTEG_DEVICE void tri_load_nbr(float (&v)[9], const float* p, int N) {
+  if constexpr (tri_nbr_used(K)) {
+    const float r = p[(K / 3 - 1) * N + (K % 3 - 1)];
+    if constexpr (MODE < 0)
+      v[K] = r;
+    else
+      v[K] = coeff_term(r, MODE);
+  }
+}
+
+// sum_b elm[t,a,b] * src at vertex b of element (t, a) = (I / 3, I % 3),
+// summed as p1_apply_point_2d sums it.
+template <int I>
+HYTEG_DEVICE float tri_inner(const float (&u)[9], const float* elm) {
+  constexpr int t = I / kTriVerts, a = I % kTriVerts;
+  constexpr int k0 = tri_nbr(t, a, 0), k1 = tri_nbr(t, a, 1);
+  constexpr int k2 = tri_nbr(t, a, 2);
+  const float* e = elm + I * kTriVerts;
+  float inner = 0.f;
+  inner += e[0] * u[k0];
+  inner += e[1] * u[k1];
+  inner += e[2] * u[k2];
+  return inner;
+}
+
+template <int MODE, int I>
+HYTEG_DEVICE void tri_elem_term(float& acc, const float (&u)[9],
+                                const float (&g)[9], const float* elm) {
+  const float inner = tri_inner<I>(u, elm);
+  if constexpr (MODE < 0) {
+    acc += inner;
+  } else {
+    constexpr int t = I / kTriVerts, a = I % kTriVerts;
+    constexpr int k0 = tri_nbr(t, a, 0), k1 = tri_nbr(t, a, 1);
+    constexpr int k2 = tri_nbr(t, a, 2);
+    float s = 0.f;
+    s += g[k0];
+    s += g[k1];
+    s += g[k2];
+    acc += inner * coeff_finish(s, MODE, kTriVerts);
+  }
+}
+
+template <int MODE, int... K, int... I>
+HYTEG_DEVICE float tri_interior_seq(const float* p, const float* k, int N,
+                                    const float* elm,
+                                    std::integer_sequence<int, K...>,
+                                    std::integer_sequence<int, I...>) {
+  float u[9], g[9];
+  (tri_load_nbr<-1, K>(u, p, N), ...);
+  if constexpr (MODE >= 0) (tri_load_nbr<MODE, K>(g, k, N), ...);
+  float acc = 0.f;
+  (tri_elem_term<MODE, I>(acc, u, g, elm), ...);
+  return acc;
+}
+
+// dst at a slot off the edges and the shell, p and k pointing at its src
+// and coefficient (k unused for MODE -1): 7 neighbours read once, each
+// coefficient value transformed once, the 6 means from compile-time
+// vertex lists, no tests. The same terms in the same order as
+// p1_apply_point_2d.
+template <int MODE>
+HYTEG_DEVICE float tri_interior(const float* p, const float* k, int N,
+                                const float* elm) {
+  return tri_interior_seq<MODE>(
+      p, k, N, elm, std::make_integer_sequence<int, 9>{},
+      std::make_integer_sequence<int, kTriClasses * kTriVerts>{});
+}
+
+constexpr int kApplyR2 = kPlaneWarps;  // rows of a band: a warp each
+
+// p1_apply_point_2d as a call of its own on the card (as apply_point_rim).
+template <int MODE>
+HYTEG_NOINLINE float tri_point_rim(const float* src, const float* coeff,
+                                   int x, int z, int N, const float* elm) {
+  return p1_apply_point_2d(src, coeff, x, z, N, elm, MODE);
+}
+
+// Every slot of the band but the interior ones, for thread tid of
+// nthreads: row 0 (all edge) to all threads; the edge slot z = 0 and the
+// shell slot z = r - 1 of the band's other rows as one list over all
+// threads; then each row's zero run, a warp a row.
+template <int MODE, class Out>
+HYTEG_DEVICE void tri_band_rim(const float* src, const float* coeff,
+                               const Out& out, int x0, int N,
+                               const float* elm, int tid, int nthreads) {
+  const int x1 = x0 + kApplyR2 < N ? x0 + kApplyR2 : N;
+  const int xs = x0 == 0 ? 1 : x0;
+  if (x0 == 0)
+    for (int z = tid; z < N; z += nthreads)
+      out(z, tri_point_rim<MODE>(src, coeff, 0, z, N, elm));
+  for (int i = tid; i < 2 * (x1 - xs); i += nthreads) {
+    const int x = xs + (i >> 1), r = N - x;
+    const int z = (i & 1) ? r - 1 : 0;
+    if ((i & 1) && z == 0) continue;  // r = 1: one slot, both
+    out(x * N + z, tri_point_rim<MODE>(src, coeff, x, z, N, elm));
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int x = x0 + warp; x < x1; x += nthreads >> 5)
+    zero_run(out, x * N + N - x, (x + 1) * N, lane, 32);
+}
+
+// Chunks of 32 slots a lane of the direct form takes at a time on a row,
+// their loads all in flight before their stores.
+constexpr int kApplyChunks2D = 2;
+
+// Kernel B4-2D's block (face, band x0) in its direct form, thread (warp,
+// lane) of kApplyR2 warps: the rim, then row x0 + warp's slots z = 1 ..
+// r - 2 through tri_interior, 32 lanes at a time. coeff may be null when
+// MODE < 0.
+template <int MODE, class Out>
+HYTEG_DEVICE void tri_apply_band(const float* src, const float* coeff,
+                                 const Out& out, int x0, int N,
+                                 const float* elm, int warp, int lane) {
+  tri_band_rim<MODE>(src, coeff, out, x0, N, elm, warp * 32 + lane,
+                     kApplyThreads);
+  const int x = x0 + warp;
+  if (x < 1 || x >= N) return;
+  const int row = x * N, zl = N - x - 2;  // zl = r - 2
+  for (int z0 = 1; z0 <= zl; z0 += 32 * kApplyChunks2D) {
+    float acc[kApplyChunks2D];
+#pragma unroll
+    for (int u = 0; u < kApplyChunks2D; ++u) {
+      const int z = z0 + lane + 32 * u;
+      acc[u] = z <= zl ? tri_interior<MODE>(src + row + z,
+                                            coeff ? coeff + row + z : nullptr,
+                                            N, elm)
+                       : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kApplyChunks2D; ++u) {
+      const int z = z0 + lane + 32 * u;
+      if (z <= zl) out(row + z, acc[u]);
+    }
+  }
+}
+
+// -- the staged form: each coefficient value transformed once per tile ---
+// The interior slots of the band's rows and z0 .. z0 + Z - 1 (z0 >= 1) form
+// a tile. Their elements' vertices lie in rows x0 - 1 .. x0 + R and z0 - 1
+// .. z0 + Z. The block stages G (R + 2, Z + 2) in shared memory: the
+// transformed coefficient at each of those vertices in the triangle (the
+// others are never read: a valid base's vertices all lie in it, so no
+// value past the triangle reaches a mean). Each interior slot then reads
+// its 7 transformed neighbours from G and forms its 6 means as the direct
+// form does. Per tile (R = 8, Z = 256): 2,580 transforms for up to 2,048
+// slots, instead of 7 per slot. Staging the element means too (once per
+// band instead of once per vertex) ran no faster on the card.
+// Whether mode 0, 1, 2 (arithmetic, harmonic, geometric) runs the staged
+// form: the arithmetic mean, whose transform is the value itself, runs
+// the direct form, which was the faster for it on the card.
+constexpr bool kApplyStaged2D[3] = {false, true, true};
+HYTEG_HD constexpr bool tri_apply_staged(int mode) {
+  return mode >= 0 && kApplyStaged2D[mode];
+}
+constexpr int kApplyZ2 = 256;  // tile slots per row: 8 per lane
+constexpr int kApplyGX2 = kApplyR2 + 2, kApplyGZ2 = kApplyZ2 + 2;
+constexpr int kApplyG2 = kApplyGX2 * kApplyGZ2;
+
+// g[K] = the staged transformed coefficient at move K; gp points at the
+// slot's own position in G.
+template <int K>
+HYTEG_DEVICE void tri_staged_nbr(float (&g)[9], const float* gp) {
+  if constexpr (tri_nbr_used(K))
+    g[K] = gp[(K / 3 - 1) * kApplyGZ2 + (K % 3 - 1)];
+}
+
+template <int MODE, int... K, int... I>
+HYTEG_DEVICE float tri_interior_staged_seq(const float* p, const float* gp,
+                                           int N, const float* elm,
+                                           std::integer_sequence<int, K...>,
+                                           std::integer_sequence<int, I...>) {
+  float u[9], g[9];
+  (tri_load_nbr<-1, K>(u, p, N), ...);
+  (tri_staged_nbr<K>(g, gp), ...);
+  float acc = 0.f;
+  (tri_elem_term<MODE, I>(acc, u, g, elm), ...);
+  return acc;
+}
+
+// Kernel B4-2D's block (face, band x0) in its staged form (MODE >= 0).
+// team runs the block: team.each(fn) calls fn(tid) for each of its
+// kApplyThreads threads and team.sync() is the block's barrier, so the
+// same walk runs on the card (one call per thread) and on the host (a
+// loop over the threads); team.fresh(p, count) marks the tile's G as not
+// yet written (a no-op on the card). gs: kApplyG2 floats of shared
+// memory. The rim as in tri_apply_band, then tiles of kApplyZ2 slots from
+// z = 1, each staged, then summed (two barriers a tile).
+template <int MODE, class Team, class Out>
+HYTEG_DEVICE void tri_apply_band_staged(Team& team, const float* src,
+                                        const float* coeff, const Out& out,
+                                        int x0, int N, const float* elm,
+                                        float* gs) {
+  static_assert(MODE >= 0, "the staged form needs a coefficient");
+  const int n = N - 1;
+  team.each([&](int tid) {
+    tri_band_rim<MODE>(src, coeff, out, x0, N, elm, tid, kApplyThreads);
+  });
+  const int zmax = N - (x0 == 0 ? 1 : x0) - 2;  // last interior z, first row
+  for (int z0 = 1; z0 <= zmax; z0 += kApplyZ2) {
+    team.fresh(gs, kApplyG2);
+    team.each([&](int tid) {
+      for (int i = tid; i < kApplyG2; i += kApplyThreads) {
+        const int gx = i / kApplyGZ2, gz = i - gx * kApplyGZ2;
+        const int xx = x0 - 1 + gx, zz = z0 - 1 + gz;
+        if (xx >= 0 && xx + zz <= n)
+          gs[i] = coeff_term(coeff[xx * N + zz], MODE);
+      }
+    });
+    team.sync();
+    team.each([&](int tid) {
+      const int warp = tid >> 5, lane = tid & 31, x = x0 + warp;
+      if (x < 1 || x >= N) return;
+      const int row = x * N, zl = N - x - 2;
+#pragma unroll
+      for (int j = 0; j < kApplyZ2 / 32; ++j) {
+        const int lz = lane + 32 * j, z = z0 + lz;
+        if (z <= zl)
+          out(row + z, tri_interior_staged_seq<MODE>(
+                           src + row + z,
+                           gs + (warp + 1) * kApplyGZ2 + lz + 1, N, elm,
+                           std::make_integer_sequence<int, 9>{},
+                           std::make_integer_sequence<int,
+                                                      kTriClasses * kTriVerts>{}));
+      }
+    });
+    team.sync();  // G is restaged next
+  }
 }
 
 }  // namespace hyteg

@@ -39,8 +39,8 @@ SIGNATURES = {
     "hyteg_p1_const_apply_2d": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # elmats, coeff, dst, C, N, lumped, mode, stream (2D)
     "hyteg_p1_diag_2d": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # src, coeff, elmats, dst, C, N, mode, stream (2D)
-    "hyteg_p1_apply_2d": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # src, coeff, elmats, dst, C, N, mode, offs, margins, stream (2D)
+    "hyteg_p1_apply_2d": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # src, W, dst, C, M, dirs, stream (2D)
     "hyteg_p2_const_apply_2d": [_P, _P, _P, _I, _I, _P, _P],
     # elmats, coeff, dst, C, N, pitch, lumped, mode, offs, margins, stream
@@ -56,8 +56,8 @@ SIGNATURES = {
     "hyteg_pair_install": [_P] * 6 + [_I, _I, _I, _P],
     # u, xfo, yfo, zfo, dfo, Cp, N, P, stream
     "hyteg_pair_extract": [_P] * 5 + [_I, _I, _I, _P],
-    # src, coeff, elmats, dst, C, N, pitch, mode, stream
-    "hyteg_p1_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, coeff, elmats, dst, C, N, pitch, mode, offs, margins, stream
+    "hyteg_p1_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # src, W, dst, C, M, pitch, dirs, stream
     "hyteg_p2_const_apply": [_P, _P, _P, _I, _I, _I, _P, _P],
     # u, w, y, X, L, Z, shift, n_taps, stream

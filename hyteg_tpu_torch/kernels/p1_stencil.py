@@ -74,6 +74,15 @@ def p1_apply_local_torch(src, elmats, level: int, dim: int, pitch: int,
     return dst
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(dim: int = 3):
+    """Host int32 tables for the CUDA launchers of B3 and B4: class vertex
+    offsets, (6, 4, 3) in 3D or (2, 3, 2) in 2D, and base margins, (6,) or
+    (2,)."""
+    return (np.ascontiguousarray(micro.offsets(dim), dtype=np.int32),
+            np.ascontiguousarray(micro.base_margin(dim), dtype=np.int32))
+
+
 def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
                    coeff=None, coeff_avg: str = "arithmetic"):
     """Per-cell elementwise apply on the flat layout (partial sums on
@@ -98,14 +107,15 @@ def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
     if coeff is not None:
         _check_cuda_input("coeff", coeff, block)
     dst = torch.empty_like(src)
+    offs, margins = _kernel_tables(dim)
     args = (src.data_ptr(), None if coeff is None else coeff.data_ptr(),
             elmats.data_ptr(), dst.data_ptr(), C, N)
+    tail = (MODES.index(coeff_avg), offs.ctypes.data, margins.ctypes.data,
+            build.current_stream())
     if dim == 3:
-        rc = build.library().hyteg_p1_apply(
-            *args, pitch, MODES.index(coeff_avg), build.current_stream())
+        rc = build.library().hyteg_p1_apply(*args, pitch, *tail)
     else:
-        rc = build.library().hyteg_p1_apply_2d(
-            *args, MODES.index(coeff_avg), build.current_stream())
+        rc = build.library().hyteg_p1_apply_2d(*args, *tail)
     build.check_launch(rc, "p1_apply_local")
     build.count_launch(p1_apply_local, dim, level)
     return dst
@@ -142,14 +152,6 @@ def p1_diagonal_local_torch(elmats, level: int, dim: int, pitch: int,
                 acc = acc * scale
             dst = dst + flat.shift_write(acc, offs[t, a], pitch, dim)
     return dst
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_tables():
-    """Host int32 tables for the CUDA launcher: (6, 4, 3) class vertex
-    offsets and (6,) base margins."""
-    return (np.ascontiguousarray(micro.offsets(3), dtype=np.int32),
-            np.ascontiguousarray(micro.base_margin(3), dtype=np.int32))
 
 
 def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,

@@ -5,8 +5,8 @@ operator built on it, against the JAX package on identical inputs.
 The JAX side runs ``p1_apply_local`` in both of its forms: the default
 ``lax.scan`` over classes with cyclic rolls, and ``unroll=True``, the
 zero-filled shifts that ``p1_apply_local_torch`` ports. The CUDA kernel's
-per-point function (csrc/p1_apply.cuh) is compiled with the host C++
-compiler and held against the plain version.
+per-point function and its plane walk (csrc/p1_apply.cuh) are compiled
+with the host C++ compiler and held against the plain version.
 
 Tolerance: 1e-5 * max|y| (f32 sums of 96 terms, and the coefficient
 means, taken in another order).
@@ -37,7 +37,8 @@ from hyteg_tpu_torch.operators.averaging import MODES
 from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
 from hyteg_tpu_torch.primitives.storage import CellStorage
 
-from tests.test_torch_const_stencil import CSRC, FORMS, _assert_close, _mesh
+from tests.test_torch_const_stencil import (CSRC, FORMS, _assert_close, _mesh,
+                                          block_coords)
 
 torch.set_num_threads(1)
 
@@ -137,6 +138,9 @@ def test_wrapper_rejects_non_cpu_non_cuda_tensors():
 HOST_HARNESS = r"""
 #include <cmath>
 #define HYTEG_DEVICE inline
+// transforms (0) and means finished (1) by coeff_term / coeff_finish
+static long long coeff_work[2];
+#define HYTEG_COEFF_HOOK(kind) (++coeff_work[kind])
 #include "p1_apply.cuh"
 using namespace hyteg;
 // Runs the per-point function kernel B4 runs, one slot after another.
@@ -151,6 +155,72 @@ extern "C" void p1_apply(const float* src, const float* coeff,
       dst[c * cell + q] = p1_apply_point(
           src + c * cell, coeff ? coeff + c * cell : nullptr, (int)(q / L),
           (int)(q % L), N, pitch, elmats + c * elm, mode);
+}
+// Counts each slot's writes beside the store.
+struct CountStore {
+  CellStore cell;
+  int* count;
+  void operator()(int i, float v) const { cell(i, v); ++count[i]; }
+  int to_aligned(int i) const { return cell.to_aligned(i); }
+  void zero4(int i) const {
+    cell.zero4(i);
+    for (int k = 0; k < 4; ++k) ++count[i + k];
+  }
+};
+template <int MODE, class Out>
+static void apply_block(const float* src, const float* coeff, const Out& out,
+                        int x, int N, int pitch, const float* elm) {
+  for (int tid = 0; tid < kApplyThreads; ++tid)
+    apply_plane<MODE>(src, coeff, out, x, N, pitch, elm, tid >> 5, tid & 31,
+                      kPlaneWarps);
+}
+template <class Out>
+static void apply_mode(const float* src, const float* coeff, const Out& out,
+                       int x, int N, int pitch, const float* elm, int mode) {
+  if (!coeff)
+    apply_block<-1>(src, coeff, out, x, N, pitch, elm);
+  else if (mode == 0)
+    apply_block<0>(src, coeff, out, x, N, pitch, elm);
+  else if (mode == 1)
+    apply_block<1>(src, coeff, out, x, N, pitch, elm);
+  else
+    apply_block<2>(src, coeff, out, x, N, pitch, elm);
+}
+// Kernel B4's launcher and thread blocks (cell, plane x) one after
+// another: the table check, then every block through the walk. count:
+// null, or one int per slot. work: null, or the transforms and means of
+// the run. Returns the launcher's error (11, cudaErrorInvalidValue) for
+// tables it refuses, else 0.
+extern "C" int apply(const float* src, const float* coeff, const float* elm,
+                     float* dst, int C, int N, int pitch, int mode,
+                     const int* offs, const int* margins, int* count,
+                     long long* work) {
+  for (int t = 0; t < kClasses; ++t) {
+    if (margins[t] != kDiagMargin[t]) return 11;
+    for (int a = 0; a < kVerts; ++a)
+      for (int d = 0; d < 3; ++d)
+        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d]) return 11;
+  }
+  const long long cell = (long long)N * N * pitch;
+  const int ne = kClasses * kVerts * kVerts;
+  coeff_work[0] = coeff_work[1] = 0;
+  for (int c = 0; c < C; ++c) {
+    const float* co = coeff ? coeff + c * cell : nullptr;
+    for (int x = 0; x < N; ++x) {
+      if (count)
+        apply_mode(src + c * cell, co,
+                   CountStore{CellStore{dst + c * cell}, count + c * cell}, x,
+                   N, pitch, elm + c * ne, mode);
+      else
+        apply_mode(src + c * cell, co, CellStore{dst + c * cell}, x, N,
+                   pitch, elm + c * ne, mode);
+    }
+  }
+  if (work) {
+    work[0] = coeff_work[0];
+    work[1] = coeff_work[1];
+  }
+  return 0;
 }
 """
 
@@ -169,6 +239,7 @@ def host_kernel(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.p1_apply.argtypes = [P, P, P, P, I, I, I, I]
+    lib.apply.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
     return lib
 
 
@@ -188,3 +259,149 @@ def test_kernel_point_math_matches_plain(host_kernel, name, level, pitch,
                              et.data_ptr(), out.data_ptr(), xt.shape[0],
                              tsp.N, tsp.pitch, MODES.index(mode))
         _assert_close(out, ref, ref.abs().max().item(), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel B4's plane walk, compiled for the host
+# ---------------------------------------------------------------------------
+
+
+
+def _walk_inputs(level, pitch, C, seed):
+    """Random src and element matrices, the linear coefficient k = 1 + x +
+    0.5 y (on the reference tet's coordinates) and a random one in [0.5,
+    1.5), both 0 outside the tet and on padding lanes, and the mask of
+    in-tet slots."""
+    N = (1 << level) + 1
+    n = N - 1
+    rng = np.random.default_rng(seed)
+    bx, by, bz = block_coords(N, pitch)
+    inside = (bz < N) & (bx + by + bz <= n)
+    src = torch.as_tensor(
+        rng.standard_normal((C, N, N * pitch)).astype(np.float32))
+    elm = torch.as_tensor(rng.standard_normal((C, 6, 4, 4)).astype(np.float32))
+    lin = np.broadcast_to((1.0 + bx / n + 0.5 * by / n) * inside,
+                          (C, N, N * pitch))
+    rnd = rng.uniform(0.5, 1.5, (C, N, N * pitch)) * inside
+    ks = {"linear": torch.as_tensor(lin.astype(np.float32)).contiguous(),
+          "random": torch.as_tensor(rnd.astype(np.float32))}
+    return N, src, elm, ks, torch.as_tensor(inside)
+
+
+# None: no coefficient
+WALK_MODES = (None,) + tuple(MODES)
+
+
+def _host_walk(lib, src, co, elm, N, pitch, mode, tables=None, count=None,
+               work=None):
+    offs, margins = tables or tk._kernel_tables(3)
+    out = torch.full_like(src, float("nan"))
+    rc = lib.apply(src.data_ptr(), None if co is None else co.data_ptr(),
+                   elm.data_ptr(), out.data_ptr(), src.shape[0], N, pitch,
+                   MODES.index(mode or "arithmetic"), offs.ctypes.data,
+                   margins.ctypes.data, None if count is None else count.data_ptr(),
+                   None if work is None else work.ctypes.data)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("mode", WALK_MODES)
+@pytest.mark.parametrize("level,pitch_of", [(2, "own"), (2, "odd"),
+                                            (3, "own"), (3, "odd"),
+                                            (4, "own"), (4, "odd"),
+                                            (6, "own")])
+def test_kernel_walk_writes_every_slot_once(host_kernel, level, pitch_of,
+                                            mode):
+    """Kernel B4's walk over all its thread blocks (plane x, cell) through a
+    counting store, at the level's own pitch N and at an odd pitch above
+    it (level 6: rows longer than one chunk of 32 lanes), without a
+    coefficient and in each mean, on a linear and a random coefficient:
+    every slot written exactly once, exactly 0 outside the tet and on
+    padding lanes, every slot equal to the plain version within 1e-5 *
+    max|y|; and the same result, bit for bit, when src and the
+    coefficient hold NaN outside the tet (neither is read there: no
+    padding lane's 0 reaches a mean)."""
+    N = (1 << level) + 1
+    pitch = N if pitch_of == "own" else N + 2
+    N, src, elm, ks, inside = _walk_inputs(level, pitch, 2, 300 + level)
+    outside = ~inside.expand(src.shape)
+    for kind in ("linear", "random") if mode is not None else (None,):
+        co = None if kind is None else ks[kind]
+        ref = tk.p1_apply_local_torch(src, elm, level, 3, pitch, co,
+                                      mode or "arithmetic")
+        count = torch.zeros(src.shape, dtype=torch.int32)
+        out = _host_walk(host_kernel, src, co, elm, N, pitch, mode,
+                         count=count)
+        assert (count == 1).all()
+        assert (out[outside] == 0).all()
+        _assert_close(out, ref, ref.abs().max().item(), 1e-5)
+        again = _host_walk(
+            host_kernel, src.masked_fill(outside, float("nan")),
+            None if co is None else co.masked_fill(outside, float("nan")),
+            elm, N, pitch, mode)
+        assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("mode", WALK_MODES)
+@pytest.mark.parametrize("level", [3, 4, 5])
+def test_kernel_interior_sum_matches_point_math(host_kernel, level, mode):
+    """The walk's untested interior sum against p1_apply_point, the tested
+    per-point function, at every slot: within 2 ulps (the same terms in
+    the same order), equal on the face and shell slots, which run
+    p1_apply_point itself."""
+    N = (1 << level) + 1
+    pitch = N + 2
+    N, src, elm, ks, inside = _walk_inputs(level, pitch, 2, 400 + level)
+    co = None if mode is None else ks["random"]
+    out = _host_walk(host_kernel, src, co, elm, N, pitch, mode)
+    point = torch.empty_like(src)
+    host_kernel.p1_apply(src.data_ptr(), None if co is None else co.data_ptr(),
+                         elm.data_ptr(), point.data_ptr(), 2, N, pitch,
+                         MODES.index(mode or "arithmetic"))
+    a, b = out.numpy(), point.numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    assert (np.abs(a - b) <= 2 * ulp).all()
+    bx, by, bz = block_coords(N, pitch)
+    rim = inside.numpy() & ((bx == 0) | (by == 0) | (bz == 0)
+                            | (bx + by + bz == N - 1))
+    assert np.array_equal(a[:, rim], b[:, rim])
+
+
+def test_kernel_launcher_refuses_other_tables(host_kernel):
+    """The B4 launcher (mirrored by the host harness) takes the JAX
+    package's micro.offsets(3) and micro.base_margin(3), the tables its
+    walk was compiled with, and refuses any other."""
+    from hyteg_tpu.indexing import micro as jmicro
+
+    offs = np.ascontiguousarray(jmicro.offsets(3), dtype=np.int32)
+    margins = np.ascontiguousarray(jmicro.base_margin(3), dtype=np.int32)
+    N, src, elm, _, _ = _walk_inputs(1, 3, 1, 0)
+    _host_walk(host_kernel, src, None, elm, N, 3, None, tables=(offs, margins))
+    out = torch.empty_like(src)
+    for o, m in ((offs[::-1].copy(), margins), (offs, margins + 1),
+                 (offs[:, [1, 0, 2, 3]].copy(), margins)):
+        assert host_kernel.apply(src.data_ptr(), None, elm.data_ptr(),
+                                 out.data_ptr(), 1, N, 3, 0, o.ctypes.data,
+                                 m.ctypes.data, None, None) == 11
+
+
+def _work_per_slot(lib, level, mode):
+    """Coefficient transforms and means finished per in-tet slot of one
+    cell, at pitch N."""
+    N = (1 << level) + 1
+    N, src, elm, ks, inside = _walk_inputs(level, N, 1, 7)
+    work = np.zeros(2, np.int64)
+    _host_walk(lib, src, ks["random"], elm, N, N, mode, work=work)
+    return work / int(inside.sum())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_coeff_work_per_slot(host_kernel, mode):
+    """The coefficient transforms and means finished per in-tet slot, on
+    one cell at level 7 (the level chip_smoke.py times), in each mean: an
+    interior slot transforms its 15 neighbours once each and finishes its
+    24 means once each, a face or shell slot's tested gather fewer, so
+    14.82 and 22.91 on average (the plane walk's thread-per-slot parent:
+    15 and 24 at every in-tet slot)."""
+    assert np.round(_work_per_slot(host_kernel, 7, mode), 2).tolist() \
+        == [14.82, 22.91]

@@ -27,6 +27,7 @@ packages' summation orders dominate).
 
 import ctypes
 import functools
+import hashlib
 import math
 import pathlib
 import shutil
@@ -359,6 +360,9 @@ CSRC = pathlib.Path(tk.__file__).resolve().parent.parent / "csrc"
 HOST_HARNESS = r"""
 #include <cmath>
 #define HYTEG_DEVICE inline
+// transforms (0) and means finished (1) by coeff_term / coeff_finish
+static long long coeff_work[2];
+#define HYTEG_COEFF_HOOK(kind) (++coeff_work[kind])
 #include "p1_const_stencil.cuh"
 #include "p1_tri.cuh"
 using namespace hyteg;
@@ -431,6 +435,80 @@ extern "C" void apply_2d(const float* src, const float* coeff,
           src + c * cell, coeff ? coeff + c * cell : nullptr, (int)(q / N),
           (int)(q % N), N, elm + c * kElm, mode);
 }
+// B4-2D's staged walk's team on the host: the block's threads one after
+// another; a tile's G starts as NaN, so a read of a value the tile did
+// not stage shows in the result.
+struct HostTeam {
+  template <class F> void each(F&& fn) {
+    for (int tid = 0; tid < kApplyThreads; ++tid) fn(tid);
+  }
+  void sync() {}
+  void fresh(float* p, int n) {
+    for (int i = 0; i < n; ++i) p[i] = NAN;
+  }
+};
+// One thread block (face, band x0) in the form the kernel runs for MODE.
+template <int MODE, class Out>
+static void apply_band(const float* src, const float* coeff, const Out& out,
+                       int x0, int N, const float* elm) {
+  if constexpr (tri_apply_staged(MODE)) {
+    static float gs[kApplyG2];
+    HostTeam team;
+    tri_apply_band_staged<MODE>(team, src, coeff, out, x0, N, elm, gs);
+  } else {
+    for (int tid = 0; tid < kApplyThreads; ++tid)
+      tri_apply_band<MODE>(src, coeff, out, x0, N, elm, tid >> 5, tid & 31);
+  }
+}
+template <class Out>
+static void apply_band_mode(const float* src, const float* coeff,
+                            const Out& out, int x0, int N, const float* elm,
+                            int mode) {
+  if (!coeff)
+    apply_band<-1>(src, coeff, out, x0, N, elm);
+  else if (mode == 0)
+    apply_band<0>(src, coeff, out, x0, N, elm);
+  else if (mode == 1)
+    apply_band<1>(src, coeff, out, x0, N, elm);
+  else
+    apply_band<2>(src, coeff, out, x0, N, elm);
+}
+// Kernel B4-2D's launcher and thread blocks (face, band of rows) one after
+// another: the table check, then every block through the band walk.
+// count: null, or one int per slot. work: null, or the transforms and
+// means of the run. Returns the launcher's error (11,
+// cudaErrorInvalidValue) for tables it refuses, else 0.
+extern "C" int apply_walk_2d(const float* src, const float* coeff,
+                             const float* elm, float* dst, int C, int N,
+                             int mode, const int* offs, const int* margins,
+                             int* count, long long* work) {
+  for (int t = 0; t < kTriClasses; ++t) {
+    if (margins[t] != kTriMargin[t]) return 11;
+    for (int a = 0; a < kTriVerts; ++a)
+      for (int d = 0; d < 2; ++d)
+        if (offs[(t * kTriVerts + a) * 2 + d] != kTriOff[t][a][d]) return 11;
+  }
+  const long long face = (long long)N * N;
+  const int ne = kTriClasses * kTriVerts * kTriVerts;
+  coeff_work[0] = coeff_work[1] = 0;
+  for (int c = 0; c < C; ++c) {
+    const float* co = coeff ? coeff + c * face : nullptr;
+    for (int x0 = 0; x0 < N; x0 += kApplyR2) {
+      if (count)
+        apply_band_mode(src + c * face, co,
+                        CountStore{CellStore{dst + c * face}, count + c * face},
+                        x0, N, elm + c * ne, mode);
+      else
+        apply_band_mode(src + c * face, co, CellStore{dst + c * face}, x0, N,
+                        elm + c * ne, mode);
+    }
+  }
+  if (work) {
+    work[0] = coeff_work[0];
+    work[1] = coeff_work[1];
+  }
+  return 0;
+}
 """
 
 
@@ -453,6 +531,7 @@ def host_kernels(tmp_path_factory):
     lib.const_apply_2d.argtypes = [P, P, P, P, I, I, P, P, P]
     lib.diag_2d.argtypes = [P, P, P, I, I, I, I]
     lib.apply_2d.argtypes = [P, P, P, P, I, I, I]
+    lib.apply_walk_2d.argtypes = [P, P, P, P, I, I, I, P, P, P, P]
     return lib
 
 
@@ -566,6 +645,188 @@ def test_kernel_2d_launcher_refuses_other_dirs(host_kernels):
         assert host_kernels.const_apply_2d(
             x.data_ptr(), A.data_ptr(), E.data_ptr(), x.data_ptr(),
             tsp.C_loc, tsp.N, d.ctypes.data, gmask.ctypes.data, None) == 11
+
+# kernel B4-2D's band walk, and B3-2D unchanged
+
+# None: no coefficient
+WALK_MODES = (None,) + tuple(MODES)
+
+
+def _b4_inputs(name, level, seed):
+    """The face space, its element matrices (Laplace), a random src, the
+    linear coefficient k = 1 + x + 0.5 y and a random one in [0.5, 2),
+    both 0 past the triangle."""
+    tsp = _torch_space(name, level)
+    et = compute_elmats(tsp, tforms.laplace_form,
+                        torch.as_tensor(tsp.cell_vertices(0))).contiguous()
+    mask = tsp.vertex_mask_t
+    p = tsp.coords()
+    ks = {"linear": ((1.0 + p[..., 0] + 0.5 * p[..., 1]) * mask)
+          .to(torch.float32).contiguous(),
+          "random": T(_rand(tsp.block_shape, tsp.vertex_mask, seed, lo=0.5))}
+    src = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(
+        tsp.block_shape).astype(np.float32))
+    return tsp, et, src, ks
+
+
+def _host_walk_2d(lib, src, co, et, N, mode, tables=None, count=None,
+                  work=None):
+    offs, margins = tables or tk3._kernel_tables(2)
+    out = torch.full_like(src, float("nan"))
+    assert lib.apply_walk_2d(
+        src.data_ptr(), None if co is None else co.data_ptr(), et.data_ptr(),
+        out.data_ptr(), src.shape[0], N, MODES.index(mode or "arithmetic"),
+        offs.ctypes.data, margins.ctypes.data, None if count is None else count.data_ptr(),
+        None if work is None else work.ctypes.data) == 0
+    return out
+
+
+@pytest.mark.parametrize("mode", WALK_MODES)
+@pytest.mark.parametrize("name,level", [(name, lv)
+                                        for name in ("rect", "annulus")
+                                        for lv in (2, 3, 4, 5)]
+                         + [("rect", 9)])
+def test_kernel_2d_apply_walk_writes_every_slot_once(host_kernels, name,
+                                                     level, mode):
+    """Kernel B4-2D's band walk over all its thread blocks (face, band of
+    rows) through a counting store, on the rectangle and on the 12-face
+    annulus (general weights) at levels 2-5 and the rectangle at level 9
+    (rows of more than one staged tile of 256 slots), without a
+    coefficient and in each mean (the arithmetic one in the direct form,
+    the harmonic and geometric ones staged), on a linear and a random
+    coefficient: every slot written exactly once,
+    exactly 0 past the triangle, every slot equal to the plain version
+    within 1e-5 * max|y|; and the same result, bit for bit, when src and
+    the coefficient hold NaN past the triangle (neither is read there)."""
+    tsp, et, src, ks = _b4_inputs(name, level, 60 + level)
+    outside = ~tsp.vertex_mask_t.bool().expand(src.shape)
+    for kind in ("linear", "random") if mode is not None else (None,):
+        co = None if kind is None else ks[kind]
+        ref = tk3.p1_apply_local_torch(src, et, level, 2, tsp.pitch, co,
+                                       mode or "arithmetic")
+        count = torch.zeros(src.shape, dtype=torch.int32)
+        out = _host_walk_2d(host_kernels, src, co, et, tsp.N, mode,
+                            count=count)
+        assert (count == 1).all()
+        assert (out[outside] == 0).all()
+        _close(out, ref, 1e-5)
+        again = _host_walk_2d(
+            host_kernels, src.masked_fill(outside, float("nan")),
+            None if co is None else co.masked_fill(outside, float("nan")),
+            et, tsp.N, mode)
+        assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("mode", WALK_MODES)
+@pytest.mark.parametrize("name,level", [("rect", 4), ("annulus", 3)])
+def test_kernel_2d_interior_sum_matches_point_math(host_kernels, name, level,
+                                                   mode):
+    """The band walk's untested interior sum (the transformed neighbours
+    read directly, or from the staged tile) against p1_apply_point_2d at every slot: within 2 ulps (the same
+    terms in the same order), equal on the edge and shell slots, which run
+    p1_apply_point_2d itself."""
+    tsp, et, src, ks = _b4_inputs(name, level, 70 + level)
+    co = None if mode is None else ks["random"]
+    out = _host_walk_2d(host_kernels, src, co, et, tsp.N, mode)
+    point = torch.empty_like(src)
+    host_kernels.apply_2d(src.data_ptr(),
+                          None if co is None else co.data_ptr(),
+                          et.data_ptr(), point.data_ptr(), tsp.C_loc, tsp.N,
+                          MODES.index(mode or "arithmetic"))
+    a, b = out.numpy(), point.numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    assert (np.abs(a - b) <= 2 * ulp).all()
+    N = tsp.N
+    bx, bz = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
+    rim = tsp.vertex_mask & ((bx == 0) | (bz == 0) | (bx + bz == N - 1))
+    assert np.array_equal(a[:, rim], b[:, rim])
+
+
+def test_kernel_2d_apply_launcher_refuses_other_tables(host_kernels):
+    """The B4-2D launcher (mirrored by the host harness) takes the JAX
+    package's micro.offsets(2) and micro.base_margin(2), the tables its
+    walk was compiled with, and refuses any other."""
+    from hyteg_tpu.indexing import micro as jmicro
+
+    offs = np.ascontiguousarray(jmicro.offsets(2), dtype=np.int32)
+    margins = np.ascontiguousarray(jmicro.base_margin(2), dtype=np.int32)
+    tsp, et, src, _ = _b4_inputs("rect", 1, 0)
+    _host_walk_2d(host_kernels, src, None, et, tsp.N, None,
+                  tables=(offs, margins))
+    out = torch.empty_like(src)
+    for o, m in ((offs[::-1].copy(), margins), (offs, margins + 1),
+                 (offs[:, [1, 0, 2]].copy(), margins)):
+        assert host_kernels.apply_walk_2d(
+            src.data_ptr(), None, et.data_ptr(), out.data_ptr(), tsp.C_loc,
+            tsp.N, 0, o.ctypes.data, m.ctypes.data, None, None) == 11
+
+
+def _work_per_slot_2d(lib, level, mode):
+    """Coefficient transforms and means finished per in-triangle slot of
+    one face (random element matrices and coefficient)."""
+    N = (1 << level) + 1
+    rng = np.random.default_rng(level)
+    inside = np.add.outer(np.arange(N), np.arange(N)) <= N - 1
+    src = torch.as_tensor(rng.standard_normal((1, N, N)).astype(np.float32))
+    et = torch.as_tensor(rng.standard_normal((1, 2, 3, 3)).astype(np.float32))
+    co = torch.as_tensor((rng.uniform(0.5, 2.0, (1, N, N)) * inside)
+                         .astype(np.float32))
+    work = np.zeros(2, np.int64)
+    _host_walk_2d(lib, src, co, et, N, mode, work=work)
+    return work / int(inside.sum())
+
+
+@pytest.mark.parametrize("mode,expected", [("arithmetic", [7.0, 5.99]),
+                                           ("harmonic", [1.27, 5.99]),
+                                           ("geometric", [1.27, 5.99])])
+def test_kernel_2d_staged_work_per_slot(host_kernels, mode, expected):
+    """What B4-2D's staged form saves, counted on one face at level 11 (the
+    level chip_smoke.py times): per in-triangle slot, the direct form,
+    which the arithmetic mean runs, transforms 7.00 values and finishes
+    5.99 means (7 and 6 at an interior slot); the staged form of the
+    harmonic and geometric means transforms 1.27, the edge and shell
+    slots' tested gathers included, and finishes as many means."""
+    assert np.round(_work_per_slot_2d(host_kernels, 11, mode), 2).tolist() \
+        == expected
+
+
+# sha256 of B3-2D's host output (diag_2d) on the Laplace element matrices
+# of rect level 3 and annulus level 4, a coefficient uniform in [0.5, 2)
+# from numpy's default_rng(level), lumped 0 and 1, each without a
+# coefficient and in the three means, as the header computed it before
+# B4-2D's band walk joined it in p1_tri.cuh. The digests hold for the
+# host toolchain they were recorded with (g++ at the harness's flags and
+# glibc's logf / expf, which the geometric mean calls): another compiler
+# or C library may change the last bits and fail this test with B3-2D
+# unchanged.
+B3_2D_DIGESTS = {
+    ("rect", 3):
+        "084e16feea54e3b4c5b3aada57b3a743b01b2c6603ef0cd6083ee948c8f8c698",
+    ("annulus", 4):
+        "9dcef19c20388edea0537721147adb3d91f155f62505288550f1b2b1ee8fee03",
+}
+
+
+@pytest.mark.parametrize("name,level", sorted(B3_2D_DIGESTS))
+def test_kernel_b3_2d_host_output_unchanged(host_kernels, name, level):
+    """B3-2D shares p1_tri.cuh and coeff_term / coeff_finish with B4-2D:
+    its host output is what it was before B4-2D's redesign, bit for
+    bit."""
+    tsp = _torch_space(name, level)
+    et = compute_elmats(tsp, tforms.laplace_form,
+                        torch.as_tensor(tsp.cell_vertices(0))).contiguous()
+    k = torch.as_tensor((np.random.default_rng(level).uniform(
+        0.5, 2.0, tsp.block_shape) * tsp.vertex_mask[None]).astype(np.float32))
+    h = hashlib.sha256()
+    for lumped in (0, 1):
+        for mode in (None,) + tuple(MODES):
+            out = torch.zeros(tsp.block_shape)
+            host_kernels.diag_2d(et.data_ptr(),
+                                 None if mode is None else k.data_ptr(),
+                                 out.data_ptr(), tsp.C_loc, tsp.N, lumped,
+                                 MODES.index(mode or "arithmetic"))
+            h.update(out.numpy().tobytes())
+    assert h.hexdigest() == B3_2D_DIGESTS[(name, level)]
 
 # ---------------------------------------------------------------------------
 # grid transfers
