@@ -25,7 +25,8 @@ read just after:
 - the paired-tet engine (kernels B6, B7, B8): bench.py's bench_tet path,
   lift / apply_ex / lower gated against the classic apply (B2) on the
   unit cube at levels 6 and 7 and on the 1920-cell spherical shell at
-  level 5, with a torch.profiler breakdown of chained applies at level 7;
+  level 5, B6 timed beside its bound at each (``b6_levels``), with a
+  torch.profiler breakdown of chained applies at level 7;
 - the variable-coefficient P1 operator (kernel B4, and B3 with a
   coefficient) at level 7: B4 against its plain version at every P1
   level 2-7 (pitch 129) without a coefficient and in the three averaging
@@ -56,8 +57,8 @@ read just after:
   11, 67,125,249 DoFs, its rate gated on A x = 0 from a random start,
   with a torch.profiler breakdown of one V-cycle, B2-2D's launches in it
   by level and its ms lost against its per-level bounds; the P1
-  coefficient operator at
-  level 11; the P2 GMG stack at P2 level 10, 67,125,249 DoFs, gated on a
+  coefficient operator at level 11 (B3-2D timed in each mean beside its
+  bound: ``b3_2d_coeff``); the P2 GMG stack at P2 level 10, 67,125,249 DoFs, gated on a
   seeded rhs and on A x = 0, with a breakdown of one V-cycle and B5-2D's
   launches in it by level; the manufactured P2 solve at levels 1-3.
 
@@ -80,6 +81,7 @@ import re
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -642,34 +644,122 @@ def tetpair_apply(storage, level: int, device, seed: int):
     return out, (sp, op, eng, x)
 
 
+def pair_read_bytes(eng) -> int:
+    """Bytes that a stencil over both tets of the paired blocks must read,
+    per pair times the pairs: every slot p + d with p in tet A or tet B and
+    d one of the 15 directions, as flat.shift_read reads it (a move past
+    the block reads nothing), read from u where pair_source reads the
+    block and from the face array it names where it reads a face (the
+    installed faces and shells, and row n of the padding lanes), each
+    entry once. The middle of the block, the padding lanes and the face
+    entries no stencil reads are not counted."""
+    from hyteg_tpu_torch.indexing import flat
+    from hyteg_tpu_torch.tetpair import plan as tp
+
+    N, P = eng.N, eng.P
+    n, L = N - 1, N * P
+    plan = tp.PairPlan(N, P)
+    M = torch.as_tensor(plan.in_a | plan.in_b)[None].float()
+    need = torch.zeros(M.shape, dtype=torch.bool)
+    for d in tp.dir_tables()[0]:
+        need |= flat.shift_write(M, [int(v) for v in d], P, 3) != 0
+    need = need[0].numpy().reshape(N, N, P)
+    x, ly, lz = np.meshgrid(np.arange(N), np.arange(N), np.arange(P),
+                            indexing="ij")
+    s = x + ly + lz
+    in_a, in_b = s <= n, (s >= 2 * n) & (lz <= n)
+    l = ly * P + lz
+    # pair_source's choice, lowest precedence first: the entry of the
+    # face arrays (xf, yf, zf, df laid end to end), -1 for the block
+    yf0, zf0 = 2 * L, 2 * L + 2 * N * P
+    df0 = zf0 + 2 * N * N
+    src = np.full(need.shape, -1, dtype=np.int64)
+    for cond, entry in (
+            ((s == 2 * n) & (lz <= n), df0 + L + l),
+            (s == n, df0 + l),
+            ((lz == n) & in_b, zf0 + (N + x) * N + ly),
+            ((lz == 0) & in_a, zf0 + x * N + ly),
+            ((ly == n) & in_b, yf0 + (N + x) * P + lz),
+            ((ly == 0) & in_a, yf0 + x * P + lz),
+            ((x == n) & (s >= 2 * n), L + l),
+            ((x == 0) & in_a, l)):
+        src = np.where(cond, entry, src)
+    picked = src[need]
+    face_entries = np.unique(picked[picked >= 0]).size
+    return eng.Cp * (int((picked < 0).sum()) + face_entries) * 4
+
+
+def b6_work(eng, st, fo) -> tuple[int, int]:
+    """B6's least work at one case: (bytes, operations). The reads a
+    stencil over both tets needs (pair_read_bytes: u and the face
+    entries), W, one write of the block and of the four face arrays; a
+    multiply-add per direction at each in-tet slot."""
+    return (pair_read_bytes(eng) + nbytes(st.u, eng.W, *fo),
+            30 * 2 * eng.Cp * tet_points(eng.N - 1))
+
+
+def b6_timing(eng, x) -> dict:
+    """Kernel B6 on the lifted state of x: its ms beside its bound."""
+    from hyteg_tpu_torch.kernels import tetpair as tk
+
+    N, P = eng.N, eng.P
+    st = eng.lift(x)
+    faces = (st.xf, st.yf, st.zf, st.df)
+    fo = tk.pair_apply(st.u, eng.W, *faces, N, P)[1:]
+    ms = median_ms(lambda: tk.pair_apply(st.u, eng.W, *faces, N, P), 10,
+                   batch=10)
+    b = bound(*b6_work(eng, st, fo))
+    return {"paired_block": [eng.Cp, N, N * P], "ms": ms, "bound_ms": b[0],
+            "bound_by": b[1], "bytes": b[2], "operations": b[3]}
+
+
 def tetpair_profile(eng, st, applies: int = 3) -> dict:
     """torch.profiler over chained apply_ex: device time by kernel and the
-    device idle share of the window (1 - device kernel time / host wall)."""
+    device idle share of the window (1 - device time / host wall). Only
+    kernel and copy records count: the profiler's own step annotation
+    (``ProfilerStep*``) also carries a device time, that of the whole
+    window. The profiler is enabled one apply before the window (a warm-up
+    step, whose records it drops): started at the window, it lost the
+    window's first kernel record on the card, a B6 launch. apply_ex
+    launches B6 once, so the window must hold ``applies`` B6 records."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         st = eng.apply_ex(st)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        st = eng.apply_ex(st)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(applies):
             st = eng.apply_ex(st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    device_ms = sum(r[1] for r in rows)
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep")]
     b6_ms = sum(r[1] for r in rows if "pair_apply_kernel" in r[0])
+    b6_launches = sum(r[2] for r in rows if "pair_apply_kernel" in r[0])
+    check(b6_launches == applies,
+          f"tetpair_profile: {b6_launches} B6 records for {applies} applies")
+    device_ms = sum(r[1] for r in rows)
+    idle = 1.0 - device_ms / wall_ms
+    check(0.0 <= idle <= 1.0, f"tetpair_profile: idle share {idle}")
     rows.sort(key=lambda r: -r[1])
     return {"applies": applies, "wall_ms_per_apply": wall_ms / applies,
             "device_ms_per_apply": device_ms / applies,
-            "b6_ms_per_apply": b6_ms / applies,
+            "b6_ms_per_apply": b6_ms / applies, "b6_launches": b6_launches,
+            "b6_share": b6_ms / device_ms,
             "exchange_ms_per_apply": (device_ms - b6_ms) / applies,
             "device_kernels_per_apply": sum(r[2] for r in rows) / applies,
-            "idle_share": 1.0 - device_ms / wall_ms,
+            "idle_share": idle,
             "top": [{"name": k[:80], "ms_per_apply": v / applies,
                      "count": c} for k, v, c in rows[:10]]}
 
@@ -1390,6 +1480,18 @@ def run_2d(device, card: str) -> dict:
         bound(nbytes(x) + simplex_read_bytes(sp, [(0, 0)], C) + nbytes(elm),
               18 * C * sum(tri_points(sp.n - int(m)) for m in margins))[0],
         t["apply_raw_coeff_2d"])
+    # B3-2D with the coefficient, in each mean (the inverse diagonal of a
+    # variable-coefficient smoother): the block written once, the
+    # coefficient read on the triangle; per (element, vertex) term 3 adds
+    # of the mean, its division and a multiply-add
+    b3_coeff = {"ms": {m: median_ms(
+        lambda m=m: b34.p1_diagonal_local(elm, L, 2, sp.pitch, False, k, m),
+        10, batch=10) for m in MODES}}
+    b3_coeff["bound_ms"], b3_coeff["bound_by"], *_ = bound(
+        nbytes(elm) + nbytes(x) + simplex_read_bytes(sp, [(0, 0)], C),
+        6 * 3 * C * sum(tri_points(sp.n - int(m)) for m in margins))
+    emit("b3_2d_coeff", card=card, level=L, coefficient="1 + x + 0.5 y",
+         **b3_coeff)
     del sp, op, k, dinv, x, elm
     torch.cuda.empty_cache()
 
@@ -1450,7 +1552,7 @@ def run_2d(device, card: str) -> dict:
           f"level {lo} to {hi}, < {P2_ERR_DROP_MIN}x")
     return {"errs": errs, "launches": launches, "ms": t, "work": work,
             "library_ms": lib, "block_elements": block_elements,
-            "b4_coeff": b4_coeff}
+            "b4_coeff": b4_coeff, "b3_coeff": b3_coeff}
 
 
 def main() -> int:
@@ -1735,15 +1837,24 @@ def main() -> int:
     tk.pair_apply.launches = 0
     tk.pair_install.launches = 0
     tk.pair_extract.launches = 0
+    tp_names = ("pair_apply", "pair_install", "pair_extract")
+    b6_cases = []
     for i, (mesh, level) in enumerate(TETPAIR_CASES):
         res, objs = tetpair_apply(storages[mesh], level, device, seed=40 + i)
         emit("tetpair_apply", card=card, mesh=mesh, **res)
+        # B6 timed beside its bound at this case; the timing's launches
+        # are not the main path's
+        counts = {name: getattr(tk, name).launches for name in tp_names}
+        b6_cases.append({"mesh": mesh, "level": level,
+                         **b6_timing(objs[2], objs[3])})
+        for name, n in counts.items():
+            getattr(tk, name).launches = n
         if (mesh, level) == ("cube", TETPAIR_TIME_LEVEL):
             tp_res, (sp, op, eng, x) = res, objs
         del objs
         torch.cuda.empty_cache()
-    tp_launches = {name: getattr(tk, name).launches
-                   for name in ("pair_apply", "pair_install", "pair_extract")}
+    emit("b6_levels", card=card, cases=b6_cases)
+    tp_launches = {name: getattr(tk, name).launches for name in tp_names}
     emit("tetpair_checks", launches=tp_launches)
     for name, n in tp_launches.items():
         check(n > 0, f"{name} was not launched on the paired-tet path")
@@ -1755,8 +1866,8 @@ def main() -> int:
     faces = (st.xf, st.yf, st.zf, st.df)
     fo = tk.pair_apply(st.u, eng.W, *faces, N, P)[1:]
     t.update({
-        "pair_apply": median_ms(
-            lambda: tk.pair_apply(st.u, eng.W, *faces, N, P), 10, batch=10),
+        "pair_apply": next(c["ms"] for c in b6_cases if (c["mesh"], c["level"])
+                           == ("cube", TETPAIR_TIME_LEVEL)),
         "pair_apply_plain": median_ms(
             lambda: tk.pair_apply_torch(st.u, eng.W, *faces, N, P), 5),
         "pair_install": median_ms(
@@ -1776,9 +1887,12 @@ def main() -> int:
     })
     # B8 only copies face planes out of the block: its least bytes are
     # those planes, read once and written once
-    bounds["pair_apply"] = bound(
+    bounds["pair_apply"] = bound(*b6_work(eng, st, fo))
+    # the earlier yardstick, printed beside it: the whole block read and
+    # written once
+    b6_whole_block_ms = bound(
         nbytes(st.u, eng.W, *faces) + nbytes(st.u, *fo),
-        30 * 2 * eng.Cp * tet_points(N - 1))
+        30 * 2 * eng.Cp * tet_points(N - 1))[0]
     bounds["pair_install"] = bound(2 * nbytes(st.u) + nbytes(*faces), 0)
     bounds["pair_extract"] = bound(2 * nbytes(*tk.pair_extract(st.u, N, P)), 0)
     emit("tetpair_profile", card=card, level=TETPAIR_TIME_LEVEL,
@@ -1997,7 +2111,13 @@ def main() -> int:
                            "bound_ms_no_coeff": b4_coeff["3d"]["bound_ms_none"]},
         "p1_apply_local_2d": {
             "ms_by_mode": b4_coeff["2d"]["ms"],
-            "bound_ms_no_coeff": b4_coeff["2d"]["bound_ms_none"]}}
+            "bound_ms_no_coeff": b4_coeff["2d"]["bound_ms_none"]},
+        "p1_diagonal_local_2d": {
+            "ms_coeff": arm2d["b3_coeff"]["ms"],
+            "bound_ms_coeff": arm2d["b3_coeff"]["bound_ms"]},
+        "pair_apply": {
+            "ms_by_case": b6_cases,
+            "bound_ms_whole_block": b6_whole_block_ms}}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

@@ -12,10 +12,21 @@
 // atomics, each slot written once, the half of the block outside the
 // triangle written 0.
 //
-// B3-2D: one thread per slot of the (N, N) face, grid (ceil(N*N / 256),
-// C); 6 base tests per slot and, with a coefficient, the element means
-// formed at each vertex. Bound: writing the block (4 B per slot) and,
-// with a coefficient, reading it on the triangle.
+// B3-2D (p1_tri.cuh): B4-2D's band walk below. Without a coefficient the
+// diagonal at a slot depends only on its edge set and shell flag (the
+// class rule, checked in the header): each block folds the 6 weights into
+// 8 class values once, and each warp stores its row's values and the zeros
+// past the triangle as one store-only run of 16-byte stores, no loads.
+// With a coefficient (the mean a template argument) an interior slot
+// reads its 7 neighbours' coefficients once, transforms each once and
+// forms the 6 means from compile-time lists, with no tests; edge and
+// shell slots run the tested diag_point_2d as one list over the block.
+// Bound: writing the block (4 B per slot) and, with a coefficient,
+// reading it on the triangle. The design this one replaced (one thread
+// per slot of the face, a 64-bit division and 6 base tests per slot, the
+// mean a run-time branch, a scalar 0 stored by each thread past the
+// triangle) took 0.70-0.71 ms without a coefficient at level 11 on an
+// H100 (NVIDIA H100 80GB HBM3, 700 W), 23% of its bound.
 //
 // B4-2D (p1_tri.cuh): one thread block per (face, band of 8 rows), grid
 // (C, ceil(N / 8)), the faces' first bands first; a warp per row, lanes
@@ -41,34 +52,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kElm = hyteg::kTriClasses * hyteg::kTriVerts * hyteg::kTriVerts;
 
-__global__ void __launch_bounds__(kThreads)
-p1_diag_2d_kernel(const float* __restrict__ elmats,
-                  const float* __restrict__ coeff, float* __restrict__ dst,
-                  int N, int lumped, int mode) {
-  using namespace hyteg;
-  __shared__ float w[kTriClasses * kTriVerts];
-  const int c = blockIdx.y;
-  tri_diag_fold_weights(elmats + (long long)c * kElm, lumped, w, threadIdx.x,
-                        blockDim.x);
-  __syncthreads();
-  const long long cell = (long long)N * N;
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= cell) return;
-  const int x = (int)(q / N);
-  const int z = (int)(q - (long long)x * N);
-  dst[c * cell + q] =
-      diag_point_2d(coeff ? coeff + c * cell : nullptr, x, z, N, w, mode);
-}
-
-dim3 face_grid(int C, int N) {
-  const long long cell = (long long)N * N;
-  return dim3((unsigned)((cell + kThreads - 1) / kThreads), (unsigned)C);
-}
-
-// pair_apply_tile's team pattern: this thread, and the block's barrier.
+// The staged walks' team on the card: this thread, and the block's
+// barrier.
 struct BlockTeam {
   template <class F>
   __device__ __forceinline__ void each(F&& fn) {
@@ -77,6 +64,63 @@ struct BlockTeam {
   __device__ __forceinline__ void sync() { __syncthreads(); }
   __device__ __forceinline__ void fresh(float*, int) {}
 };
+
+// B3-2D, thread block (face c, band of rows x0 = blockIdx.y * kApplyR2).
+// MODE -1: no coefficient, the 8 class values folded once and
+// tri_diag_band stores them; 0-2: the mean of the coefficient,
+// tri_diag_band_coeff on the 6 weights. At least 8 blocks per SM (32
+// registers), the fastest of 4, 5, 6 and 8 on the card in every mode
+// (uncapped, the direct arithmetic kernel took 56 registers and ran 21%
+// slower).
+template <int MODE>
+__global__ void __launch_bounds__(hyteg::kApplyThreads, 8)
+p1_diag_2d_kernel(const float* __restrict__ elmats,
+                  const float* __restrict__ coeff, float* __restrict__ dst,
+                  int N, int lumped) {
+  using namespace hyteg;
+  __shared__ float w[kTriClasses * kTriVerts];
+  __shared__ float cls[kTriDiagRows];
+  const int c = blockIdx.x;
+  tri_diag_fold_weights(elmats + c * kElm, lumped, w, threadIdx.x,
+                        blockDim.x);
+  __syncthreads();
+  const long long face = (long long)N * N;
+  const CellStore out{dst + c * face};
+  const int x0 = blockIdx.y * kApplyR2;
+  if constexpr (MODE < 0) {
+    tri_fold_classes(w, cls, threadIdx.x, blockDim.x);
+    __syncthreads();
+    tri_diag_band(out, x0, N, cls, threadIdx.x >> 5, threadIdx.x & 31);
+  } else {
+    __shared__ float gs[tri_apply_staged(MODE) ? kApplyG2 : 1];
+    BlockTeam team;
+    tri_diag_band_coeff<MODE>(team, coeff + c * face, out, x0, N, w, gs);
+  }
+}
+
+template <int MODE>
+void launch_diag_2d(const float* elmats, const float* coeff, float* dst,
+                    int C, int N, int lumped, cudaStream_t s) {
+  const dim3 grid((unsigned)C, (unsigned)((N + hyteg::kApplyR2 - 1) /
+                                          hyteg::kApplyR2));
+  p1_diag_2d_kernel<MODE><<<grid, hyteg::kApplyThreads, 0, s>>>(
+      elmats, coeff, dst, N, lumped);
+}
+
+// True when the passed class tables, offs (2, 3, 2) and margins (2,), are
+// the compiled kTriOff and kTriMargin.
+bool tri_tables_match(const int* offs, const int* margins) {
+  using namespace hyteg;
+  for (int t = 0; t < kTriClasses; ++t) {
+    if (margins[t] != kTriMargin[t]) return false;
+    for (int a = 0; a < kTriVerts; ++a)
+      for (int d = 0; d < 2; ++d)
+        if (offs[(t * kTriVerts + a) * 2 + d] != kTriOff[t][a][d])
+          return false;
+  }
+  return true;
+}
+
 
 // Least blocks per SM each B4-2D kernel is compiled for (caps its
 // registers at 65536 / (256 * blocks)), by mode (none, arithmetic:
@@ -128,13 +172,26 @@ void launch_apply_2d(const float* src, const float* coeff,
 
 }  // namespace
 
-// coeff may be null (then mode is ignored). Returns cudaGetLastError()
-// after the launch.
+// offs: host (2, 3, 2) int32 class vertex offsets and margins: host (2,)
+// int32, which must equal the kernel's compile-time kTriOff and
+// kTriMargin (else cudaErrorInvalidValue, nothing launched); coeff may be
+// null (then mode is ignored). Returns cudaGetLastError() after the
+// launch.
 extern "C" int hyteg_p1_diag_2d(const float* elmats, const float* coeff,
                                 float* dst, int C, int N, int lumped, int mode,
+                                const int* offs, const int* margins,
                                 void* stream) {
-  p1_diag_2d_kernel<<<face_grid(C, N), kThreads, 0, (cudaStream_t)stream>>>(
-      elmats, coeff, dst, N, lumped, mode);
+  if (!tri_tables_match(offs, margins)) return (int)cudaErrorInvalidValue;
+  if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!coeff)
+    launch_diag_2d<-1>(elmats, coeff, dst, C, N, lumped, s);
+  else if (mode == 0)
+    launch_diag_2d<0>(elmats, coeff, dst, C, N, lumped, s);
+  else if (mode == 1)
+    launch_diag_2d<1>(elmats, coeff, dst, C, N, lumped, s);
+  else
+    launch_diag_2d<2>(elmats, coeff, dst, C, N, lumped, s);
   return (int)cudaGetLastError();
 }
 
@@ -147,14 +204,7 @@ extern "C" int hyteg_p1_apply_2d(const float* src, const float* coeff,
                                  const float* elmats, float* dst, int C, int N,
                                  int mode, const int* offs,
                                  const int* margins, void* stream) {
-  using namespace hyteg;
-  for (int t = 0; t < kTriClasses; ++t) {
-    if (margins[t] != kTriMargin[t]) return (int)cudaErrorInvalidValue;
-    for (int a = 0; a < kTriVerts; ++a)
-      for (int d = 0; d < 2; ++d)
-        if (offs[(t * kTriVerts + a) * 2 + d] != kTriOff[t][a][d])
-          return (int)cudaErrorInvalidValue;
-  }
+  if (!tri_tables_match(offs, margins)) return (int)cudaErrorInvalidValue;
   if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (!coeff)

@@ -1,7 +1,8 @@
-// What the 3D kernels B2 and B5 share: one thread block of kPlaneWarps
-// warps per plane x of a cell (const_apply_plane, p2_const_apply_plane),
-// writing the cell's block through a store. On the card the store is
-// CellStore; a host harness passes its own, to count each slot's writes.
+// What the walks of the kernels share: one thread block of kPlaneWarps
+// warps per plane x of a cell (const_apply_plane, p2_const_apply_plane,
+// pair_apply_plane, ...) or per band of rows of a face, writing the block
+// through a store. On the card the store is CellStore; a host harness
+// passes its own, to count each slot's writes.
 #pragma once
 
 #include <stdint.h>
@@ -31,32 +32,45 @@ struct CellStore {
     dst[i + 1] = b;
 #endif
   }
-  // zeros into slots i .. i + 3, i at a 16-byte boundary
-  HYTEG_DEVICE void zero4(int i) const {
+  // a, b, c, d into slots i .. i + 3, i at a 16-byte boundary
+  HYTEG_DEVICE void quad(int i, float a, float b, float c, float d) const {
 #ifdef __CUDACC__
-    *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + i) = make_float4(a, b, c, d);
 #else
-    dst[i] = dst[i + 1] = dst[i + 2] = dst[i + 3] = 0.f;
+    dst[i] = a;
+    dst[i + 1] = b;
+    dst[i + 2] = c;
+    dst[i + 3] = d;
 #endif
   }
 };
 
-// Zeros into the slots [i0, i1) of a cell, shared by nlanes >= 4 threads
-// (this one is lane): 16-byte stores from the first slot at a 16-byte
-// boundary on, single stores for the fewer than 4 slots before it and
-// after the last whole quad. A store-only pass: full 32-byte sectors
+// val(k) into the slots i0 + k of [i0, i1), shared by nlanes >= 4
+// threads (this one is lane): 16-byte stores (Out::quad) from the first
+// slot at a 16-byte boundary on, single stores for the fewer than 4 slots
+// before it and after the last whole quad. No loads: full 32-byte sectors
 // wherever the run covers them.
-template <class Out>
-HYTEG_DEVICE void zero_run(const Out& out, int i0, int i1, int lane,
-                           int nlanes) {
+template <class Out, class Val>
+HYTEG_DEVICE void store_run(const Out& out, int i0, int i1, const Val& val,
+                            int lane, int nlanes) {
   if (i1 <= i0) return;
   int a = i0 + out.to_aligned(i0);
   if (a > i1) a = i1;
   const int nq = (i1 - a) >> 2;
   const int b = a + 4 * nq;
-  if (lane < a - i0) out(i0 + lane, 0.f);
-  if (lane < i1 - b) out(b + lane, 0.f);
-  for (int q = lane; q < nq; q += nlanes) out.zero4(a + 4 * q);
+  if (lane < a - i0) out(i0 + lane, val(lane));
+  if (lane < i1 - b) out(b + lane, val(b - i0 + lane));
+  for (int q = lane; q < nq; q += nlanes) {
+    const int k = a - i0 + 4 * q;
+    out.quad(a + 4 * q, val(k), val(k + 1), val(k + 2), val(k + 3));
+  }
+}
+
+// Zeros into the slots [i0, i1) of a cell: a store-only run (store_run).
+template <class Out>
+HYTEG_DEVICE void zero_run(const Out& out, int i0, int i1, int lane,
+                           int nlanes) {
+  store_run(out, i0, i1, [](int) { return 0.f; }, lane, nlanes);
 }
 
 }  // namespace hyteg

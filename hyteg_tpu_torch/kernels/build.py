@@ -37,8 +37,8 @@ SIGNATURES = {
     "hyteg_p1_const_apply": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # src, A, E, dst, C, N, dirs, gmask, stream (2D)
     "hyteg_p1_const_apply_2d": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
-    # elmats, coeff, dst, C, N, lumped, mode, stream (2D)
-    "hyteg_p1_diag_2d": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # elmats, coeff, dst, C, N, lumped, mode, offs, margins, stream (2D)
+    "hyteg_p1_diag_2d": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # src, coeff, elmats, dst, C, N, mode, offs, margins, stream (2D)
     "hyteg_p1_apply_2d": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # src, W, dst, C, M, dirs, stream (2D)

@@ -179,16 +179,14 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
         _check_cuda_input("coeff", coeff, block)
     dst = torch.empty(block, dtype=elmats.dtype, device=elmats.device)
     co = None if coeff is None else coeff.data_ptr()
+    offs, margins = _kernel_tables(dim)
+    args = (elmats.data_ptr(), co, dst.data_ptr(), C, N)
+    tail = (int(lumped), MODES.index(coeff_avg), offs.ctypes.data,
+            margins.ctypes.data, build.current_stream())
     if dim == 3:
-        offs, margins = _kernel_tables()
-        rc = build.library().hyteg_p1_diag(
-            elmats.data_ptr(), co, dst.data_ptr(), C, N, pitch, int(lumped),
-            MODES.index(coeff_avg), offs.ctypes.data, margins.ctypes.data,
-            build.current_stream())
+        rc = build.library().hyteg_p1_diag(*args, pitch, *tail)
     else:
-        rc = build.library().hyteg_p1_diag_2d(
-            elmats.data_ptr(), co, dst.data_ptr(), C, N, int(lumped),
-            MODES.index(coeff_avg), build.current_stream())
+        rc = build.library().hyteg_p1_diag_2d(*args, *tail)
     build.check_launch(rc, "p1_diagonal_local")
     build.count_launch(p1_diagonal_local, dim, level)
     return dst

@@ -162,8 +162,8 @@ struct CountStore {
   int* count;
   void operator()(int i, float v) const { cell(i, v); ++count[i]; }
   int to_aligned(int i) const { return cell.to_aligned(i); }
-  void zero4(int i) const {
-    cell.zero4(i);
+  void quad(int i, float a, float b, float c, float d) const {
+    cell.quad(i, a, b, c, d);
     for (int k = 0; k < 4; ++k) ++count[i + k];
   }
 };

@@ -27,7 +27,6 @@ packages' summation orders dominate).
 
 import ctypes
 import functools
-import hashlib
 import math
 import pathlib
 import shutil
@@ -372,11 +371,21 @@ struct CountStore {
   int* count;
   void operator()(int i, float v) const { cell(i, v); ++count[i]; }
   int to_aligned(int i) const { return cell.to_aligned(i); }
-  void zero4(int i) const {
-    cell.zero4(i);
+  void quad(int i, float a, float b, float c, float d) const {
+    cell.quad(i, a, b, c, d);
     for (int k = 0; k < 4; ++k) ++count[i + k];
   }
 };
+// The launchers' check of the class tables (offs (2, 3, 2), margins (2,)).
+static bool tables_match(const int* offs, const int* margins) {
+  for (int t = 0; t < kTriClasses; ++t) {
+    if (margins[t] != kTriMargin[t]) return false;
+    for (int a = 0; a < kTriVerts; ++a)
+      for (int d = 0; d < 2; ++d)
+        if (offs[(t * kTriVerts + a) * 2 + d] != kTriOff[t][a][d]) return false;
+  }
+  return true;
+}
 // Kernel B2's 2D launcher and thread blocks one after another: the
 // direction check, per face the weight fold, per band of rows every
 // thread (warp, lane) of the block through the same walk
@@ -424,18 +433,7 @@ extern "C" void diag_2d(const float* elm, const float* coeff, float* dst,
                                         mode);
   }
 }
-extern "C" void apply_2d(const float* src, const float* coeff,
-                         const float* elm, float* dst, int C, int N,
-                         int mode) {
-  const int kElm = kTriClasses * kTriVerts * kTriVerts;
-  const long long cell = (long long)N * N;
-  for (int c = 0; c < C; ++c)
-    for (long long q = 0; q < cell; ++q)
-      dst[c * cell + q] = p1_apply_point_2d(
-          src + c * cell, coeff ? coeff + c * cell : nullptr, (int)(q / N),
-          (int)(q % N), N, elm + c * kElm, mode);
-}
-// B4-2D's staged walk's team on the host: the block's threads one after
+// The staged walks' team on the host: the block's threads one after
 // another; a tile's G starts as NaN, so a read of a value the tile did
 // not stage shows in the result.
 struct HostTeam {
@@ -447,6 +445,78 @@ struct HostTeam {
     for (int i = 0; i < n; ++i) p[i] = NAN;
   }
 };
+// One B3-2D thread block (face, band x0): the class values folded once
+// and every thread through tri_diag_band, or the block's team through
+// tri_diag_band_coeff in the mean MODE.
+template <int MODE, class Out>
+static void diag_band(const float* coeff, const Out& out, int x0, int N,
+                      const float* w) {
+  if constexpr (MODE < 0) {
+    float cls[kTriDiagRows];
+    tri_fold_classes(w, cls, 0, 1);
+    for (int tid = 0; tid < kApplyThreads; ++tid)
+      tri_diag_band(out, x0, N, cls, tid >> 5, tid & 31);
+  } else {
+    static float gs[kApplyG2];
+    HostTeam team;
+    tri_diag_band_coeff<MODE>(team, coeff, out, x0, N, w, gs);
+  }
+}
+template <class Out>
+static void diag_band_mode(const float* coeff, const Out& out, int x0, int N,
+                           const float* w, int mode) {
+  if (!coeff)
+    diag_band<-1>(coeff, out, x0, N, w);
+  else if (mode == 0)
+    diag_band<0>(coeff, out, x0, N, w);
+  else if (mode == 1)
+    diag_band<1>(coeff, out, x0, N, w);
+  else
+    diag_band<2>(coeff, out, x0, N, w);
+}
+// Kernel B3-2D's launcher and thread blocks (face, band of rows) one after
+// another: the table check, per face the weight fold, then every block
+// through the band walk. count: null, or one int per slot. work: null, or
+// the transforms and means of the run. Returns the launcher's error (11,
+// cudaErrorInvalidValue) for tables it refuses, else 0.
+extern "C" int diag_walk_2d(const float* elm, const float* coeff, float* dst,
+                            int C, int N, int lumped, int mode,
+                            const int* offs, const int* margins, int* count,
+                            long long* work) {
+  if (!tables_match(offs, margins)) return 11;
+  coeff_work[0] = coeff_work[1] = 0;
+  const int kElm = kTriClasses * kTriVerts * kTriVerts;
+  float w[kTriClasses * kTriVerts];
+  const long long face = (long long)N * N;
+  for (int c = 0; c < C; ++c) {
+    tri_diag_fold_weights(elm + c * kElm, lumped, w, 0, 1);
+    const float* co = coeff ? coeff + c * face : nullptr;
+    for (int x0 = 0; x0 < N; x0 += kApplyR2) {
+      if (count)
+        diag_band_mode(co, CountStore{CellStore{dst + c * face},
+                                      count + c * face},
+                       x0, N, w, mode);
+      else
+        diag_band_mode(co, CellStore{dst + c * face}, x0, N, w, mode);
+    }
+  }
+  if (work) {
+    work[0] = coeff_work[0];
+    work[1] = coeff_work[1];
+  }
+  return 0;
+}
+extern "C" void apply_2d(const float* src, const float* coeff,
+                         const float* elm, float* dst, int C, int N,
+                         int mode) {
+  const int kElm = kTriClasses * kTriVerts * kTriVerts;
+  const long long cell = (long long)N * N;
+  for (int c = 0; c < C; ++c)
+    for (long long q = 0; q < cell; ++q)
+      dst[c * cell + q] = p1_apply_point_2d(
+          src + c * cell, coeff ? coeff + c * cell : nullptr, (int)(q / N),
+          (int)(q % N), N, elm + c * kElm, mode);
+}
 // One thread block (face, band x0) in the form the kernel runs for MODE.
 template <int MODE, class Out>
 static void apply_band(const float* src, const float* coeff, const Out& out,
@@ -482,12 +552,7 @@ extern "C" int apply_walk_2d(const float* src, const float* coeff,
                              const float* elm, float* dst, int C, int N,
                              int mode, const int* offs, const int* margins,
                              int* count, long long* work) {
-  for (int t = 0; t < kTriClasses; ++t) {
-    if (margins[t] != kTriMargin[t]) return 11;
-    for (int a = 0; a < kTriVerts; ++a)
-      for (int d = 0; d < 2; ++d)
-        if (offs[(t * kTriVerts + a) * 2 + d] != kTriOff[t][a][d]) return 11;
-  }
+  if (!tables_match(offs, margins)) return 11;
   const long long face = (long long)N * N;
   const int ne = kTriClasses * kTriVerts * kTriVerts;
   coeff_work[0] = coeff_work[1] = 0;
@@ -532,6 +597,7 @@ def host_kernels(tmp_path_factory):
     lib.diag_2d.argtypes = [P, P, P, I, I, I, I]
     lib.apply_2d.argtypes = [P, P, P, P, I, I, I]
     lib.apply_walk_2d.argtypes = [P, P, P, P, I, I, I, P, P, P, P]
+    lib.diag_walk_2d.argtypes = [P, P, P, I, I, I, I, P, P, P, P]
     return lib
 
 
@@ -646,7 +712,7 @@ def test_kernel_2d_launcher_refuses_other_dirs(host_kernels):
             x.data_ptr(), A.data_ptr(), E.data_ptr(), x.data_ptr(),
             tsp.C_loc, tsp.N, d.ctypes.data, gmask.ctypes.data, None) == 11
 
-# kernel B4-2D's band walk, and B3-2D unchanged
+# kernel B4-2D's band walk
 
 # None: no coefficient
 WALK_MODES = (None,) + tuple(MODES)
@@ -790,43 +856,130 @@ def test_kernel_2d_staged_work_per_slot(host_kernels, mode, expected):
         == expected
 
 
-# sha256 of B3-2D's host output (diag_2d) on the Laplace element matrices
-# of rect level 3 and annulus level 4, a coefficient uniform in [0.5, 2)
-# from numpy's default_rng(level), lumped 0 and 1, each without a
-# coefficient and in the three means, as the header computed it before
-# B4-2D's band walk joined it in p1_tri.cuh. The digests hold for the
-# host toolchain they were recorded with (g++ at the harness's flags and
-# glibc's logf / expf, which the geometric mean calls): another compiler
-# or C library may change the last bits and fail this test with B3-2D
-# unchanged.
-B3_2D_DIGESTS = {
-    ("rect", 3):
-        "084e16feea54e3b4c5b3aada57b3a743b01b2c6603ef0cd6083ee948c8f8c698",
-    ("annulus", 4):
-        "9dcef19c20388edea0537721147adb3d91f155f62505288550f1b2b1ee8fee03",
-}
+# kernel B3-2D's band walk
+
+def _host_diag_walk_2d(lib, et, co, N, lumped, mode, tables=None,
+                       count=None, work=None):
+    offs, margins = tables or tk3._kernel_tables(2)
+    out = torch.full((et.shape[0], N, N), float("nan"))
+    assert lib.diag_walk_2d(
+        et.data_ptr(), None if co is None else co.data_ptr(), out.data_ptr(),
+        et.shape[0], N, int(lumped), MODES.index(mode or "arithmetic"),
+        offs.ctypes.data, margins.ctypes.data,
+        None if count is None else count.data_ptr(),
+        None if work is None else work.ctypes.data) == 0
+    return out
 
 
-@pytest.mark.parametrize("name,level", sorted(B3_2D_DIGESTS))
+@pytest.mark.parametrize("name,level", [("rect", lv) for lv in (2, 3, 4, 5)]
+                         + [("annulus", 4)])
 def test_kernel_b3_2d_host_output_unchanged(host_kernels, name, level):
-    """B3-2D shares p1_tri.cuh and coeff_term / coeff_finish with B4-2D:
-    its host output is what it was before B4-2D's redesign, bit for
-    bit."""
+    """B3-2D's band walk (the class values without a coefficient, the
+    untested interior sum and the tested edge and shell slots with one),
+    run through its launcher and every thread block on the host, equals
+    its per-point math diag_point_2d compiled in the same harness bit for
+    bit: on the Laplace element matrices, a coefficient uniform in [0.5, 2)
+    from numpy's default_rng(level), lumped 0 and 1, without a coefficient
+    and in the three means; and the plain version within 1e-6 of the
+    larger of max|d| and max|elmats|."""
     tsp = _torch_space(name, level)
     et = compute_elmats(tsp, tforms.laplace_form,
                         torch.as_tensor(tsp.cell_vertices(0))).contiguous()
     k = torch.as_tensor((np.random.default_rng(level).uniform(
         0.5, 2.0, tsp.block_shape) * tsp.vertex_mask[None]).astype(np.float32))
-    h = hashlib.sha256()
     for lumped in (0, 1):
         for mode in (None,) + tuple(MODES):
-            out = torch.zeros(tsp.block_shape)
+            co = None if mode is None else k
+            point = torch.zeros(tsp.block_shape)
             host_kernels.diag_2d(et.data_ptr(),
-                                 None if mode is None else k.data_ptr(),
-                                 out.data_ptr(), tsp.C_loc, tsp.N, lumped,
+                                 None if co is None else co.data_ptr(),
+                                 point.data_ptr(), tsp.C_loc, tsp.N, lumped,
                                  MODES.index(mode or "arithmetic"))
-            h.update(out.numpy().tobytes())
-    assert h.hexdigest() == B3_2D_DIGESTS[(name, level)]
+            out = _host_diag_walk_2d(host_kernels, et, co, tsp.N, lumped,
+                                     mode)
+            assert np.array_equal(out.numpy(), point.numpy())
+            ref = tk3.p1_diagonal_local_torch(et, level, 2, tsp.pitch,
+                                              bool(lumped), co,
+                                              mode or "arithmetic")
+            _close(out, ref, 1e-6, max(ref.abs().max().item(),
+                                       et.abs().max().item()))
+
+
+@pytest.mark.parametrize("mode", WALK_MODES)
+@pytest.mark.parametrize("name,level", [(name, lv)
+                                        for name in ("rect", "annulus")
+                                        for lv in (0, 1, 2, 3, 4, 5)]
+                         + [("rect", 9)])
+def test_kernel_2d_diag_walk_writes_every_slot_once(host_kernels, name,
+                                                    level, mode):
+    """Kernel B3-2D's band walk over all its thread blocks (face, band of
+    rows) through a counting store, on the rectangle and on the 12-face
+    annulus (general weights) at levels 0-5 and the rectangle at level 9
+    (rows of many 16-byte runs), without a coefficient and in each mean:
+    every slot written exactly once, exactly 0 past the triangle, the
+    plain version within 1e-6 of the larger of max|d| and max|elmats|,
+    lumped or not; and the same result, bit for bit, when the coefficient
+    holds NaN past the triangle (it is not read there)."""
+    tsp, et, _, ks = _b4_inputs(name, level, 80 + level)
+    outside = ~tsp.vertex_mask_t.bool().expand(tsp.block_shape)
+    co = None if mode is None else ks["random"]
+    for lumped in (False, True):
+        count = torch.zeros(tsp.block_shape, dtype=torch.int32)
+        out = _host_diag_walk_2d(host_kernels, et, co, tsp.N, lumped, mode,
+                                 count=count)
+        assert (count == 1).all()
+        assert (out[outside] == 0).all()
+        ref = tk3.p1_diagonal_local_torch(et, level, 2, tsp.pitch, lumped,
+                                          co, mode or "arithmetic")
+        _close(out, ref, 1e-6, max(ref.abs().max().item(),
+                                   et.abs().max().item()))
+        if co is not None:
+            again = _host_diag_walk_2d(host_kernels, et,
+                                       co.masked_fill(outside, float("nan")),
+                                       tsp.N, lumped, mode)
+            assert torch.equal(again, out)
+
+
+def test_kernel_2d_diag_launcher_refuses_other_tables(host_kernels):
+    """The B3-2D launcher (mirrored by the host harness) takes the JAX
+    package's micro.offsets(2) and micro.base_margin(2), the tables its
+    class rule and interior sum were compiled with, and refuses any
+    other."""
+    from hyteg_tpu.indexing import micro as jmicro
+
+    offs = np.ascontiguousarray(jmicro.offsets(2), dtype=np.int32)
+    margins = np.ascontiguousarray(jmicro.base_margin(2), dtype=np.int32)
+    tsp, et, _, _ = _b4_inputs("rect", 1, 0)
+    _host_diag_walk_2d(host_kernels, et, None, tsp.N, False, None,
+                       tables=(offs, margins))
+    out = torch.empty(tsp.block_shape)
+    for o, m in ((offs[::-1].copy(), margins), (offs, margins + 1),
+                 (offs[:, [1, 0, 2]].copy(), margins)):
+        assert host_kernels.diag_walk_2d(
+            et.data_ptr(), None, out.data_ptr(), tsp.C_loc, tsp.N, 0, 0,
+            o.ctypes.data, m.ctypes.data, None, None) == 11
+
+
+@pytest.mark.parametrize("mode,expected", [("arithmetic", [7.01, 5.99]),
+                                           ("harmonic", [1.28, 5.99]),
+                                           ("geometric", [1.28, 5.99])])
+def test_kernel_2d_diag_staged_work_per_slot(host_kernels, mode, expected):
+    """What B3-2D's staged form saves, counted on one face at level 11 (the
+    level chip_smoke.py times): per in-triangle slot, the direct form,
+    which the arithmetic mean runs, transforms 7.01 coefficient values and
+    finishes 5.99 means (7 and 6 at an interior slot; the edge and shell
+    slots' tested gathers transform each element's 3 vertices); the staged
+    form of the harmonic and geometric means transforms 1.28 and finishes
+    as many means."""
+    N = (1 << 11) + 1
+    rng = np.random.default_rng(11)
+    inside = np.add.outer(np.arange(N), np.arange(N)) <= N - 1
+    et = torch.as_tensor(rng.standard_normal((1, 2, 3, 3)).astype(np.float32))
+    co = torch.as_tensor((rng.uniform(0.5, 2.0, (1, N, N)) * inside)
+                         .astype(np.float32))
+    work = np.zeros(2, np.int64)
+    _host_diag_walk_2d(host_kernels, et, co, N, False, mode, work=work)
+    assert np.round(work / int(inside.sum()), 2).tolist() == expected
 
 # ---------------------------------------------------------------------------
 # grid transfers

@@ -309,8 +309,8 @@ struct CountStore {
     ++count[i];
     ++count[i + 1];
   }
-  void zero4(int i) const {
-    cell.zero4(i);
+  void quad(int i, float a, float b, float c, float d) const {
+    cell.quad(i, a, b, c, d);
     for (int k = 0; k < 4; ++k) ++count[i + k];
   }
 };

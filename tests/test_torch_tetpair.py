@@ -9,11 +9,12 @@ interpret mode (``TetPairEngine(..., interpret=True)``,
 ``tetpair.kernel.*(interpret=True)``). Inputs are made with numpy from a
 seed and carried over through hyteg_tpu_torch.interop.
 
-The kernels' code in csrc/tetpair.cuh (B6's tile walk with its staging,
-ring and row ranges, and B7's and B8's per-lane maps) is also compiled
-with the host C++ compiler, run one block or thread after another, and
-held against the plain versions, so the indexing that runs on the card
-is checked here without a GPU.
+The kernels' code in csrc/tetpair.cuh (B6's plane walk over every block
+of its grid, its launcher's direction check, and B7's and B8's per-lane
+maps) is also compiled with the host C++ compiler, run one block or
+thread after another through counting stores, and held against the plain
+versions, so the indexing that runs on the card is checked here without
+a GPU.
 
 Tolerances:
 - tables, masks, interface metadata, pack/unpack, the lift -> lower round
@@ -30,7 +31,9 @@ Tolerances:
   2e-6 * max|y| (tests/test_tetpair.py:44); two chained applies 5e-6 *
   max|y| (:54);
 - the host-compiled kernel math vs the plain versions: apply 1e-6 *
-  max|dst| (fused multiply-adds), install and extract exact.
+  max|dst| (fused multiply-adds), install and extract exact; the walk's
+  untested interior sum vs the tested per-point math: 2 ulps (the same
+  terms in the same order), equal on every other in-tet slot.
 """
 
 import ctypes
@@ -419,37 +422,106 @@ def test_engine_rejects_several_shards():
 
 CSRC = pathlib.Path(tk.__file__).resolve().parent.parent / "csrc"
 HOST_HARNESS = r"""
+#include <algorithm>
 #include <cmath>
+#include <vector>
 #define HYTEG_DEVICE inline
 #include "tetpair.cuh"
 using namespace hyteg;
-// pair_apply_tile's team on the host: the block's threads one after
-// another, each with its own registers; between two calls of each() every
-// thread has run, which is what the card's barrier guarantees.
-struct HostTeam {
-  PairTileThread r[kTileThreads];
-  template <class F> void each(F&& fn) {
-    for (int i = 0; i < kTileThreads; ++i) fn(i, r[i]);
+// Counts each slot's writes beside the store (count may be null).
+struct CountStore {
+  CellStore cell;
+  int* count;
+  void operator()(int i, float v) const {
+    cell(i, v);
+    if (count) ++count[i];
   }
-  void sync() {}
+  int to_aligned(int i) const { return cell.to_aligned(i); }
+  void quad(int i, float a, float b, float c, float d) const {
+    cell.quad(i, a, b, c, d);
+    if (count)
+      for (int k = 0; k < 4; ++k) ++count[i + k];
+  }
 };
-// The kernels' grids, one block or thread after another.
-extern "C" void pair_apply_host(const float* u, const float* W,
-                                const float* xf, const float* yf,
-                                const float* zf, const float* df, float* dst,
-                                float* xfo, float* yfo, float* zfo,
-                                float* dfo, int Cp, int N, int P,
-                                const int* dirs, int tail_a, int tail_b) {
-  const PairTables t = pair_make_tables(dirs, tail_a, tail_b);
+static int* at(int* p, long long off) { return p ? p + off : nullptr; }
+static PairOut<CountStore> outs(float* dst, float* xfo, float* yfo,
+                                float* zfo, float* dfo, int* const* cnt,
+                                int c, int N, int P) {
+  const long long L = (long long)N * P;
+  const PairFaces<float> f = pair_faces_of(xfo, yfo, zfo, dfo, c, N, P);
+  return {CountStore{CellStore{dst + c * N * L}, at(cnt[0], c * N * L)},
+          {CountStore{CellStore{f.xf}, at(cnt[1], c * 2 * L)},
+           CountStore{CellStore{f.yf}, at(cnt[2], c * 2LL * N * P)},
+           CountStore{CellStore{f.zf}, at(cnt[3], c * 2LL * N * N)},
+           CountStore{CellStore{f.df}, at(cnt[4], c * 2 * L)}}};
+}
+// Kernel B6's launcher and grid, one block after another: the direction
+// check, per pair and block row y the plane pair_plane_of(y), its class
+// table (the classes it does not form NaN) and every thread (warp, lane)
+// of the block through the same walk (pair_apply_plane). counts: five
+// arrays (dst, xfo, yfo, zfo, dfo) of one int per entry, or null. Returns the launcher's error (11,
+// cudaErrorInvalidValue) for directions it refuses, else 0.
+extern "C" int pair_apply_host(const float* u, const float* W,
+                               const float* xf, const float* yf,
+                               const float* zf, const float* df, float* dst,
+                               float* xfo, float* yfo, float* zfo,
+                               float* dfo, int Cp, int N, int P,
+                               const int* dirs, int tail_a, int tail_b,
+                               int* const* counts) {
+  if (!pair_dirs_match(dirs)) return 11;
+  int* none[5] = {};
+  int* const* cnt = counts ? counts : none;
+  const PairTables t{tail_a, tail_b};
   const long long block = (long long)N * N * P;
-  static HostTeam team;
-  static float ring[4][kStaged];
-  for (int c = 0; c < Cp; ++c)
-    for (int tile = 0; tile < pair_tiles(N, P); ++tile)
-      pair_apply_tile(team, ring, tile, u + c * block,
-                      pair_faces_of(xf, yf, zf, df, c, N, P),
-                      W + (long long)c * kPairW, t, dst + c * block,
-                      pair_faces_of(xfo, yfo, zfo, dfo, c, N, P), N, P);
+  std::vector<float> tab(kPairTab);
+  for (int c = 0; c < Cp; ++c) {
+    const float* Wc = W + (long long)c * kPairW;
+    for (int y = 0; y < N; ++y) {
+      std::fill(tab.begin(), tab.end(), NAN);
+      pair_weight_table(Wc, t, N - 1, pair_plane_of(y, N), tab.data(), 0, 1);
+      for (int tid = 0; tid < kPlaneWarps * 32; ++tid)
+        pair_apply_plane(u + c * block, pair_faces_of(xf, yf, zf, df, c, N, P),
+                         tab.data(),
+                         outs(dst, xfo, yfo, zfo, dfo, cnt, c, N, P),
+                         pair_plane_of(y, N), N, P, tid >> 5, tid & 31,
+                         kPlaneWarps);
+    }
+  }
+  return 0;
+}
+// The per-point math the walk reproduces, at every in-tet position (dst
+// elsewhere untouched): pair_weights_at's weights, pair_source's reads
+// (flat lanes, 0 beyond the block), summed by pair_stencil.
+extern "C" void pair_points_host(const float* u, const float* W,
+                                 const float* xf, const float* yf,
+                                 const float* zf, const float* df, float* dst,
+                                 int Cp, int N, int P, int tail_a,
+                                 int tail_b) {
+  const int n = N - 1;
+  const long long block = (long long)N * N * P;
+  const PairTables t{tail_a, tail_b};
+  for (int c = 0; c < Cp; ++c) {
+    const PairFaces<const float> f = pair_faces_of(xf, yf, zf, df, c, N, P);
+    const float* uc = u + c * block;
+    for (int x = 0; x < N; ++x)
+      for (int ly = 0; ly < N; ++ly)
+        for (int lz = 0; lz < P; ++lz) {
+          const int h = pair_half(x, ly, lz, n);
+          if (h < 0) continue;
+          float w[kPairDirs];
+          pair_weights_at(W + (long long)c * kPairW, t, x, ly, lz, n, h, w);
+          const long long l = (long long)ly * P + lz;
+          dst[c * block + x * N * P + l] = pair_stencil(
+              [&](int dx, int dy, int dz) {
+                const long long ll = l + dy * P + dz;
+                if (x + dx < 0 || x + dx >= N || ll < 0 || ll >= N * P)
+                  return 0.f;
+                return *pair_source(uc, f, x + dx, (int)(ll / P),
+                                    (int)(ll % P), N, P);
+              },
+              w);
+        }
+  }
 }
 extern "C" void pair_install_host(const float* u, const float* xf,
                                   const float* yf, const float* zf,
@@ -470,7 +542,7 @@ extern "C" void pair_extract_host(const float* u, float* xfo, float* yfo,
   for (int c = 0; c < Cp; ++c)
     for (int l = 0; l < N * P; ++l)
       pair_extract_lane(u + c * block,
-                        pair_faces_of(xfo, yfo, zfo, dfo, c, N, P), l / P,
+                        pair_stores_of(xfo, yfo, zfo, dfo, c, N, P), l / P,
                         l % P, N, P);
 }
 """
@@ -478,7 +550,7 @@ extern "C" void pair_extract_host(const float* u, float* xfo, float* yfo,
 
 @pytest.fixture(scope="module")
 def host_pair_kernels(tmp_path_factory):
-    """B6's tile walk and the per-lane functions of B7 and B8
+    """B6's plane walk and the per-lane functions of B7 and B8
     (csrc/tetpair.cuh) built with the host C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -491,7 +563,9 @@ def host_pair_kernels(tmp_path_factory):
                    check=True, capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(so))
     P_, I_ = ctypes.c_void_p, ctypes.c_int
-    lib.pair_apply_host.argtypes = [P_] * 11 + [I_, I_, I_, P_, I_, I_]
+    lib.pair_apply_host.argtypes = [P_] * 11 + [I_, I_, I_, P_, I_, I_, P_]
+    lib.pair_apply_host.restype = I_
+    lib.pair_points_host.argtypes = [P_] * 7 + [I_] * 5
     lib.pair_install_host.argtypes = [P_] * 6 + [I_, I_, I_]
     lib.pair_extract_host.argtypes = [P_] * 5 + [I_, I_, I_]
     return lib
@@ -502,42 +576,139 @@ def _unwritten(*shapes):
     return [torch.full(s, float("nan")) for s in shapes]
 
 
+def _ptrs(ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _host_apply(lib, c, state, dirs=None, counts=None):
+    """B6's walk on the host over every block of the grid: (rc, dst, xfo,
+    yfo, zfo, dfo), the outputs NaN where nothing was written."""
+    Cp, N, P = c.teng.Cp, c.N, c.P
+    u, xf, yf, zf, df = state
+    got = _unwritten(u.shape, *tk._face_shapes(Cp, N, P))
+    kd, tail_a, tail_b = tk._kernel_tables()
+    d = kd if dirs is None else dirs
+    cp = None
+    if counts is not None:
+        cp = (ctypes.c_void_p * 5)(*_ptrs(counts))
+    rc = lib.pair_apply_host(*_ptrs((u, c.teng.W, xf, yf, zf, df)),
+                             *_ptrs(got), Cp, N, P, d.ctypes.data, tail_a,
+                             tail_b, cp)
+    return (rc, *got)
+
+
+def _state(c, state):
+    arrays = _random_state(c, 40) if state == "random" else _applied_state(c)
+    return [torch.tensor(a) for a in arrays]
+
+
+# several planes per pair (rows of both tets, interior slots from level
+# 4), pitches N, 13 and 37 (padding lanes), the curved shell
+KERNEL_CASES = [("cube2", 3, None), ("cube2", 3, 13), ("shell", 2, None),
+                ("cube1", 4, None), ("cube1", 5, 37)]
+
+
 @pytest.mark.parametrize("state", ["random", "applied"])
-@pytest.mark.parametrize("name,level,pitch",
-                         [("cube2", 3, None), ("cube2", 3, 13),
-                          ("shell", 2, None),
-                          # several 16 x 16 tiles per pair: rims across
-                          # tiles, partial tiles, rows skipped between A
-                          # and B, padding lanes in a tile of their own
-                          ("cube1", 4, None), ("cube1", 5, 37)])
+@pytest.mark.parametrize("name,level,pitch", KERNEL_CASES)
 def test_kernel_point_math_matches_plain(host_pair_kernels, name, level,
                                          pitch, state):
     c = _case(name, level, pitch)
     Cp, N, P = c.teng.Cp, c.N, c.P
-    arrays = _random_state(c, 40) if state == "random" else _applied_state(c)
-    u, xf, yf, zf, df = (torch.tensor(a) for a in arrays)
-    ptr = lambda ts: [t.data_ptr() for t in ts]
+    u, xf, yf, zf, df = st = _state(c, state)
 
     faces = tk._face_shapes(Cp, N, P)
     ref = tk.pair_extract_torch(u, N, P)
     got = _unwritten(*faces)
-    host_pair_kernels.pair_extract_host(u.data_ptr(), *ptr(got), Cp, N, P)
+    host_pair_kernels.pair_extract_host(u.data_ptr(), *_ptrs(got), Cp, N, P)
     for g, r in zip(got, ref):
         _assert_equal(g, r)
 
     ref = tk.pair_install_torch(u, xf, yf, zf, df, N, P)
     got, = _unwritten(u.shape)
-    host_pair_kernels.pair_install_host(*ptr((u, xf, yf, zf, df, got)),
+    host_pair_kernels.pair_install_host(*_ptrs((u, xf, yf, zf, df, got)),
                                         Cp, N, P)
     _assert_equal(got, ref)
 
-    W = c.teng.W
-    ref = tk.pair_apply_torch(u, W, xf, yf, zf, df, N, P)
-    got = _unwritten(u.shape, *faces)
-    dirs, tail_a, tail_b = tk._kernel_tables()
-    host_pair_kernels.pair_apply_host(
-        *ptr((u, W, xf, yf, zf, df)), *ptr(got), Cp, N, P, dirs.ctypes.data,
-        tail_a, tail_b)
+    ref = tk.pair_apply_torch(u, c.teng.W, xf, yf, zf, df, N, P)
+    rc, *got = _host_apply(host_pair_kernels, c, st)
+    assert rc == 0
     scale = ref[0].abs().max().item()
     for g, r in zip(got, ref):
         _assert_close(g, r, 1e-6, scale=scale)
+
+
+def _outside(c):
+    """(Cp, N, N * P) bool: positions in neither tet (the middle of the
+    block and the padding lanes)."""
+    N, P = c.N, c.P
+    plan = tplan.PairPlan(N, P)
+    ins = torch.as_tensor(plan.in_a) | torch.as_tensor(plan.in_b)
+    return ~ins.expand(c.teng.Cp, N, N * P)
+
+
+@pytest.mark.parametrize("name,level,pitch", KERNEL_CASES)
+def test_kernel_walk_writes_every_slot_once(host_pair_kernels, name, level,
+                                            pitch):
+    """B6's plane walk over all its thread blocks through a counting
+    store: every slot of dst and every entry of the four face arrays
+    written exactly once, the zeros included, and dst exactly 0 outside
+    both tets."""
+    c = _case(name, level, pitch)
+    st = _state(c, "random")
+    shapes = [st[0].shape, *tk._face_shapes(c.teng.Cp, c.N, c.P)]
+    counts = [torch.zeros(s, dtype=torch.int32) for s in shapes]
+    rc, *got = _host_apply(host_pair_kernels, c, st, counts=counts)
+    assert rc == 0
+    for cnt in counts:
+        assert (cnt == 1).all()
+    assert (got[0][_outside(c)] == 0).all()
+
+
+@pytest.mark.parametrize("name,level,pitch", [("cube1", 4, None),
+                                              ("cube1", 5, 37),
+                                              ("shell", 3, None)])
+def test_kernel_interior_sum_matches_point_math(host_pair_kernels, name,
+                                                level, pitch):
+    """The walk's untested interior sum (u read directly, the pair's
+    column-0 weights at compile-time directions) against the per-point
+    math (pair_source reads, pair_weights_at weights, pair_stencil) at
+    every interior slot: within 2 ulps (the same terms in the same order);
+    every other in-tet slot (layer and face slots: the same sum with
+    compile-time face taps and the class table's weights; rim slots:
+    reads through pair_source) equal to it bit for bit."""
+    c = _case(name, level, pitch)
+    st = _state(c, "applied")
+    Cp, N, P = c.teng.Cp, c.N, c.P
+    rc, dst, *_ = _host_apply(host_pair_kernels, c, st)
+    assert rc == 0
+    point = torch.zeros_like(dst)
+    kd, tail_a, tail_b = tk._kernel_tables()
+    host_pair_kernels.pair_points_host(
+        *_ptrs((st[0], c.teng.W, *st[1:], point)), Cp, N, P, tail_a, tail_b)
+    n = N - 1
+    x = np.arange(N)[:, None, None]
+    ly, lz = np.arange(N)[None, :, None], np.arange(P)[None, None, :]
+    s = x + ly + lz
+    inner_a = (x >= 2) & (ly >= 2) & (lz >= 2) & (s <= n - 2)
+    inner_b = (x <= n - 2) & (ly <= n - 2) & (lz <= n - 2) & (s >= 2 * n + 2)
+    inner = (inner_a | inner_b).reshape(N, N * P)
+    assert inner.any()
+    a, b = dst.numpy(), point.numpy()
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    assert (np.abs(a - b)[:, inner] <= 2 * ulp[:, inner]).all()
+    rim = ~inner & ~_outside(c)[0].numpy()
+    assert np.array_equal(a[:, rim], b[:, rim])
+
+
+def test_kernel_launcher_refuses_other_dirs(host_pair_kernels):
+    """The B6 launcher (mirrored by the host harness) takes only the
+    direction table its walk was compiled with, plan.dir_tables in its
+    order."""
+    c = _case("cube2", 2, None)
+    st = _state(c, "random")
+    dirs, _, _ = tk._kernel_tables()
+    assert _host_apply(host_pair_kernels, c, st, dirs=dirs)[0] == 0
+    for d in (dirs[::-1].copy(), dirs[:, [1, 0, 2]].copy(), -dirs):
+        rc, *got = _host_apply(host_pair_kernels, c, st, dirs=d)
+        assert rc == 11
+        assert all(torch.isnan(g).all() for g in got)
