@@ -25,8 +25,10 @@ read just after:
 - the paired-tet engine (kernels B6, B7, B8): bench.py's bench_tet path,
   lift / apply_ex / lower gated against the classic apply (B2) on the
   unit cube at levels 6 and 7 and on the 1920-cell spherical shell at
-  level 5, B6 timed beside its bound at each (``b6_levels``), with a
-  torch.profiler breakdown of chained applies at level 7;
+  level 5, B6 timed beside its bound at each (``b6_levels``), B7 and B8
+  beside theirs, their library calls and B8's sector floor at each, back
+  to back and as CUDA graphs (``b7_b8_levels``), with a torch.profiler
+  breakdown of chained applies at level 7;
 - the variable-coefficient P1 operator (kernel B4, and B3 with a
   coefficient) at level 7: B4 against its plain version at every P1
   level 2-7 (pitch 129) without a coefficient and in the three averaging
@@ -86,7 +88,7 @@ import torch
 import torch.nn.functional as F
 
 from hyteg_tpu_torch.core.benchtime import card as smi_card
-from hyteg_tpu_torch.core.benchtime import median_ms
+from hyteg_tpu_torch.core.benchtime import median_graph_ms, median_ms
 
 MESH_N = 2            # mesh_unit_cube(2): 48 macro-tets
 SLICE_LEVELS = (6, 7)
@@ -231,8 +233,11 @@ LIBRARY_CALLS = {
                  "interior points only), cuDNN TF32 off",
     "stream_scale": "torch.mul(src, 2.0, out=dst)",
     "pair_apply": None,    # a fused install + apply + extract: no such call
-    "pair_install": None,  # a masked select chain over face planes
-    "pair_extract": None,  # strided face-plane copies
+    "pair_install": "torch.index_put of the installed positions' values "
+                    "into the flat block, out of place (indices and values "
+                    "staged before the timed call)",
+    "pair_extract": "torch.take of the kept face entries from the flat "
+                    "block (the masked zeros left out)",
     "p1_apply_local": None,  # per-element coefficient means: no conv form
     "p2_const_apply": None,  # weights vary with node parity: no conv form
     "box_variant": "nn.Conv1d(1, 1, 2Z+3, padding=Z+1, padding_mode="
@@ -597,15 +602,25 @@ def check_tetpair_kernels(storage, level: int, pitch, device, seed: int) -> dict
                   f"{B6_RTOL} * {scale}")
             out[f"b6_{name}_{part}_max_abs_err"] = err
             out[f"b6_{name}_{part}_max_abs"] = scale
-        err = max_abs_diff(tk.pair_install(st.u, *faces, N, P),
-                           tk.pair_install_torch(st.u, *faces, N, P))
-        check(err == 0.0, f"B7 {name} level {level}: max|d| {err} != 0")
-        out[f"b7_{name}_max_abs_err"] = err
-        for blk, u in (("packed", eng.pack(x)), ("applied", st.u)):
+        # "shifted": the applied block one float into its storage, so that
+        # it lies off out's place against 16-byte boundaries (B7's copy
+        # phase then takes single loads and stores)
+        shifted = torch.empty(st.u.numel() + 1, device=device)[1:].view(
+            st.u.shape)
+        shifted.copy_(st.u)
+        for blk, u in (("packed", eng.pack(x)), ("applied", st.u),
+                       ("shifted", shifted)):
+            err = max_abs_diff(tk.pair_install(u, *faces, N, P),
+                               tk.pair_install_torch(u, *faces, N, P))
+            check(err == 0.0, f"B7 {name} level {level} {blk}: max|d| {err} != 0")
+            out[f"b7_{name}_{blk}_max_abs_err"] = err
+            if blk == "shifted":
+                continue
             err = max(max_abs_diff(g, r) for g, r in zip(
                 tk.pair_extract(u, N, P), tk.pair_extract_torch(u, N, P)))
             check(err == 0.0, f"B8 {name} level {level} {blk}: max|d| {err} != 0")
             out[f"b8_{name}_{blk}_max_abs_err"] = err
+        del shifted, u
         del sp, op, eng, x, st, faces, got, ref
         torch.cuda.empty_cache()
     return out
@@ -624,8 +639,17 @@ def tetpair_apply(storage, level: int, device, seed: int):
     sp, op, eng, x = tetpair_setup(storage, level, device, seed)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    from hyteg_tpu_torch.kernels import tetpair as tk
+
     mask = sp.vertex_mask_t
-    full = rel_err(eng.apply_full(x) * mask, op.apply_raw(x) * mask)
+    names = ("pair_apply", "pair_install", "pair_extract")
+    before = {name: getattr(tk, name).launches for name in names}
+    y = eng.apply_full(x)
+    per_full = {name: getattr(tk, name).launches - before[name]
+                for name in names}
+    check(all(n == 1 for n in per_full.values()),
+          f"tetpair apply_full launched {per_full}, not one of each")
+    full = rel_err(y * mask, op.apply_raw(x) * mask)
     chained = rel_err(
         eng.lower(eng.apply_ex(eng.apply_ex(eng.lift(x)))) * mask,
         op.apply_raw(op.apply_raw(x)) * mask)
@@ -640,7 +664,7 @@ def tetpair_apply(storage, level: int, device, seed: int):
            "paired_block": [eng.Cp, eng.N, eng.N * eng.P],
            "paired_slots": eng.Cp * eng.N * eng.N * eng.P,
            "apply_full_rel_err": full, "chained_rel_err": chained,
-           "setup_s": setup_s}
+           "launches_per_apply_full": per_full, "setup_s": setup_s}
     return out, (sp, op, eng, x)
 
 
@@ -657,36 +681,126 @@ def pair_read_bytes(eng) -> int:
     from hyteg_tpu_torch.tetpair import plan as tp
 
     N, P = eng.N, eng.P
-    n, L = N - 1, N * P
     plan = tp.PairPlan(N, P)
     M = torch.as_tensor(plan.in_a | plan.in_b)[None].float()
     need = torch.zeros(M.shape, dtype=torch.bool)
     for d in tp.dir_tables()[0]:
         need |= flat.shift_write(M, [int(v) for v in d], P, 3) != 0
-    need = need[0].numpy().reshape(N, N, P)
-    x, ly, lz = np.meshgrid(np.arange(N), np.arange(N), np.arange(P),
-                            indexing="ij")
-    s = x + ly + lz
-    in_a, in_b = s <= n, (s >= 2 * n) & (lz <= n)
-    l = ly * P + lz
-    # pair_source's choice, lowest precedence first: the entry of the
-    # face arrays (xf, yf, zf, df laid end to end), -1 for the block
-    yf0, zf0 = 2 * L, 2 * L + 2 * N * P
-    df0 = zf0 + 2 * N * N
-    src = np.full(need.shape, -1, dtype=np.int64)
-    for cond, entry in (
-            ((s == 2 * n) & (lz <= n), df0 + L + l),
-            (s == n, df0 + l),
-            ((lz == n) & in_b, zf0 + (N + x) * N + ly),
-            ((lz == 0) & in_a, zf0 + x * N + ly),
-            ((ly == n) & in_b, yf0 + (N + x) * P + lz),
-            ((ly == 0) & in_a, yf0 + x * P + lz),
-            ((x == n) & (s >= 2 * n), L + l),
-            ((x == 0) & in_a, l)):
-        src = np.where(cond, entry, src)
-    picked = src[need]
+    picked = pair_source_entries(N, P)[need[0].numpy().reshape(N, N, P)]
     face_entries = np.unique(picked[picked >= 0]).size
     return eng.Cp * (int((picked < 0).sum()) + face_entries) * 4
+
+
+def pair_source_entries(N: int, P: int) -> np.ndarray:
+    """pair_source's choice at every position (x, ly, lz) of a pair's
+    block, (N, N, P): the entry of the face arrays (xf, yf, zf, df laid
+    end to end) it reads, -1 where it reads the block. From the plain
+    install of a zero block whose face entries each hold their index + 1,
+    in float64 (exact)."""
+    from hyteg_tpu_torch.kernels import tetpair as tk
+
+    shapes = tk._face_shapes(1, N, P)
+    sizes = [math.prod(sh) for sh in shapes]
+    ids = torch.arange(1, sum(sizes) + 1, dtype=torch.float64)
+    faces = [f.view(sh) for f, sh in zip(torch.split(ids, sizes), shapes)]
+    u = torch.zeros(1, N, N * P, dtype=torch.float64)
+    out = tk.pair_install_torch(u, *faces, N, P)
+    return (out.long() - 1).numpy().reshape(N, N, P)
+
+
+def pair_kept_entries(N: int, P: int) -> tuple[np.ndarray, np.ndarray]:
+    """B8's kept entries of one pair: (entries, positions), the entries of
+    the face arrays laid end to end that take a value of the block (not a
+    masked 0) and the flat offset of that value's position in the block.
+    From the plain extract of a block that holds each position's offset +
+    1, in float64 (exact)."""
+    from hyteg_tpu_torch.kernels import tetpair as tk
+
+    ids = torch.arange(1, N * N * P + 1, dtype=torch.float64).view(1, N, -1)
+    v = torch.cat([f.reshape(-1) for f in tk.pair_extract_torch(ids, N, P)])
+    entries = torch.nonzero(v).squeeze(1)
+    return entries.numpy(), (v[entries] - 1).long().numpy()
+
+
+def b7_b8_timing(eng, x) -> dict:
+    """Kernels B7 and B8 on the lifted state of x: each one's ms beside
+    its bound, its plain version's ms and its library call's (checked
+    equal to the kernel on the same inputs); B8's sector floor (its
+    writes, and a 32-byte sector for each sector of the block its kept
+    entries lie in). The bounds count what each function must move: B7
+    reads the block where it keeps it and one face entry per installed
+    position, and writes the block; B8 reads its kept entries and writes
+    every entry. The earlier counts (the whole block and face arrays) are
+    printed beside them (``*_bound_ms_whole_arrays``). ``*_ms``: back to
+    back through the wrapper, as every kernel of the ``kernels`` line;
+    ``*_graph_ms``: CUDA graphs of 10 calls, without the host's work per
+    call, which for B8 exceeds the kernel's time."""
+    from hyteg_tpu_torch.kernels import tetpair as tk
+
+    N, P, Cp = eng.N, eng.P, eng.Cp
+    L = N * P
+    st = eng.lift(x)
+    u, faces = st.u, (st.xf, st.yf, st.zf, st.df)
+    uf = u.reshape(-1)
+    pair0 = np.arange(Cp)[:, None] * (N * L)
+    out = {"paired_block": [Cp, N, L]}
+
+    def times(tag, call, library):
+        out.update({
+            f"{tag}_ms": median_ms(call, 10, batch=10),
+            f"{tag}_graph_ms": median_graph_ms(call, 10),
+            f"{tag}_library_ms": median_ms(library, 10, batch=10),
+            f"{tag}_library_graph_ms": median_graph_ms(library, 10)})
+
+    # B7 and its library call: the installed positions' values staged
+    src = pair_source_entries(N, P).reshape(-1)
+    installed = np.flatnonzero(src >= 0)
+    idx = torch.as_tensor((pair0 + installed).reshape(-1), device=u.device)
+    b7 = tk.pair_install(u, *faces, N, P)
+    vals = b7.reshape(-1)[idx]
+    err = max_abs_diff(torch.index_put(uf, (idx,), vals).view_as(b7), b7)
+    check(err == 0.0, f"B7 library call vs B7: max|d| {err} != 0")
+    reads = N * L - installed.size + np.unique(src[installed]).size
+    b = bound(4 * Cp * reads + nbytes(u), 0)
+    times("b7", lambda: tk.pair_install(u, *faces, N, P),
+          lambda: torch.index_put(uf, (idx,), vals))
+    out.update(
+        b7_plain_ms=median_ms(
+            lambda: tk.pair_install_torch(u, *faces, N, P), 5),
+        b7_bound_ms=b[0], b7_bytes=b[2],
+        b7_bound_ms_whole_arrays=bound(2 * nbytes(u) + nbytes(*faces), 0)[0],
+        b7_installed_per_pair=installed.size)
+    del b7, vals, idx
+    # B8 and its library call; take leaves the masked zeros out, so the
+    # same take with the zeros filled in (a zeroed output, the kept
+    # entries copied into it) is timed beside it
+    fo = tk.pair_extract(u, N, P)
+    entries, kept = pair_kept_entries(N, P)
+    kidx = torch.as_tensor((pair0 + kept).reshape(-1), device=u.device)
+    E = sum(f[0].numel() for f in fo)
+    eidx = torch.as_tensor((np.arange(Cp)[:, None] * E + entries).reshape(-1),
+                           device=u.device)
+    got = torch.cat([f.reshape(Cp, -1) for f in fo], dim=1)
+
+    def take_fill():
+        return uf.new_zeros(Cp * E).index_copy_(0, eidx, torch.take(uf, kidx))
+
+    err = max(max_abs_diff(torch.take(uf, kidx), got.reshape(-1)[eidx]),
+              max_abs_diff(take_fill(), got.reshape(-1)))
+    check(err == 0.0, f"B8 library call vs B8: max|d| {err} != 0")
+    b = bound(4 * Cp * np.unique(kept).size + nbytes(*fo), 0)
+    sectors = np.unique((pair0 + kept) // 8).size
+    floor = bound(32 * sectors + nbytes(*fo), 0)
+    times("b8", lambda: tk.pair_extract(u, N, P), lambda: torch.take(uf, kidx))
+    out.update(
+        b8_plain_ms=median_ms(lambda: tk.pair_extract_torch(u, N, P), 5),
+        b8_take_fill_ms=median_ms(take_fill, 10, batch=10),
+        b8_take_fill_graph_ms=median_graph_ms(take_fill, 10),
+        b8_bound_ms=b[0], b8_bytes=b[2],
+        b8_bound_ms_whole_arrays=bound(2 * nbytes(*fo), 0)[0],
+        b8_sector_floor_ms=floor[0], b8_sector_floor_bytes=floor[2],
+        b8_kept_per_pair=kept.size)
+    return out
 
 
 def b6_work(eng, st, fo) -> tuple[int, int]:
@@ -1838,15 +1952,17 @@ def main() -> int:
     tk.pair_install.launches = 0
     tk.pair_extract.launches = 0
     tp_names = ("pair_apply", "pair_install", "pair_extract")
-    b6_cases = []
+    b6_cases, b78_cases = [], []
     for i, (mesh, level) in enumerate(TETPAIR_CASES):
         res, objs = tetpair_apply(storages[mesh], level, device, seed=40 + i)
         emit("tetpair_apply", card=card, mesh=mesh, **res)
-        # B6 timed beside its bound at this case; the timing's launches
-        # are not the main path's
+        # B6, B7 and B8 timed beside their bounds at this case; the
+        # timings' launches are not the main path's
         counts = {name: getattr(tk, name).launches for name in tp_names}
         b6_cases.append({"mesh": mesh, "level": level,
                          **b6_timing(objs[2], objs[3])})
+        b78_cases.append({"mesh": mesh, "level": level,
+                          **b7_b8_timing(objs[2], objs[3])})
         for name, n in counts.items():
             getattr(tk, name).launches = n
         if (mesh, level) == ("cube", TETPAIR_TIME_LEVEL):
@@ -1854,6 +1970,9 @@ def main() -> int:
         del objs
         torch.cuda.empty_cache()
     emit("b6_levels", card=card, cases=b6_cases)
+    emit("b7_b8_levels", card=card, cases=b78_cases)
+    b78 = next(c for c in b78_cases
+               if (c["mesh"], c["level"]) == ("cube", TETPAIR_TIME_LEVEL))
     tp_launches = {name: getattr(tk, name).launches for name in tp_names}
     emit("tetpair_checks", launches=tp_launches)
     for name, n in tp_launches.items():
@@ -1870,14 +1989,10 @@ def main() -> int:
                            == ("cube", TETPAIR_TIME_LEVEL)),
         "pair_apply_plain": median_ms(
             lambda: tk.pair_apply_torch(st.u, eng.W, *faces, N, P), 5),
-        "pair_install": median_ms(
-            lambda: tk.pair_install(st.u, *faces, N, P), 10, batch=10),
-        "pair_install_plain": median_ms(
-            lambda: tk.pair_install_torch(st.u, *faces, N, P), 10),
-        "pair_extract": median_ms(
-            lambda: tk.pair_extract(st.u, N, P), 10, batch=10),
-        "pair_extract_plain": median_ms(
-            lambda: tk.pair_extract_torch(st.u, N, P), 10),
+        "pair_install": b78["b7_ms"],
+        "pair_install_plain": b78["b7_plain_ms"],
+        "pair_extract": b78["b8_ms"],
+        "pair_extract_plain": b78["b8_plain_ms"],
         "tetpair_exchange_faces": median_ms(
             lambda: eng.exchange_faces(*fo), 10, batch=10),
         "tetpair_apply_ex": median_ms(lambda: eng.apply_ex(st), 10, batch=10),
@@ -1885,16 +2000,19 @@ def main() -> int:
         "tetpair_classic_apply_raw": median_ms(lambda: op.apply_raw(x), 10,
                                                batch=10),
     })
-    # B8 only copies face planes out of the block: its least bytes are
-    # those planes, read once and written once
     bounds["pair_apply"] = bound(*b6_work(eng, st, fo))
     # the earlier yardstick, printed beside it: the whole block read and
     # written once
     b6_whole_block_ms = bound(
         nbytes(st.u, eng.W, *faces) + nbytes(st.u, *fo),
         30 * 2 * eng.Cp * tet_points(N - 1))[0]
-    bounds["pair_install"] = bound(2 * nbytes(st.u) + nbytes(*faces), 0)
-    bounds["pair_extract"] = bound(2 * nbytes(*tk.pair_extract(st.u, N, P)), 0)
+    # B7 reads the block where it keeps it and one face entry per
+    # installed position, and writes the block; B8 reads its kept entries
+    # and writes every face entry (b7_b8_timing)
+    bounds["pair_install"] = bound(b78["b7_bytes"], 0)
+    bounds["pair_extract"] = bound(b78["b8_bytes"], 0)
+    lib_ms["pair_install"] = b78["b7_library_ms"]
+    lib_ms["pair_extract"] = b78["b8_library_ms"]
     emit("tetpair_profile", card=card, level=TETPAIR_TIME_LEVEL,
          **tetpair_profile(eng, st))
     del sp, op, eng, x, st, faces, fo
@@ -2117,7 +2235,30 @@ def main() -> int:
             "bound_ms_coeff": arm2d["b3_coeff"]["bound_ms"]},
         "pair_apply": {
             "ms_by_case": b6_cases,
-            "bound_ms_whole_block": b6_whole_block_ms}}
+            "bound_ms_whole_block": b6_whole_block_ms},
+        "pair_install": {
+            "graph_ms": b78["b7_graph_ms"],
+            "library_graph_ms": b78["b7_library_graph_ms"],
+            "bound_ms_whole_arrays": b78["b7_bound_ms_whole_arrays"],
+            "launches_per_apply_full": tp_res["launches_per_apply_full"][
+                "pair_install"],
+            "ms_by_case": [{k: c[k] for k in (
+                "mesh", "level", "b7_ms", "b7_graph_ms", "b7_bound_ms",
+                "b7_bound_ms_whole_arrays", "b7_library_ms",
+                "b7_library_graph_ms")} for c in b78_cases]},
+        "pair_extract": {
+            "graph_ms": b78["b8_graph_ms"],
+            "library_graph_ms": b78["b8_library_graph_ms"],
+            "take_fill_graph_ms": b78["b8_take_fill_graph_ms"],
+            "bound_ms_whole_arrays": b78["b8_bound_ms_whole_arrays"],
+            "sector_floor_ms": b78["b8_sector_floor_ms"],
+            "launches_per_apply_full": tp_res["launches_per_apply_full"][
+                "pair_extract"],
+            "ms_by_case": [{k: c[k] for k in (
+                "mesh", "level", "b8_ms", "b8_graph_ms", "b8_bound_ms",
+                "b8_bound_ms_whole_arrays", "b8_sector_floor_ms",
+                "b8_library_ms", "b8_library_graph_ms",
+                "b8_take_fill_graph_ms")} for c in b78_cases]}}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

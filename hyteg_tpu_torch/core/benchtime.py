@@ -1,7 +1,9 @@
 """Device timing on the card (counterpart of hyteg_tpu/core/benchtime.py).
 
 ``median_ms`` times a call with CUDA events: the median over ``runs`` of
-the device time of ``batch`` back-to-back calls, divided by ``batch``.
+the device time of ``batch`` back-to-back calls, divided by ``batch``;
+``median_graph_ms`` the same calls captured in a CUDA graph, so that the
+host's launch overhead is not in the time.
 ``card`` names the card the way every recorded number carries it.
 
 Not ported: the JAX package's marginal-chain timing (``auto_time``,
@@ -39,6 +41,23 @@ def median_ms(fn, runs: int, warmup: int = 3, batch: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def median_graph_ms(fn, runs: int, batch: int = 10, warmup: int = 3) -> float:
+    """Median over ``runs`` of the device time of one call, from CUDA
+    events around one replay of a CUDA graph that holds ``batch`` calls
+    of ``fn`` (divided by ``batch``): the time of the kernels the calls
+    launch, without the host's launch overhead, which a short kernel's
+    wrapper (checks, output allocation, the ctypes call) can exceed. fn
+    launches its work on the current stream and does not synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    return median_ms(graph.replay, runs, warmup=1) / batch
 
 
 def card() -> str:

@@ -4,9 +4,9 @@
 //
 // Replace hyteg_tpu/tetpair/kernel.py::pair_apply, ::pair_install and
 // ::pair_extract. The Pallas kernels roll whole blocks through VMEM and
-// build the per-lane weight vectors with a matmul; here a B6 block walks
-// one plane of a pair, B7 takes one thread per slot and B8 one per lane,
-// and the math and B6's walk are in tetpair.cuh.
+// build the per-lane weight vectors with a matmul; here a B6 or B7 block
+// walks one plane of a pair and a B8 block a run of the pair's face
+// entries, and the math and the walks are in tetpair.cuh.
 //
 // B6's limit was instructions, not bytes: with the install logic (the
 // position class decides whether a value comes from the block or from a
@@ -31,18 +31,47 @@
 // 0.40 ms at cube level 7 against a bound of 0.087 ms (the reads a
 // stencil over both tets needs, one write of the block and of the faces,
 // W) and 1.15 ms at shell level 5 (960 pairs of N = 33) against 0.070 ms
-// (python -m hyteg_tpu_torch.probes.b6_trees). Its time follows the
+// (python -m hyteg_tpu_torch.probes.pair_trees). Its time follows the
 // number of rows and planes far more than the number of slots: each
 // row's middle, zero run and four end lanes, and each plane's class table
 // and list, wait on memory in turn, and the edge slots' call holds the
 // kernel at 80 registers (three blocks per SM).
+//
+// B7 and B8 only select and copy, so bytes bound them. Their first design
+// took one thread per slot (B7: a division by P, pair_source's chain of 8
+// tests and one 4-byte load through a pointer chosen at run time each, so
+// ~8 KB of loads in flight per SM) and one per lane (B8: each of the ~4N
+// face lanes of a pair walked all N rows, one load after another, with
+// one active thread in the warps of lanes 0 and n). On an H100 (NVIDIA
+// H100 80GB HBM3, 700 W) at cube level 7, block (24, 129, 16641), B7 took
+// 0.28 ms against a bound of 0.123 ms (44%; the block read where it is
+// kept, one face entry per installed position, the block written) and B8
+// 0.077 ms against 0.0057 ms (the kept entries read, every entry written;
+// its strided reads touch a 32-byte sector per value, a floor of 0.0120
+// ms). Here a B7 block copies its plane with 16-byte loads and
+// stores, 4 in flight per thread (planes 0 and n: the x-face's lanes from
+// xf, a warp a run), and after __syncthreads rewrites the plane's lines
+// (rows and lanes 0 and n, the shell lines: 4% of the slots at level 7)
+// through pair_installed, whose reads it issued before the copy; its
+// block size follows the plane (pair_install_threads). A B8 block takes
+// 1024 face entries of a pair, a thread an entry: one load from the slot
+// the gathered extract map names (none for a masked 0), one store to
+// consecutive entries; no thread loops over rows. B8 walked the positions
+// of the map's scatter form (pair_store_point, as B6 stores) first: each
+// position's branches over every face array, at 64 registers, made it
+// slower than its parent on the shell. On the same card, timed as CUDA
+// graphs (python3 chip_smoke.py, b7_b8_levels, *_graph_ms), B7 takes
+// 0.164 ms at cube level 7 (75% of its bound) and 0.139 ms on the shell at
+// level 5 (59%), B8 0.037 ms at cube level 7 (15%; its z-lane and shell
+// reads, a sector each, hold it at 33% of that floor) and 0.080 ms on the
+// shell, slower than torch.take of its kept entries (0.035 and 0.063 ms),
+// which writes only those entries.
 #include <cuda_runtime.h>
 
 #include "tetpair.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // B7, B8
 constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;  // B6
 
 // B6: block (pair c, block row y), plane pair_plane_of(y): the pair's W
@@ -77,36 +106,43 @@ pair_apply_kernel(const float* __restrict__ u, const float* __restrict__ W,
                    kPlaneWarps);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B7: block (pair c, block row y) of THREADS threads, plane
+// pair_plane_of(y) (planes 0 and n, whose phase 1 runs a warp a run,
+// start first): phase 2's first reads, phase 1, then phase 2's stores on
+// the same slots.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
 pair_install_kernel(const float* __restrict__ u, const float* xf,
                     const float* yf, const float* zf, const float* df,
                     float* __restrict__ out, int N, int P) {
-  const int L = N * P;
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const int x = blockIdx.y, c = blockIdx.z;
-  const int ly = l / P;
-  const long long block = (long long)N * L;
-  out[c * block + (long long)x * L + l] = hyteg::pair_installed(
-      u + c * block, hyteg::pair_faces_of(xf, yf, zf, df, c, N, P), x, ly,
-      l - ly * P, N, P);
+  using namespace hyteg;
+  const int c = blockIdx.x;
+  const int x = pair_plane_of(blockIdx.y, N);
+  const long long block = (long long)N * N * P;
+  const CellStore o{out + c * block};
+  const PairFaces<const float> f = pair_faces_of(xf, yf, zf, df, c, N, P);
+  PatchBatch<pair_install_loads(THREADS)> first;
+  pair_patch_read(u + c * block, f, x, threadIdx.x, pair_lines(x, N, P), N,
+                  P, THREADS, first);
+  pair_install_copy(u + c * block, f.xf, o, x, N, P, threadIdx.x, THREADS);
+  __syncthreads();
+  pair_install_patch(u + c * block, f, o, x, N, P, threadIdx.x, THREADS,
+                     first);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B8: block (pair c, block row y), face entries y * kExtractChunk on of
+// the pair.
+__global__ void __launch_bounds__(hyteg::kExtractThreads)
 pair_extract_kernel(const float* __restrict__ u, float* xfo, float* yfo,
                     float* zfo, float* dfo, int N, int P) {
-  const int L = N * P;
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const int c = blockIdx.y;
-  const int ly = l / P;
-  hyteg::pair_extract_lane(u + c * (long long)N * L,
-                           hyteg::pair_stores_of(xfo, yfo, zfo, dfo, c, N, P),
-                           ly, l - ly * P, N, P);
-}
-
-unsigned lane_blocks(int N, int P) {
-  return (unsigned)((N * P + kThreads - 1) / kThreads);
+  using namespace hyteg;
+  const int c = blockIdx.x;
+  const int i0 = blockIdx.y * kExtractChunk;
+  const int end = pair_face_entries(N, P);
+  pair_extract_range(u + c * (long long)N * N * P,
+                     pair_stores_of(xfo, yfo, zfo, dfo, c, N, P), i0,
+                     i0 + kExtractChunk < end ? i0 + kExtractChunk : end, N,
+                     P, threadIdx.x, kExtractThreads);
 }
 
 }  // namespace
@@ -135,9 +171,13 @@ extern "C" int hyteg_pair_install(const float* u, const float* xf,
                                   const float* yf, const float* zf,
                                   const float* df, float* out, int Cp, int N,
                                   int P, void* stream) {
-  const dim3 grid(lane_blocks(N, P), (unsigned)N, (unsigned)Cp);
-  pair_install_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      u, xf, yf, zf, df, out, N, P);
+  const dim3 grid((unsigned)Cp, (unsigned)N);
+  if (hyteg::pair_install_threads(N, P) == 512)
+    pair_install_kernel<512><<<grid, 512, 0, (cudaStream_t)stream>>>(
+        u, xf, yf, zf, df, out, N, P);
+  else
+    pair_install_kernel<256><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        u, xf, yf, zf, df, out, N, P);
   return (int)cudaGetLastError();
 }
 
@@ -145,8 +185,11 @@ extern "C" int hyteg_pair_install(const float* u, const float* xf,
 extern "C" int hyteg_pair_extract(const float* u, float* xfo, float* yfo,
                                   float* zfo, float* dfo, int Cp, int N, int P,
                                   void* stream) {
-  const dim3 grid(lane_blocks(N, P), (unsigned)Cp);
-  pair_extract_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      u, xfo, yfo, zfo, dfo, N, P);
+  const int end = hyteg::pair_face_entries(N, P);
+  const dim3 grid((unsigned)Cp,
+                  (unsigned)((end + hyteg::kExtractChunk - 1) /
+                             hyteg::kExtractChunk));
+  pair_extract_kernel<<<grid, hyteg::kExtractThreads, 0,
+                        (cudaStream_t)stream>>>(u, xfo, yfo, zfo, dfo, N, P);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
 // Per-point arithmetic of the paired-tet kernels B6 (apply), B7 (install)
-// and B8 (extract), and B6's walk over one plane of a pair.
+// and B8 (extract), and their walks: B6's and B7's over one plane of a
+// pair, B8's over a run of a pair's face entries.
 //
 // Kept apart from the kernels in tetpair.cu so that a host build can run
-// it: the math is a set of plain functions of (one pair's data, one point
-// or lane), and B6's plane walk (pair_apply_plane) writes through store
-// objects, so a host harness runs the kernel's own walk thread by thread
-// and counts each slot's writes. Layout follows
+// it: the math is a set of plain functions of (one pair's data, one
+// point), and the walks (pair_apply_plane, pair_install_copy and
+// pair_install_patch, pair_extract_range) write through store objects, so
+// a host harness runs the kernels' own walks thread by thread and counts
+// each slot's writes. Layout follows
 // hyteg_tpu_torch/kernels/tetpair.py and tetpair/plan.py; per pair:
 //   u, dst: (N, L) f32, L = N * P, lane l = ly * P + lz;
 //   xf (2, L), yf (2, N, P), zf (2, N, N), df (2, L) f32 face arrays;
@@ -222,40 +224,6 @@ HYTEG_DEVICE void pair_store_face_row(const PairStores<S>& o, int x, int ly,
   if (ly == n) o.yf((N + x) * P + lz, in_b ? val : 0.f);
   if (lz == 0) o.zf(x * N + ly, in_a ? val : 0.f);
   if (lz == n) o.zf((N + x) * N + ly, in_b ? val : 0.f);
-}
-
-// Extract map, per lane: the x-face slots take the values v0 (row 0) and
-// vn (row n), the diagonal slots va (row n - s) and vb (row 2n - s), each
-// where the x-face / shell test of the position holds, else 0.
-template <class S>
-HYTEG_DEVICE void pair_store_lane(const PairStores<S>& o, int ly, int lz,
-                                  int N, int P, float v0, float vn, float va,
-                                  float vb) {
-  const int n = N - 1;
-  const int L = N * P;
-  const int l = ly * P + lz;
-  const int s = ly + lz;
-  o.xf(l, s <= n ? v0 : 0.f);
-  o.xf(L + l, s >= n ? vn : 0.f);
-  o.df(l, s <= n ? va : 0.f);
-  o.df(L + l, (s >= n && s <= 2 * n && lz <= n) ? vb : 0.f);
-}
-
-// B8 for one lane: the face arrays of block u.
-template <class S>
-HYTEG_DEVICE void pair_extract_lane(const float* u, const PairStores<S>& o,
-                                    int ly, int lz, int N, int P) {
-  const int n = N - 1;
-  const int L = N * P;
-  const int l = ly * P + lz;
-  const int s = ly + lz;
-  const float va = s <= n ? u[(long long)(n - s) * L + l] : 0.f;
-  const float vb = (s >= n && s <= 2 * n && lz <= n)
-                       ? u[(long long)(2 * n - s) * L + l] : 0.f;
-  pair_store_lane(o, ly, lz, N, P, u[l], u[(long long)n * L + l], va, vb);
-  if (pair_face_lane(ly, lz, n))
-    for (int x = 0; x < N; ++x)
-      pair_store_face_row(o, x, ly, lz, u[(long long)x * L + l], N, P);
 }
 
 // Position class of (x, ly, lz): 0 for tet A, 1 for tet B, -1 for
@@ -728,6 +696,238 @@ HYTEG_DEVICE void pair_apply_plane(const float* u,
       else
         pair_kind_slot<kPairFace + 6>(u, f, tab, out, x, ly, lz, N, P);
     }
+  }
+}
+
+// -- kernel B7: copy, then the lines of the plane ---------------------------
+// The lines of plane x: rows ly = 0 and ly = n (all P lanes), lanes lz =
+// 0 and lz = n (rows 1 .. n - 1), and the points of the two shell lines
+// off those rows and lanes: ly + lz = n - x (lz = 1 .. n - x - 1) and ly +
+// lz = 2n - x (lz = n - x + 1 .. n - 1); pair_lines(x) positions, each
+// once. pair_source picks a face array other than an x-face only on the
+// lines: it returns u's slot unless one of its eight tests holds, and
+//  - ly == 0, ly == n hold only on rows 0 and n, lz == 0, lz == n only on
+//    lanes 0 and n;
+//  - s == n is the line ly + lz = n - x, whose positions off rows 0, n and
+//    lanes 0, n are lz = 1 .. n - x - 1 (ly = n - x - lz, from 1 to n - x -
+//    1);
+//  - s == 2n with lz <= n is the line ly + lz = 2n - x with lz <= n; as ly
+//    <= n, lz >= n - x there, and off row n and lane n it is lz = n - x + 1
+//    .. n - 1 (ly = 2n - x - lz, from n - x + 1 to n - 1);
+//  - x == 0 and x == n (the x-faces) hold only on planes 0 and n.
+// So B7 copies every plane from u, but the x-faces' lanes of planes 0 and
+// n from xf (phase 1), and then rewrites the lines through pair_installed
+// (phase 2). The host tests check the claim at every position of a block.
+
+// The number of positions of plane x's lines.
+HYTEG_HD constexpr int pair_lines(int x, int N, int P) {
+  return 2 * P + 2 * (N - 2) + (N - 2 - x > 0 ? N - 2 - x : 0) +
+         (x - 1 > 0 ? x - 1 : 0);
+}
+
+// The position (ly, lz) of entry k of plane x's lines.
+HYTEG_DEVICE void pair_line_at(int x, int k, int N, int P, int& ly,
+                               int& lz) {
+  const int n = N - 1;
+  if (k < 2 * P) {  // rows 0 and n
+    ly = k < P ? 0 : n;
+    lz = k < P ? k : k - P;
+  } else if (k < 2 * P + 2 * (N - 2)) {  // lanes 0 and n, rows 1 .. n - 1
+    k -= 2 * P;
+    lz = k < N - 2 ? 0 : n;
+    ly = 1 + (k < N - 2 ? k : k - (N - 2));
+  } else {  // the shell lines: lz = 1 .. n - x - 1, then n - x + 1 .. n - 1
+    k -= 2 * P + 2 * (N - 2);
+    const int na = n - x - 1 > 0 ? n - x - 1 : 0;
+    lz = k < na ? 1 + k : n - x + 1 + (k - na);
+    ly = (k < na ? n : 2 * n) - x - lz;
+  }
+}
+
+// B7's threads per block, a compile-time argument of its kernel: 512
+// where a plane holds at least kInstallWide slots, else 256; and the
+// reads a thread of phase 2 issues before its stores (one after another,
+// each would wait on the latency of memory in turn): 4 in a block of 512,
+// 2 in one of 256, where the kernel then fits 32 registers and 8 blocks of
+// small planes fit an SM. On the card (PR 12's variants), blocks of 256
+// with 2 reads ran 48% slower at cube level 7 than 512 with 4, and blocks
+// of 512 twice as slow as 256 on the shell at level 5.
+constexpr int kInstallWide = 4096;
+HYTEG_HD constexpr int pair_install_threads(int N, int P) {
+  return N * P >= kInstallWide ? 512 : 256;
+}
+HYTEG_HD constexpr int pair_install_loads(int threads) {
+  return threads >= 512 ? 4 : 2;
+}
+
+// Kernel B7, phase 1, for plane x of one pair, thread tid of nthreads:
+// every slot of the plane from u, but on planes 0 and n the x-face's
+// lanes from xf (plane 0: s <= n; plane n: s >= 2n, padding lanes
+// included). An inner plane is one run over all threads; planes 0 and n
+// two runs a row, a warp a run (copy_run: 16-byte loads and stores).
+// Offsets are 32-bit: a pair's block holds N * L <= 2^31 slots.
+template <class Out>
+HYTEG_DEVICE void pair_install_copy(const float* u, const float* xf,
+                                    const Out& out, int x, int N, int P,
+                                    int tid, int nthreads) {
+  const int n = N - 1, L = N * P;
+  const bool edge = x == 0 || x == n;
+  const int width = edge ? 32 : nthreads;
+  for (int r = edge ? tid / 32 : 0; r < (edge ? 2 * N : 1);
+       r += nthreads / width) {
+    const int row = x * L + (r >> 1) * P;
+    const int cut = row + (x == 0 ? n + 1 : n) - (r >> 1);  // x-face border
+    const int i0 = edge ? ((r & 1) ? cut : row) : x * L;
+    const int i1 = edge ? ((r & 1) ? row + P : cut) : (x + 1) * L;
+    const bool face = edge && (r & 1) == (x == 0 ? 0 : 1);
+    copy_run(face ? xf + (x == 0 ? 0 : L) + (i0 - x * L) : u + i0, out, i0,
+             i1, tid % width, width);
+  }
+}
+
+// A batch of phase 2 for one thread: LOADS positions of the lines and
+// their installed values.
+template <int LOADS>
+struct PatchBatch {
+  int at[LOADS];
+  float v[LOADS];
+};
+
+// The reads of the batch from line entry k0 on (entries k0 + j *
+// nthreads, up to end) through the tested map pair_installed, so that the
+// precedence of the face arrays is pair_source's.
+template <int LOADS>
+HYTEG_DEVICE void pair_patch_read(const float* u,
+                                  const PairFaces<const float>& f, int x,
+                                  int k0, int end, int N, int P,
+                                  int nthreads, PatchBatch<LOADS>& b) {
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    b.at[j] = 0;
+    b.v[j] = 0.f;
+    if (k0 + j * nthreads < end) {
+      int ly, lz;
+      pair_line_at(x, k0 + j * nthreads, N, P, ly, lz);
+      b.at[j] = (x * N + ly) * P + lz;
+      b.v[j] = pair_installed(u, f, x, ly, lz, N, P);
+    }
+  }
+}
+
+// Kernel B7, phase 2 (after all of phase 1's stores in the block): every
+// position of plane x's lines rewritten. The thread's first batch was
+// read before phase 1 (first), so that its loads were in flight with the
+// copy's; it is stored here, then any further batches read and stored.
+template <int LOADS, class Out>
+HYTEG_DEVICE void pair_install_patch(const float* u,
+                                     const PairFaces<const float>& f,
+                                     const Out& out, int x, int N, int P,
+                                     int tid, int nthreads,
+                                     const PatchBatch<LOADS>& first) {
+  const int end = pair_lines(x, N, P);
+  PatchBatch<LOADS> b = first;
+  for (int k0 = tid; k0 < end; k0 += LOADS * nthreads) {
+    if (k0 != tid) pair_patch_read(u, f, x, k0, end, N, P, nthreads, b);
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j)
+      if (k0 + j * nthreads < end) out(b.at[j], b.v[j]);
+  }
+}
+
+// -- kernel B8: a load for each face entry -----------------------------------
+// The face arrays of a pair laid end to end: xf (2L), yf (2NP), zf (2N^2),
+// df (2L) entries; the first entry of each array after xf, and the end.
+struct PairFaceLayout {
+  int yf, zf, df, end;
+};
+HYTEG_HD constexpr PairFaceLayout pair_face_layout(int N, int P) {
+  return {2 * N * P, 4 * N * P, 4 * N * P + 2 * N * N, 6 * N * P + 2 * N * N};
+}
+HYTEG_HD constexpr int pair_face_entries(int N, int P) {
+  return pair_face_layout(N, P).end;
+}
+
+// The extract map, gathered: the block slot x * L + ly * P + lz whose value
+// face entry e of a pair takes, or -1 where the entry is 0 (its position
+// lies outside the face's half). pair_store_point, which B6's walk stores
+// through, scatters the same map; the host tests hold the two against
+// each other at every entry.
+//   xf: A on row 0 where s <= n, B on row n where s >= n (padding lanes
+//       included), s = ly + lz;
+//   yf (2, N, P): A at (x, 0, lz) where x + lz <= n, B at (x, n, lz) where
+//       x + lz >= n, lz <= n;
+//   zf (2, N, N): A at (x, ly, 0) where x + ly <= n, B at (x, ly, n) where
+//       x + ly >= n;
+//   df: A at row n - s where s <= n, B at row 2n - s where n <= s <= 2n,
+//       lz <= n.
+HYTEG_DEVICE int pair_entry_source(int e, int N, int P) {
+  const int n = N - 1, L = N * P;
+  const PairFaceLayout lay = pair_face_layout(N, P);
+  if (e < lay.yf) {
+    const int h = e >= L, l = e - h * L, ly = l / P, s = l - ly * P + ly;
+    return (h ? s >= n : s <= n) ? h * n * L + l : -1;
+  }
+  if (e < lay.zf) {
+    const int i = e - lay.yf, h = i >= L, r = i - h * L, x = r / P,
+              lz = r - x * P;
+    return (h ? x + lz >= n && lz <= n : x + lz <= n)
+               ? x * L + h * n * P + lz : -1;
+  }
+  if (e < lay.df) {
+    const int i = e - lay.zf, h = i >= N * N, r = i - h * N * N, x = r / N,
+              ly = r - x * N;
+    return (h ? x + ly >= n : x + ly <= n) ? x * L + ly * P + h * n : -1;
+  }
+  e -= lay.df;
+  const int h = e >= L, l = e - h * L, ly = l / P, lz = l - ly * P;
+  const int s = ly + lz;
+  if (h) return s >= n && s <= 2 * n && lz <= n ? (2 * n - s) * L + l : -1;
+  return s <= n ? (n - s) * L + l : -1;
+}
+
+// Face entry e of a pair (the arrays laid end to end) into its array.
+template <class S>
+HYTEG_DEVICE void pair_store_entry(const PairStores<S>& o, int e, float v,
+                                   int N, int P) {
+  const PairFaceLayout lay = pair_face_layout(N, P);
+  if (e < lay.yf)
+    o.xf(e, v);
+  else if (e < lay.zf)
+    o.yf(e - lay.yf, v);
+  else if (e < lay.df)
+    o.zf(e - lay.zf, v);
+  else
+    o.df(e - lay.df, v);
+}
+
+// B8: threads per block, the face entries of a pair per block (grid rows:
+// the pair's entries over this, rounded up), and the reads a thread
+// issues before its stores.
+constexpr int kExtractThreads = 256;
+constexpr int kExtractChunk = 1024;
+constexpr int kExtractLoads = 4;
+
+// Kernel B8 for face entries e0 .. e1 - 1 of one pair, thread tid of
+// nthreads: each entry from its slot of u (pair_entry_source), or 0. The
+// stores of consecutive threads are consecutive entries; the loads of the
+// z-face lanes and the shells are a 32-byte sector each. A thread reads
+// kExtractLoads entries before it stores them.
+template <class S>
+HYTEG_DEVICE void pair_extract_range(const float* u, const PairStores<S>& o,
+                                     int e0, int e1, int N, int P, int tid,
+                                     int nthreads) {
+  for (int j0 = e0 + tid; j0 < e1; j0 += kExtractLoads * nthreads) {
+    float v[kExtractLoads] = {};
+#pragma unroll
+    for (int k = 0; k < kExtractLoads; ++k)
+      if (j0 + k * nthreads < e1) {
+        const int src = pair_entry_source(j0 + k * nthreads, N, P);
+        if (src >= 0) v[k] = u[src];
+      }
+#pragma unroll
+    for (int k = 0; k < kExtractLoads; ++k)
+      if (j0 + k * nthreads < e1)
+        pair_store_entry(o, j0 + k * nthreads, v[k], N, P);
   }
 }
 

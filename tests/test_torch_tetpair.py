@@ -10,11 +10,12 @@ interpret mode (``TetPairEngine(..., interpret=True)``,
 seed and carried over through hyteg_tpu_torch.interop.
 
 The kernels' code in csrc/tetpair.cuh (B6's plane walk over every block
-of its grid, its launcher's direction check, and B7's and B8's per-lane
-maps) is also compiled with the host C++ compiler, run one block or
-thread after another through counting stores, and held against the plain
-versions, so the indexing that runs on the card is checked here without
-a GPU.
+of its grid and its launcher's direction check; B7's copy and patch
+phases and B8's walk over the patch list, each over every block of its
+grid; the patch list itself at every position of a block) is also
+compiled with the host C++ compiler, run one block or thread after
+another through counting stores, and held against the plain versions, so
+the indexing that runs on the card is checked here without a GPU.
 
 Tolerances:
 - tables, masks, interface metadata, pack/unpack, the lift -> lower round
@@ -424,9 +425,19 @@ CSRC = pathlib.Path(tk.__file__).resolve().parent.parent / "csrc"
 HOST_HARNESS = r"""
 #include <algorithm>
 #include <cmath>
+#include <cstdint>
 #include <vector>
 #define HYTEG_DEVICE inline
+// 16-byte loads and stores off a 16-byte boundary (a fault on the card)
+static int misaligned_quads = 0;
+#define HYTEG_QUAD_HOOK(p) \
+  (misaligned_quads += reinterpret_cast<std::uintptr_t>(p) % 16 != 0)
 #include "tetpair.cuh"
+extern "C" int take_misaligned_quads() {
+  const int m = misaligned_quads;
+  misaligned_quads = 0;
+  return m;
+}
 using namespace hyteg;
 // Counts each slot's writes beside the store (count may be null).
 struct CountStore {
@@ -444,16 +455,24 @@ struct CountStore {
   }
 };
 static int* at(int* p, long long off) { return p ? p + off : nullptr; }
+// Pair c's face arrays as counting stores; cnt: four count arrays (xf,
+// yf, zf, df) or nulls.
+static PairStores<CountStore> face_stores(float* xfo, float* yfo, float* zfo,
+                                          float* dfo, int* const* cnt, int c,
+                                          int N, int P) {
+  const long long L = (long long)N * P;
+  const PairFaces<float> f = pair_faces_of(xfo, yfo, zfo, dfo, c, N, P);
+  return {CountStore{CellStore{f.xf}, at(cnt[0], c * 2 * L)},
+          CountStore{CellStore{f.yf}, at(cnt[1], c * 2LL * N * P)},
+          CountStore{CellStore{f.zf}, at(cnt[2], c * 2LL * N * N)},
+          CountStore{CellStore{f.df}, at(cnt[3], c * 2 * L)}};
+}
 static PairOut<CountStore> outs(float* dst, float* xfo, float* yfo,
                                 float* zfo, float* dfo, int* const* cnt,
                                 int c, int N, int P) {
   const long long L = (long long)N * P;
-  const PairFaces<float> f = pair_faces_of(xfo, yfo, zfo, dfo, c, N, P);
   return {CountStore{CellStore{dst + c * N * L}, at(cnt[0], c * N * L)},
-          {CountStore{CellStore{f.xf}, at(cnt[1], c * 2 * L)},
-           CountStore{CellStore{f.yf}, at(cnt[2], c * 2LL * N * P)},
-           CountStore{CellStore{f.zf}, at(cnt[3], c * 2LL * N * N)},
-           CountStore{CellStore{f.df}, at(cnt[4], c * 2 * L)}}};
+          face_stores(xfo, yfo, zfo, dfo, cnt + 1, c, N, P)};
 }
 // Kernel B6's launcher and grid, one block after another: the direction
 // check, per pair and block row y the plane pair_plane_of(y), its class
@@ -523,27 +542,107 @@ extern "C" void pair_points_host(const float* u, const float* W,
         }
   }
 }
+// Kernel B7's grid, one block after another: per pair and block row y
+// the plane pair_plane_of(y), phase 2's first reads and phase 1 for every
+// thread of the block, then (as after __syncthreads) phase 2 for every
+// thread; NT threads a block, as pair_install_threads gives them.
+template <int NT>
+static void install_grid(const float* u, const float* xf, const float* yf,
+                         const float* zf, const float* df, float* out, int Cp,
+                         int N, int P, int* count) {
+  constexpr int loads = pair_install_loads(NT);
+  const long long block = (long long)N * N * P;
+  for (int c = 0; c < Cp; ++c)
+    for (int y = 0; y < N; ++y) {
+      const int x = pair_plane_of(y, N);
+      const CountStore o{CellStore{out + c * block}, at(count, c * block)};
+      const PairFaces<const float> f = pair_faces_of(xf, yf, zf, df, c, N, P);
+      std::vector<PatchBatch<loads>> first(NT);
+      for (int tid = 0; tid < NT; ++tid) {
+        pair_patch_read(u + c * block, f, x, tid, pair_lines(x, N, P), N, P,
+                        NT, first[tid]);
+        pair_install_copy(u + c * block, f.xf, o, x, N, P, tid, NT);
+      }
+      for (int tid = 0; tid < NT; ++tid)
+        pair_install_patch(u + c * block, f, o, x, N, P, tid, NT, first[tid]);
+    }
+}
+// count: one int per slot of out, or null.
 extern "C" void pair_install_host(const float* u, const float* xf,
                                   const float* yf, const float* zf,
                                   const float* df, float* out, int Cp, int N,
-                                  int P) {
-  const long long L = (long long)N * P, block = N * L;
-  for (int c = 0; c < Cp; ++c)
-    for (int x = 0; x < N; ++x)
-      for (int l = 0; l < L; ++l)
-        out[c * block + x * L + l] = pair_installed(
-            u + c * block, pair_faces_of(xf, yf, zf, df, c, N, P), x, l / P,
-            l % P, N, P);
+                                  int P, int* count) {
+  if (pair_install_threads(N, P) == 512)
+    install_grid<512>(u, xf, yf, zf, df, out, Cp, N, P, count);
+  else
+    install_grid<256>(u, xf, yf, zf, df, out, Cp, N, P, count);
 }
+// Kernel B8's grid, one block after another: per pair and block row y
+// the face entries y * kExtractChunk on of the pair, every thread.
+// counts: four arrays (xfo, yfo, zfo, dfo) of one int per entry, or null.
 extern "C" void pair_extract_host(const float* u, float* xfo, float* yfo,
                                   float* zfo, float* dfo, int Cp, int N,
-                                  int P) {
+                                  int P, int* const* counts) {
+  int* none[4] = {};
+  int* const* cnt = counts ? counts : none;
   const long long block = (long long)N * N * P;
+  const int end = pair_face_entries(N, P);
   for (int c = 0; c < Cp; ++c)
-    for (int l = 0; l < N * P; ++l)
-      pair_extract_lane(u + c * block,
-                        pair_stores_of(xfo, yfo, zfo, dfo, c, N, P), l / P,
-                        l % P, N, P);
+    for (int i0 = 0; i0 < end; i0 += kExtractChunk)
+      for (int tid = 0; tid < kExtractThreads; ++tid)
+        pair_extract_range(u + c * block,
+                           face_stores(xfo, yfo, zfo, dfo, cnt, c, N, P), i0,
+                           std::min(i0 + kExtractChunk, end), N, P, tid,
+                           kExtractThreads);
+}
+// The lines of every plane (B7's phase 2), plane by plane: each position
+// as x * L + ly * P + lz in pos[i]; returns the count (pos null: the
+// count only).
+extern "C" int pair_lines_host(int N, int P, int* pos) {
+  int i = 0;
+  for (int x = 0; x < N; ++x)
+    for (int k = 0; k < pair_lines(x, N, P); ++k, ++i) {
+      int ly, lz;
+      pair_line_at(x, k, N, P, ly, lz);
+      if (pos) pos[i] = (x * N + ly) * P + lz;
+    }
+  return i;
+}
+// Per position x * L + ly * P + lz of a block: 1 where pair_source picks
+// a face array, 2 where it picks an x-face, else 0.
+extern "C" void pair_picks_host(int N, int P, int* picks) {
+  const int L = N * P;
+  std::vector<float> u((size_t)N * L), xf(2 * L), yf(2 * L), zf(2 * N * N),
+      df(2 * L);
+  const PairFaces<const float> f{xf.data(), yf.data(), zf.data(), df.data()};
+  for (int x = 0; x < N; ++x)
+    for (int ly = 0; ly < N; ++ly)
+      for (int lz = 0; lz < P; ++lz) {
+        const int i = x * L + ly * P + lz;
+        const float* src = pair_source(u.data(), f, x, ly, lz, N, P);
+        picks[i] = src == u.data() + i ? 0 : (src < xf.data() + 2 * L &&
+                                              src >= xf.data() ? 2 : 1);
+      }
+}
+// The entries of one pair's face arrays laid end to end.
+extern "C" int pair_face_entries_host(int N, int P) {
+  return pair_face_entries(N, P);
+}
+// The extract map both ways, over one pair's face arrays laid end to end
+// (pair_face_entries): src[e] = pair_entry_source(e); and scattered[e] =
+// what pair_store_point stores into entry e when it is called at every
+// position with the position's offset + 1 (exact in f32 below 2^24).
+extern "C" void pair_extract_maps_host(int N, int P, int* src,
+                                       float* scattered) {
+  const int L = N * P;
+  const PairFaceLayout lay = pair_face_layout(N, P);
+  for (int e = 0; e < lay.end; ++e)
+    src[e] = pair_entry_source(e, N, P);
+  const PairStores<CellStore> o{
+      CellStore{scattered}, CellStore{scattered + lay.yf},
+      CellStore{scattered + lay.zf}, CellStore{scattered + lay.df}};
+  for (int i = 0; i < N * L; ++i)
+    pair_store_point(o, i / L, i % L / P, i % P, (float)(i + 1), N, P);
 }
 """
 
@@ -566,8 +665,15 @@ def host_pair_kernels(tmp_path_factory):
     lib.pair_apply_host.argtypes = [P_] * 11 + [I_, I_, I_, P_, I_, I_, P_]
     lib.pair_apply_host.restype = I_
     lib.pair_points_host.argtypes = [P_] * 7 + [I_] * 5
-    lib.pair_install_host.argtypes = [P_] * 6 + [I_, I_, I_]
-    lib.pair_extract_host.argtypes = [P_] * 5 + [I_, I_, I_]
+    lib.pair_install_host.argtypes = [P_] * 6 + [I_, I_, I_, P_]
+    lib.pair_extract_host.argtypes = [P_] * 5 + [I_, I_, I_, P_]
+    lib.pair_lines_host.argtypes = [I_, I_, P_]
+    lib.pair_lines_host.restype = I_
+    lib.pair_picks_host.argtypes = [I_, I_, P_]
+    lib.pair_extract_maps_host.argtypes = [I_, I_, P_, P_]
+    lib.pair_face_entries_host.argtypes = [I_, I_]
+    lib.pair_face_entries_host.restype = I_
+    lib.take_misaligned_quads.restype = I_
     return lib
 
 
@@ -619,14 +725,15 @@ def test_kernel_point_math_matches_plain(host_pair_kernels, name, level,
     faces = tk._face_shapes(Cp, N, P)
     ref = tk.pair_extract_torch(u, N, P)
     got = _unwritten(*faces)
-    host_pair_kernels.pair_extract_host(u.data_ptr(), *_ptrs(got), Cp, N, P)
+    host_pair_kernels.pair_extract_host(u.data_ptr(), *_ptrs(got), Cp, N, P,
+                                        None)
     for g, r in zip(got, ref):
         _assert_equal(g, r)
 
     ref = tk.pair_install_torch(u, xf, yf, zf, df, N, P)
     got, = _unwritten(u.shape)
     host_pair_kernels.pair_install_host(*_ptrs((u, xf, yf, zf, df, got)),
-                                        Cp, N, P)
+                                        Cp, N, P, None)
     _assert_equal(got, ref)
 
     ref = tk.pair_apply_torch(u, c.teng.W, xf, yf, zf, df, N, P)
@@ -662,6 +769,111 @@ def test_kernel_walk_writes_every_slot_once(host_pair_kernels, name, level,
     for cnt in counts:
         assert (cnt == 1).all()
     assert (got[0][_outside(c)] == 0).all()
+
+
+def _lines(lib, N, P):
+    """The lines of every plane (B7's phase 2) as flat offsets x * L + ly *
+    P + lz into a pair's block."""
+    pos = torch.empty(lib.pair_lines_host(N, P, None), dtype=torch.int32)
+    lib.pair_lines_host(N, P, pos.data_ptr())
+    return pos.long()
+
+
+@pytest.mark.parametrize("name,level,pitch", KERNEL_CASES)
+def test_kernel_lines_hold_every_face_position(host_pair_kernels, name,
+                                               level, pitch):
+    """B7's phase 2 list (csrc/tetpair.cuh) at every position of a block:
+    the lines of each plane hold each position at most once, pair_lines(x)
+    on plane x, and every position where pair_source picks a face array
+    other than an x-face; the x-faces (which phase 1 copies) are picked
+    only on planes 0 and n."""
+    N, P = _geometry(level, pitch)
+    n, lib = N - 1, host_pair_kernels
+    lines = torch.bincount(_lines(lib, N, P), minlength=N * N * P)
+    assert lines.max().item() == 1
+    assert lines.view(N, -1).sum(dim=1).tolist() == [
+        2 * P + 2 * (N - 2) + max(n - x - 1, 0) + max(x - 1, 0)
+        for x in range(N)]
+    picks = torch.zeros(N * N * P, dtype=torch.int32)
+    lib.pair_picks_host(N, P, picks.data_ptr())
+    assert (picks == 1).any() and (picks == 2).any()
+    assert not ((picks == 1) & (lines == 0)).any()
+    assert not (picks == 2).view(N, -1)[1:n].any()
+
+
+@pytest.mark.parametrize("name,level,pitch", KERNEL_CASES)
+def test_kernel_extract_gather_matches_scatter(host_pair_kernels, name,
+                                               level, pitch):
+    """B8's map (pair_entry_source: each face entry's slot, or none) is the
+    extract map that B6's walk stores through (pair_store_point), at every
+    entry of the four face arrays: called at every position of a block
+    with that position's offset + 1, pair_store_point writes into each
+    entry exactly the offset + 1 of the slot pair_entry_source names, and
+    0 where it names none."""
+    N, P = _geometry(level, pitch)
+    n_e = host_pair_kernels.pair_face_entries_host(N, P)
+    src = torch.empty(n_e, dtype=torch.int32)
+    scattered = torch.full((n_e,), float("nan"))
+    host_pair_kernels.pair_extract_maps_host(N, P, src.data_ptr(),
+                                             scattered.data_ptr())
+    assert (src >= 0).any() and (src < 0).any()
+    assert src.max().item() < N * N * P
+    _assert_equal(scattered, (src + 1).clamp(min=0).float())
+
+
+@pytest.mark.parametrize("name,level,pitch",
+                         KERNEL_CASES + [("cube1", 6, None)])
+def test_kernel_install_extract_write_counts(host_pair_kernels, name, level,
+                                             pitch):
+    """B8's and B7's walks over all their thread blocks through counting
+    stores: B8 writes every entry of the four face arrays exactly once; B7
+    writes every slot once in phase 1 and once more where it lies on its
+    plane's lines (phase 2). Both equal their plain versions. Level 6
+    (planes of 4225 slots) runs B7's blocks of 512 threads, the others
+    those of 256."""
+    c = _case(name, level, pitch)
+    Cp, N, P = c.teng.Cp, c.N, c.P
+    lib = host_pair_kernels
+    u, xf, yf, zf, df = _state(c, "random")
+    faces = tk._face_shapes(Cp, N, P)
+    counts = [torch.zeros(s, dtype=torch.int32) for s in faces]
+    got = _unwritten(*faces)
+    lib.pair_extract_host(u.data_ptr(), *_ptrs(got), Cp, N, P,
+                          (ctypes.c_void_p * 4)(*_ptrs(counts)))
+    for cnt in counts:
+        assert (cnt == 1).all()
+    for g, r in zip(got, tk.pair_extract_torch(u, N, P)):
+        _assert_equal(g, r)
+
+    count = torch.zeros(u.shape, dtype=torch.int32)
+    out, = _unwritten(u.shape)
+    lib.take_misaligned_quads()
+    lib.pair_install_host(*_ptrs((u, xf, yf, zf, df, out)), Cp, N, P,
+                          count.data_ptr())
+    assert lib.take_misaligned_quads() == 0
+    expected = 1 + torch.bincount(_lines(lib, N, P),
+                                  minlength=N * N * P).view(N, N * P)
+    assert (count == expected.int()).all()
+    _assert_equal(out, tk.pair_install_torch(u, xf, yf, zf, df, N, P))
+
+
+@pytest.mark.parametrize("shift", [1, 3])
+def test_kernel_install_unaligned_block(host_pair_kernels, shift):
+    """B7 on a block u that lies `shift` floats off out's place against
+    16-byte boundaries (a view into its storage): the copy phase takes
+    single loads and stores (no 16-byte access off a 16-byte boundary),
+    and the result is the same."""
+    c = _case("cube2", 3, 13)
+    Cp, N, P = c.teng.Cp, c.N, c.P
+    u, xf, yf, zf, df = _state(c, "applied")
+    us = torch.empty(u.numel() + shift)[shift:].view(u.shape)
+    us.copy_(u)
+    out, = _unwritten(u.shape)
+    host_pair_kernels.take_misaligned_quads()
+    host_pair_kernels.pair_install_host(
+        *_ptrs((us, xf, yf, zf, df, out)), Cp, N, P, None)
+    assert host_pair_kernels.take_misaligned_quads() == 0
+    _assert_equal(out, tk.pair_install_torch(u, xf, yf, zf, df, N, P))
 
 
 @pytest.mark.parametrize("name,level,pitch", [("cube1", 4, None),
