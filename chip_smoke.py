@@ -42,6 +42,16 @@ read just after:
   torch.profiler breakdown of one V-cycle and B5's launches in it by
   level; the manufactured P2 Poisson solve at levels 3-5; the P2
   coefficient apply at level 6;
+- the Stokes path (kernels B5 and B3, their 2D forms in 2D):
+  make_stokes_gmg's P2-P1 Taylor-Hood GMG with inexact-Uzawa smoothing,
+  V(3,3), on the unit cube at P2 level 6, 53,070,468 DoFs, and on the
+  rect at P2 level 8, 9,447,427 DoFs: B3 and B3-2D first held against
+  their plain versions at P1 level 1 (pitch 129 in 3D); four V-cycles on
+  A x = 0 from a random consistent start (gated as the JAX package's test
+  gates them, each cycle's rate reported against 0.6); the block apply
+  and the preconditioner against the plain B5 / B3, the operator's
+  symmetry, a torch.profiler breakdown of one V-cycle with B5's launches
+  by level, and the manufactured solve (MINRES) at two levels;
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
@@ -189,6 +199,36 @@ P2_CYCLES_2D = 8
 P2_FLOOR_REL_2D = 1e-3
 P2_MANUFACTURED_2D = (1, 2, 3)  # drop gated 1 -> 2; 3 sits at the f32 floor
 P2_MANUFACTURED_MIN_2D = 0
+# the Stokes path (BASELINE config 3): make_stokes_gmg's P2-P1 Taylor-Hood
+# GMG with inexact-Uzawa smoothing, V(3,3), omega_p 0.4
+# (tests/test_stokes.py:157), MINRES with the block-diagonal
+# preconditioner on level 1 (make_stokes_gmg's 80 steps at most, rtol 1e-8)
+STOKES_LEVEL = 6          # 3D, mesh_unit_cube(2): 53,070,468 DoFs
+STOKES_LEVEL_2D = 8       # 2D, the rect: 9,447,427 DoFs
+STOKES_MIN_LEVEL = 1
+STOKES_KW = {"pre_smooth": 3, "post_smooth": 3, "omega_p": 0.4}
+STOKES_APPLY_RTOL = 1e-5  # the block apply and the preconditioner vs plain
+STOKES_SYM_RTOL = 2e-3    # <b, A a> vs <a, A b> (tests/test_stokes.py:97)
+# V-cycle on A x = 0 from a random consistent start: the JAX package's
+# gate (tests/test_stokes.py:179-180) on cycles 1-4, the best cycle's rate
+# <= 0.6 and the residual below 0.02 of the start; each cycle's rate is
+# reported against 0.6 (the method misses it: ROADMAP.md C-ref8)
+STOKES_RATE_MAX = 0.6
+STOKES_FINAL_MAX = 0.02
+STOKES_CYCLES = 4
+# manufactured solve (u = curl psi, tests/test_stokes.py:19-23 in 2D) by
+# MINRES with the block-diagonal preconditioner (tests/test_stokes.py:
+# 101-145), which must meet its own stopping test: the velocity L2 error
+# drop (O(h^3): 8x), in 3D from level 3 to 4, in 2D (the rect's 32 faces)
+# from 1 to 2. The true float32 residual is reported against the JAX
+# test's 1e-4 of |b| (tests/test_stokes.py:133, 2D level 2): it grows
+# with the level, ~5x a level, and misses 1e-4 at 3D level 4 in the JAX
+# package alike (PERF.md section 6)
+STOKES_MANUFACTURED = {3: (3, 4), 2: (1, 2)}
+STOKES_MINRES_RTOL = 1e-6
+STOKES_MINRES_ITERS = 6000
+STOKES_MINRES_RESIDUAL = 1e-4
+STOKES_ERR_DROP_MIN = 4.0
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -1368,10 +1408,11 @@ def ms_lost(kernel_ms: float, launches: dict, bounds: dict) -> float:
     return kernel_ms - sum(n * bounds[lv] for lv, n in launches.items())
 
 
-def cycle_profile(cycle, cycle_ms: float, kernels: dict) -> dict:
-    """torch.profiler over one V-cycle (``cycle()``) after two warm-up
-    cycles: device
-    time, the idle share of the cycle (1 - device kernel time /
+def cycle_profile(cycle, cycle_ms: float, kernels: dict,
+                  warmup: int = 2) -> dict:
+    """torch.profiler over one V-cycle (``cycle()``) after ``warmup``
+    warm-up cycles, CUDA activity only (the CPU ops' event tree of a cycle
+    of ~10^5 launches takes minutes to build): device time, the idle share of the cycle (1 - device kernel time /
     ``cycle_ms``, the cycle's CUDA-event time from the same run: the
     profiled window's host wall, reported beside it, carries the
     profiler's own overhead), the ms and launches of each group in
@@ -1380,11 +1421,10 @@ def cycle_profile(cycle, cycle_ms: float, kernels: dict) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(warmup):
         cycle()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         cycle()
         torch.cuda.synchronize()
@@ -1392,6 +1432,7 @@ def cycle_profile(cycle, cycle_ms: float, kernels: dict) -> dict:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(r[1] for r in rows)
+    check(device_ms > 0, "the profiler recorded no device time")
     mine = {}
     for name, tags in kernels.items():
         sel = [r for r in rows if any(t in r[0].lower() for t in tags)]
@@ -1404,6 +1445,351 @@ def cycle_profile(cycle, cycle_ms: float, kernels: dict) -> dict:
             "other_device_ms": device_ms - sum(v["ms"] for v in mine.values()),
             "top": [{"name": k[:80], "ms": v, "count": c}
                     for k, v, c in rows[:12]]}
+
+
+def stokes_fields(dim: int):
+    """u = curl psi, p = cos(pi x) cos(pi y) (cos(pi z)) and the forcing
+    f = -lap u + grad p, with psi = sin^2(pi x) sin^2(pi y) (2D,
+    tests/test_stokes.py:19-23) or the z-component (0, 0, psi) of a
+    vector potential, psi = sin^2(pi x) sin^2(pi y) sin^2(pi z) (3D).
+    Callables of coords (..., 3); u vanishes on the boundary."""
+    pi = math.pi
+    S = lambda t: torch.sin(pi * t) ** 2
+    S1 = lambda t: pi * torch.sin(2 * pi * t)
+    S2 = lambda t: 2 * pi ** 2 * torch.cos(2 * pi * t)
+    S3 = lambda t: -4 * pi ** 3 * torch.sin(2 * pi * t)
+    c, s_ = (lambda t: torch.cos(pi * t)), (lambda t: torch.sin(pi * t))
+    Z = (lambda z: S(z)) if dim == 3 else (lambda z: 1.0)
+    Z2 = (lambda z: S2(z)) if dim == 3 else (lambda z: 0.0)
+    C = (lambda z: c(z)) if dim == 3 else (lambda z: 1.0)
+    xyz = lambda p: (p[..., 0], p[..., 1], p[..., 2])
+
+    def u0(p):
+        x, y, z = xyz(p)
+        return S(x) * S1(y) * Z(z)
+
+    def u1(p):
+        x, y, z = xyz(p)
+        return -S1(x) * S(y) * Z(z)
+
+    def pres(p):
+        x, y, z = xyz(p)
+        return c(x) * c(y) * C(z)
+
+    def f0(p):
+        x, y, z = xyz(p)
+        lap = (S2(x) * S1(y) * Z(z) + S(x) * S3(y) * Z(z)
+               + S(x) * S1(y) * Z2(z))
+        return -lap - pi * s_(x) * c(y) * C(z)
+
+    def f1(p):
+        x, y, z = xyz(p)
+        lap = (S3(x) * S(y) * Z(z) + S1(x) * S2(y) * Z(z)
+               + S1(x) * S(y) * Z2(z))
+        return lap - pi * c(x) * s_(y) * C(z)
+
+    vel, force = [u0, u1], [f0, f1]
+    if dim == 3:
+        vel.append(lambda p: torch.zeros_like(p[..., 0]))
+        force.append(lambda p: -pi * c(p[..., 0]) * c(p[..., 1])
+                     * s_(p[..., 2]))
+    return vel, pres, force
+
+
+def stokes_rand_vec(st, gen):
+    """A random Taylor-Hood vector: replicas consistent, velocity 0 on
+    Dirichlet rows, the pressure's mean projected out."""
+    from hyteg_tpu_torch.composites.stokes import TaylorHoodVec
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+
+    x = st.zeros()
+    vel = torch.randn(x.vel.shape, generator=gen, device=x.vel.device)
+    vel *= st.vel_space.vertex_mask_t
+    for d in range(st.dim):
+        vel[d] = st.vel_space.exchange_rep(vel[d], st._vel_sd)
+    pre = torch.randn(x.pre.shape, generator=gen, device=x.pre.device)
+    pre = st.pre_space.exchange_rep(pre * st.pre_space.vertex_mask_t,
+                                    st._pre_sd)
+    return TaylorHoodVec(st._restore_vel_(vel, None, FLAG_INNER),
+                         st.project_mean(pre))
+
+
+def stokes_plain(st):
+    """The composite's apply_inner and block-diagonal preconditioner with
+    the plain versions of B5 (K, per component) and B3 (the lumped
+    pressure mass) in place of the kernels, on the same device."""
+    from hyteg_tpu_torch.composites.stokes import TaylorHoodVec
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+
+    vsp, psp = st.vel_space, st.pre_space
+
+    def apply_inner(x):
+        vel = torch.stack([b5.p2_const_apply_torch(
+            x.vel[d], st.K.stencil_folded, vsp.level, vsp.pitch, st.dim)
+            for d in range(st.dim)]) * st.visc
+        vel += st.B.apply_gradient_local(x.pre)
+        div = st.B.apply_div_local(x.vel.unbind(0))
+        return TaylorHoodVec(
+            st._restore_vel_(st._exchange_vel_(vel), None, FLAG_INNER),
+            st._mask_pressure_(psp._exchange_add_(div, st._pre_sd)))
+
+    d = b3.p1_diagonal_local_torch(st.pmass.elmats, psp.level, st.dim,
+                                   psp.pitch, True)
+    pinv = st.pmass._inverse(psp._exchange_add_(d, st._pre_sd))
+    kdiag = st.K_inverse_diagonal()
+    return apply_inner, lambda r: TaylorHoodVec(kdiag * r.vel, pinv * r.pre)
+
+
+def stokes_vec_err(a, b) -> float:
+    """max |a - b| over velocity and pressure / max |b|."""
+    err = max((a.vel - b.vel).abs().max().item(),
+              (a.pre - b.pre).abs().max().item())
+    return err / max(b.vel.abs().max().item(), b.pre.abs().max().item())
+
+
+def stokes_manufactured(storage, level: int, device) -> dict:
+    """The manufactured Stokes solve at one level (mesh's own pitch): b =
+    (M f, 0), x0 = 0, MINRES with the block-diagonal preconditioner to
+    STOKES_MINRES_RTOL (its true residual reported against
+    STOKES_MINRES_RESIDUAL); the velocity L2 error (P2 mass) against the
+    interpolant of u and the pressure's discrete l2 error (both means
+    projected) relative to the interpolant's."""
+    from hyteg_tpu_torch.composites.stokes import (P2P1TaylorHoodStokes,
+                                                   TaylorHoodVec)
+    from hyteg_tpu_torch.core.types import DoFType, FLAG_INNER
+    from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
+    from hyteg_tpu_torch.solvers.krylov import minres_solve
+
+    st = P2P1TaylorHoodStokes(storage, level, device=device)
+    vsp, psp = st.vel_space, st.pre_space
+    vel, pres, force = stokes_fields(st.dim)
+    mass = P2ElementwiseOperator(vsp, "mass")
+    bvel = torch.stack([vsp.restore_rows(
+        mass.apply_raw(vsp.interpolate(f, vsp.zeros(), DoFType.ALL,
+                                       st._vel_sd)),
+        vsp.zeros(), FLAG_INNER, st._vel_sd) for f in force])
+    b = TaylorHoodVec(bvel, psp.zeros())
+    t0 = time.perf_counter()
+    x, iters, phibar = minres_solve(st.apply_inner, st.dot, b, st.zeros(),
+                                    STOKES_MINRES_ITERS, STOKES_MINRES_RTOL,
+                                    st.block_diag_preconditioner())
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    r = (st.norm(b - st.apply_inner(x)) / st.norm(b)).item()
+    uex = st.interpolate_velocity(vel, st.zeros())
+    e = x.vel - uex.vel
+    vel_err = math.sqrt(sum(vsp.dot(e[d], mass.apply_raw(e[d])).item()
+                            for d in range(st.dim)))
+    pex = st.project_mean(st.interpolate_pressure(pres, st.zeros()).pre)
+    pe = st.project_mean(x.pre) - pex
+    pre_err = (torch.sqrt(psp.dot(pe, pe)) / torch.sqrt(psp.dot(pex, pex))
+               ).item()
+    check(iters < STOKES_MINRES_ITERS and math.isfinite(r),
+          f"Stokes MINRES level {level}: {iters} steps, residual {r}")
+    check(math.isfinite(vel_err) and math.isfinite(pre_err),
+          f"Stokes manufactured level {level}: non-finite error")
+    return {"level": level, "global_dofs": st.dim * vsp.num_global_dofs()
+            + psp.num_global_dofs(), "minres_steps": iters,
+            "relative_residual": r,
+            "residual_le_1e_4": r <= STOKES_MINRES_RESIDUAL,
+            "solve_s": solve_s,
+            "velocity_l2_error": vel_err, "pressure_rel_l2_error": pre_err}
+
+
+def stokes_run(storage, level: int, device, card: str, tag: str) -> dict:
+    """The Stokes path at one size: make_stokes_gmg from P2 level 1 to
+    ``level``, its V-cycle on A x = 0 from a random consistent start
+    (kernels B5 and B3 counted: the main path), then the checks (block
+    apply and preconditioner against the plain B5 / B3, symmetry), a
+    profile of one V-cycle, and the manufactured solves."""
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.solvers.uzawa import make_stokes_gmg
+
+    suffix = "_2d" if storage.dim == 2 else ""
+    counted = (b5.p2_const_apply, b3.p1_diagonal_local)
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted:  # the main path: every count starts at 0 here
+        setattr(w, "launches" + suffix, 0)
+    t0 = time.perf_counter()
+    stack = make_stokes_gmg(storage, STOKES_MIN_LEVEL, level, device=device,
+                            **STOKES_KW)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    st = stack.stokes[level]
+    gen = torch.Generator(device=device).manual_seed(130 + storage.dim)
+    x = stokes_rand_vec(st, gen)
+    b = st.zeros()
+    res, cycle_ms = [st.norm(b - st.apply_inner(x)).item()], []
+    for _ in range(STOKES_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        x = stack.gmg.cycle(x, b)
+        ev[1].record()
+        res.append(st.norm(b - st.apply_inner(x)).item())
+        cycle_ms.append(ev[0].elapsed_time(ev[1]))
+    torch.cuda.synchronize()
+    steps = {"setup": setup_s, "cycles": time.perf_counter() - t0 - setup_s}
+    launches = {w.__name__ + suffix: getattr(w, "launches" + suffix)
+                for w in counted}
+    rates = [res[i + 1] / res[i] for i in range(STOKES_CYCLES)]
+    out = {"mesh": tag, "level": level, "min_level": STOKES_MIN_LEVEL,
+           "global_dofs": st.dim * st.vel_space.num_global_dofs()
+           + st.pre_space.num_global_dofs(),
+           "vel_block": [st.dim] + list(st.vel_space.block_shape),
+           "pre_block": list(st.pre_space.block_shape),
+           "eigs": stack.eigs, "setup_s": setup_s, "residuals": res,
+           "rates": rates, "each_rate_le_0_6": all(r <= STOKES_RATE_MAX
+                                                   for r in rates),
+           "launches": launches}
+    check(all(math.isfinite(r) for r in res),
+          f"Stokes {tag} V-cycle: non-finite residuals {res}")
+    check(min(rates) <= STOKES_RATE_MAX,
+          f"Stokes {tag} V-cycle: best rate {min(rates)} > {STOKES_RATE_MAX}")
+    check(res[-1] <= STOKES_FINAL_MAX * res[0],
+          f"Stokes {tag} V-cycle: residual {res[-1]} > {STOKES_FINAL_MAX}"
+          f" * {res[0]} after {STOKES_CYCLES} cycles")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the Stokes path ({tag})")
+
+    # the block apply and the preconditioner against the plain B5 / B3
+    apply_plain, prec_plain = stokes_plain(st)
+    a = stokes_rand_vec(st, gen)
+    y = st.apply_inner(a)
+    out["apply_vs_plain_rel"] = stokes_vec_err(y, apply_plain(a))
+    out["prec_vs_plain_rel"] = stokes_vec_err(
+        st.block_diag_preconditioner()(y), prec_plain(y))
+    for k in ("apply_vs_plain_rel", "prec_vs_plain_rel"):
+        check(math.isfinite(out[k]) and out[k] <= STOKES_APPLY_RTOL,
+              f"Stokes {tag} {k} {out[k]} > {STOKES_APPLY_RTOL}")
+    c = stokes_rand_vec(st, gen)
+    s1, s2 = st.dot(c, y).item(), st.dot(a, st.apply_inner(c)).item()
+    out["symmetry"] = {"b_Aa": s1, "a_Ab": s2,
+                       "rel": abs(s1 - s2) / abs(s1)}
+    check(abs(s1 - s2) <= STOKES_SYM_RTOL * abs(s1),
+          f"Stokes {tag} operator not symmetric: {s1} vs {s2}")
+    del a, c, y
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t1 = time.perf_counter()
+    steps["checks"] = t1 - t0 - sum(steps.values())
+
+    # one V-cycle's time split: CUDA events around each of the four cycles
+    # above (their median), torch.profiler over one more, whose B5
+    # launches by level the wrapper counts
+    out["cycle_ms"] = cycle_ms
+    out["ms_per_vcycle"] = sorted(cycle_ms)[len(cycle_ms) // 2]
+    by_level = getattr(b5.p2_const_apply, "launches_by_level" + suffix)
+    by_level.clear()
+    prof = cycle_profile(lambda: stack.gmg.cycle(x, b), out["ms_per_vcycle"],
+                         {"b5": ("p2_const_apply_kernel",
+                                 "p2_const_apply_2d_kernel"),
+                          "b3": ("p1_diag",),
+                          "index": ("index", "scatter", "gather"),
+                          "reduce": ("reduce",)}, warmup=0)
+    by_level = dict(sorted(by_level.items()))
+    steps["profile"] = time.perf_counter() - t1
+    B = st.B
+    div = lambda: B.apply_div_local(x.vel.unbind(0))
+    grad = lambda: B.apply_gradient_local(x.pre)
+    div_ms, grad_ms = median_ms(div, 3), median_ms(grad, 3)
+    k_ms = median_ms(lambda: st.apply_K(x.vel), 3)
+    # device time of one div and one gradient on the finest level (the
+    # profiler's, as the cycle's device_ms); per level and cycle there is
+    # one of each in every Uzawa sweep and in the residual
+    div_dev = cycle_profile(div, div_ms, {}, warmup=1)["device_ms"]
+    grad_dev = cycle_profile(grad, grad_ms, {}, warmup=1)["device_ms"]
+    per_cycle = STOKES_KW["pre_smooth"] + STOKES_KW["post_smooth"] + 1
+    emit("stokes_profile" + suffix, card=card, level=level, **prof,
+         b5_launches_by_level=by_level,
+         b5_launches_per_vcycle=sum(by_level.values()),
+         div_ms=div_ms, grad_ms=grad_ms, apply_K_ms=k_ms,
+         div_device_ms=div_dev, grad_device_ms=grad_dev,
+         divgrad_device_ms_finest_level_per_cycle=per_cycle
+         * (div_dev + grad_dev),
+         divgrad_share_of_cycle_device_ms=per_cycle * (div_dev + grad_dev)
+         / prof["device_ms"])
+    out["b5_launches_per_vcycle"] = sum(by_level.values())
+    del stack, st, x, b, B, apply_plain, prec_plain
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    steps["pass_timings"] = t2 - t0 - sum(steps.values())
+
+    # the manufactured solve (the mesh's own pitch at each level)
+    lo, hi = STOKES_MANUFACTURED[storage.dim]
+    man = [stokes_manufactured(storage, lv, device) for lv in (lo, hi)]
+    for m in man:
+        emit("stokes_manufactured" + suffix, card=card, **m)
+    drop = man[0]["velocity_l2_error"] / man[1]["velocity_l2_error"]
+    out["velocity_error_drop"] = drop
+    steps["manufactured"] = time.perf_counter() - t2
+    out["step_s"] = steps
+    out["pressure_error_drop"] = (man[0]["pressure_rel_l2_error"]
+                                  / man[1]["pressure_rel_l2_error"])
+    check(drop >= STOKES_ERR_DROP_MIN,
+          f"Stokes {tag} velocity error dropped {drop}x from level {lo} "
+          f"to {hi}, < {STOKES_ERR_DROP_MIN}x")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_b3_stokes_levels(storage, levels, device, seed: int) -> dict:
+    """B3 (B3-2D on a 2D mesh) against its plain version on the pressure
+    mass (lumped and not) at P1 levels the Stokes stack reaches below the
+    other phases' checks (pitch 129 in 3D)."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import compute_elmats
+
+    out = {}
+    for level in levels:
+        sp = P1Space(storage, level, device=device, pitch=PITCH)
+        elm = compute_elmats(sp, forms.mass_form,
+                             sp.resolve_sd().cell_vertices).contiguous()
+        outside = ~sp.vertex_mask_t.bool()
+        for lumped in (False, True):
+            args = (elm, level, sp.dim, sp.pitch, lumped)
+            d, d_ref = b3.p1_diagonal_local(*args), \
+                b3.p1_diagonal_local_torch(*args)
+            err, scale = max_abs_diff(d, d_ref), d_ref.abs().max().item()
+            tag = f"level{level}_mass{'_lumped' if lumped else ''}"
+            check(math.isfinite(err) and err <= B3_RTOL * scale,
+                  f"B3 ({sp.dim}D) {tag}: max|dd| {err} > {B3_RTOL} * "
+                  f"{scale}")
+            check(not d[:, outside].any().item(),
+                  f"B3 ({sp.dim}D) {tag}: nonzero outside the simplex")
+            out[tag] = {"max_abs_err": err, "max_abs": scale,
+                        "block": list(sp.block_shape), "pitch": sp.pitch}
+    return out
+
+
+def run_stokes(storage3d, device, card: str) -> dict:
+    """The Stokes path, 3D on mesh_unit_cube(2) at P2 level 6 and 2D on
+    the rect at P2 level 8 (phases stokes_kernels, stokes, stokes_2d,
+    stokes_profile(_2d), stokes_manufactured(_2d)). Returns the launches
+    and errors for the kernels line."""
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_rectangle
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    rect = CellStorage(mesh_rectangle(**RECT_2D))
+    t0 = time.perf_counter()
+    b3c = {"3d": check_b3_stokes_levels(storage3d, (1,), device, 140),
+           "2d": check_b3_stokes_levels(rect, (1,), device, 141)}
+    emit("stokes_kernels", card=card, b3_vs_plain=b3c)
+    errs = {"p1_diagonal_local": max(
+        v["max_abs_err"] for v in b3c["3d"].values()),
+        "p1_diagonal_local_2d": max(
+            v["max_abs_err"] for v in b3c["2d"].values())}
+    res3 = stokes_run(storage3d, STOKES_LEVEL, device, card,
+                      f"mesh_unit_cube({MESH_N})")
+    emit("stokes", card=card, **res3)
+    res2 = stokes_run(rect, STOKES_LEVEL_2D, device, card,
+                      "mesh_rectangle(nx=4, ny=4)")
+    emit("stokes_2d", card=card, **res2)
+    return {"launches": {**res3["launches"], **res2["launches"]},
+            "errs": errs, "phase_s": time.perf_counter() - t0}
 
 
 def run_2d(device, card: str) -> dict:
@@ -1936,6 +2322,11 @@ def main() -> int:
     b4_coeff["2d"] = arm2d["b4_coeff"]
     emit("b4_coeff", card=card, **b4_coeff)
 
+    # -- the Stokes path (B5, B3; B5-2D, B3-2D) --------------------------------
+    stokes = run_stokes(storage, device, card)
+    emit("stokes_checks", phase_s=stokes["phase_s"],
+         launches=stokes["launches"])
+
     # -- the paired-tet engine (B6, B7, B8): bench_tet's path ----------------
     storages = {"cube": storage, "shell": tetpair_storage("shell")}
     tp_checks = []
@@ -2259,6 +2650,14 @@ def main() -> int:
                 "b8_bound_ms_whole_arrays", "b8_sector_floor_ms",
                 "b8_library_ms", "b8_library_graph_ms",
                 "b8_take_fill_graph_ms")} for c in b78_cases]}}
+    # the Stokes path's launches of B5 / B3 (3D and 2D) join the counts of
+    # the earlier paths that launch them
+    for name, n in stokes["launches"].items():
+        extra.setdefault(name, {})["launches_by_path"] = {
+            "earlier_paths": launches[name], "stokes": n}
+        launches[name] += n
+    for name, e in stokes["errs"].items():
+        errs[name] = max(errs[name], e)
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

@@ -378,3 +378,43 @@ class P1Space:
     def function(self, bc: BoundaryCondition | None = None) -> P1Function:
         return P1Function(self.zeros(), self,
                           bc or BoundaryCondition.all_dirichlet())
+
+    # -- global enumeration (reference: VertexDoFFunction::enumerate) --------
+
+    @functools.cached_property
+    def _interior_pack(self) -> np.ndarray:
+        """(N, lanes) int64: lexicographic index among cell-interior
+        positions, -1 elsewhere."""
+        imask = self.interior_mask
+        pack = np.full(imask.shape, -1, dtype=np.int64)
+        pack[imask] = np.arange(int(imask.sum()))
+        return pack
+
+    def global_ids(self, shard: int = 0) -> np.ndarray:
+        """(C, N, lanes) int64 global DoF id per position of the flat block
+        layout; -1 outside the macro-simplex, on padding lanes and on
+        padding cells. Host-side (numpy): sparse assembly and tests."""
+        m = self.maps
+        out = np.full(self.block_shape, -1, dtype=np.int64)
+        flat_out = out.reshape(-1)
+        sf, sg = m.slot_flat[shard], m.slot_gid[shard]
+        ok = (sf < flat_out.shape[0]) & (sg < m.num_ifc)
+        flat_out[sf[ok]] = sg[ok]
+        lo = shard * self.C_loc
+        sel = self._interior_pack >= 0
+        for c in range(self.C_loc):
+            if not self.storage.cell_valid[lo + c]:
+                out[c] = -1
+                continue
+            gci = self.storage.cell_global_index[lo + c]
+            out[c][sel] = (m.num_ifc + gci * m.num_interior_per_cell
+                           + self._interior_pack[sel])
+        return out
+
+    def global_ids_grid(self, shard: int = 0) -> np.ndarray:
+        """(C, N, N, N) / (C, N, N) grid view of global_ids, indexed by
+        (x, y, z) (host-side)."""
+        g = self.global_ids(shard)
+        if self.dim == 2:
+            return g
+        return flat.unflatten_field(g, self.N, self.pitch)

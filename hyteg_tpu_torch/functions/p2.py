@@ -102,6 +102,12 @@ class P2Space:
     def cell_vertices(self, shard: int = 0) -> np.ndarray:
         return self.node_space.cell_vertices(shard)
 
+    def global_ids(self, shard: int = 0) -> np.ndarray:
+        return self.node_space.global_ids(shard)
+
+    def global_ids_grid(self, shard: int = 0) -> np.ndarray:
+        return self.node_space.global_ids_grid(shard)
+
     @property
     def vertex_mask(self) -> np.ndarray:
         return self.node_space.vertex_mask

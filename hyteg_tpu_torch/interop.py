@@ -77,3 +77,41 @@ def lane_weights_from_reference(w_vecs: np.ndarray, *, device) -> torch.Tensor:
     ``box_apply`` (the kernel takes f32 weights whatever the block dtype)."""
     return torch.tensor(np.asarray(w_vecs, dtype=np.float32),
                         dtype=torch.float32, device=device)
+
+
+STOKES_ELMATS = ("laplace", "div", "p1_mass", "epsilon")
+
+
+def stokes_elmats_from_reference(arrays: dict, *, device,
+                                 dtype=torch.float32) -> dict:
+    """The element matrices of a JAX ``P2P1TaylorHoodStokes`` as numpy, by
+    name: "laplace" (C, T, nn, nn) (``K.elmats``), "div" (C, T, nv, nn,
+    dim) (``B.elmats``), "p1_mass" (C, T, nv, nv) (the pressure mass
+    operator's), "epsilon" (C, T, dim, dim, nn, nn) (``K_eps.elmats``);
+    any subset -> tensors for ``P2P1TaylorHoodStokes(..., elmats=...)`` or
+    ``make_stokes_gmg(..., elmats={level: ...})``."""
+    unknown = set(arrays) - set(STOKES_ELMATS)
+    if unknown:
+        raise ValueError(f"unknown Stokes element matrices {sorted(unknown)}")
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in arrays.items()}
+
+
+def taylor_hood_from_reference(vel, pre, *, device, dtype=torch.float32):
+    """A JAX ``TaylorHoodVec``'s arrays (``vel``: a sequence of dim
+    (C, M, M*pitch) blocks, ``pre``: (C, N, N*pitch); 2D blocks square)
+    -> the port's TaylorHoodVec, its velocity one (dim, C, M, lanes)
+    block."""
+    from .composites.stokes import TaylorHoodVec
+
+    return TaylorHoodVec(
+        torch.tensor(np.stack([np.asarray(v) for v in vel]), dtype=dtype,
+                     device=device),
+        torch.tensor(np.asarray(pre), dtype=dtype, device=device))
+
+
+def taylor_hood_to_numpy(x) -> tuple:
+    """The port's TaylorHoodVec -> (tuple of dim velocity blocks, pressure
+    block) as numpy on the host."""
+    return (tuple(block_to_numpy(v) for v in x.vel.unbind(0)),
+            block_to_numpy(x.pre))

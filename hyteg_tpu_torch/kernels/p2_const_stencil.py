@@ -281,24 +281,34 @@ def _kernel_dirs(dim: int = 3) -> np.ndarray:
     return np.ascontiguousarray(dirs, dtype=np.int32)
 
 
-def p2_const_apply(src, W, level: int, pitch: int, dim: int = 3):
+def p2_const_apply(src, W, level: int, pitch: int, dim: int = 3, out=None):
     """Per-cell parity-stencil P2 apply (partial sums on interface rows).
 
     src: (C, M, M*pitch) in 3D or (C, M, M) in 2D, M = 2^(level+1)+1; W:
     the (C, n_rows(dim), n_s) p2_folded_weights of the stencil tables A
-    (p2_stencil_weights) and E (p2_face_weights). A CPU tensor runs the
-    plain version; a CUDA tensor launches kernel B5
+    (p2_stencil_weights) and E (p2_face_weights); ``out``: an optional
+    contiguous block like src that receives the result (every slot is
+    written), e.g. one component of a stacked vector. A CPU tensor runs
+    the plain version; a CUDA tensor launches kernel B5
     (csrc/p2_const_stencil.cu) and counts the launch in
     ``p2_const_apply.launches`` (3D) or ``p2_const_apply.launches_2d``."""
     if src.device.type == "cpu":
-        return p2_const_apply_torch(src, W, level, pitch, dim)
+        y = p2_const_apply_torch(src, W, level, pitch, dim)
+        return y if out is None else out.copy_(y)
     M = (2 << level) + 1
     C = src.shape[0]
     dirs = _kernel_dirs(dim)
     lanes = M * pitch if dim == 3 else M
     _check_cuda_input("src", src, (C, M, lanes))
     _check_cuda_input("W", W, (C, n_rows(dim), dirs.shape[0]))
-    dst = torch.empty_like(src)
+    if out is None:
+        dst = torch.empty_like(src)
+    else:
+        _check_cuda_input("out", out, (C, M, lanes))
+        lo, hi = src.data_ptr(), src.data_ptr() + src.nbytes
+        if lo < out.data_ptr() + out.nbytes and out.data_ptr() < hi:
+            raise ValueError("out must not overlap src")
+        dst = out
     lib = build.library()
     if dim == 3:
         rc = lib.hyteg_p2_const_apply(

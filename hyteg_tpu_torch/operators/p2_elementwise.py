@@ -197,12 +197,14 @@ class P2ElementwiseOperator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_raw(x)
 
-    def _apply_local(self, x, coeff=None):
-        """Per-cell partial apply (no exchange)."""
+    def _apply_local(self, x, coeff=None, out=None):
+        """Per-cell partial apply (no exchange); the constant apply writes
+        into ``out`` when given."""
         sp = self.space
         if coeff is None:
             return p2_const_apply(x, self.stencil_folded, sp.level, sp.pitch,
-                                  sp.dim)
+                                  sp.dim, out=out)
+        assert out is None, "out= is for the constant apply"
         return p2_apply_local(x, self.elmats, sp.level, sp.dim, sp.pitch,
                               coeff)
 

@@ -1,7 +1,8 @@
-"""Krylov solvers on raw DoF blocks; torch counterpart of the CG solvers
-of hyteg_tpu/solvers/krylov.py.
+"""Krylov solvers on raw DoF blocks; torch counterpart of
+hyteg_tpu/solvers/krylov.py.
 
-Reference: src/hyteg/solvers/CGSolver.hpp:94 (preconditioned CG).
+Reference: src/hyteg/solvers/CGSolver.hpp:94 (preconditioned CG),
+MinresSolver.hpp (preconditioned MINRES).
 ``apply_fn`` must return A x restricted to the solved rows (zero on
 Dirichlet rows) and ``dot_fn`` must count every global DoF exactly once
 (the reference's dotGlobal) and return a 0-dim tensor.
@@ -56,6 +57,69 @@ def cg_solve(
         rr = dot_fn(r, r)
         k += 1
     return CGResult(x, k, rr)
+
+
+def _zeros_like(v):
+    return torch.zeros_like(v) if isinstance(v, torch.Tensor) else v.zeros_like()
+
+
+def _nonzero(s: torch.Tensor) -> torch.Tensor:
+    return torch.where(s == 0, 1.0, s)
+
+
+def minres_solve(
+    apply_fn: Callable,
+    dot_fn: Callable,
+    b,
+    x0,
+    max_iter: int,
+    rtol: float = 1e-8,
+    prec_fn: Callable | None = None,
+):
+    """Preconditioned MINRES (reference: src/hyteg/solvers/MinresSolver.hpp),
+    the Stokes/saddle-point workhorse. Operands are tensors or any vector
+    with +, -, multiplication by a 0-dim tensor and ``zeros_like()`` (a
+    TaylorHoodVec). Runs until the residual estimate phibar <= rtol *
+    beta1 or ``max_iter`` steps, reading phibar on the host once per step.
+    Returns (x, iterations, phibar)."""
+    prec = prec_fn if prec_fn is not None else (lambda r: r)
+
+    r1 = b - apply_fn(x0)
+    y = prec(r1)
+    beta1 = torch.sqrt(torch.clamp(dot_fn(r1, y), min=0.0))
+    tol = rtol * float(beta1)
+    zero = torch.zeros_like(beta1)
+    x, r2 = x0, r1
+    oldb, beta, dbar, epsln, phibar = zero, beta1, zero, zero, beta1
+    cs, sn = zero - 1.0, zero
+    w, w2 = _zeros_like(x0), _zeros_like(x0)
+    k = 0
+    while k < max_iter and float(phibar) > tol:
+        v = (1.0 / _nonzero(beta)) * y
+        y = apply_fn(v)
+        if k >= 1:
+            y = y - (beta / _nonzero(oldb)) * r1
+        alfa = dot_fn(v, y)
+        y = y - (alfa / _nonzero(beta)) * r2
+        r1, r2 = r2, y
+        y = prec(r2)
+        oldb = beta
+        beta = torch.sqrt(torch.clamp(dot_fn(r2, y), min=0.0))
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.clamp(torch.sqrt(gbar ** 2 + beta ** 2), min=1e-30)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = (1.0 / gamma) * (v - oldeps * w1 - delta * w2)
+        x = x + phi * w
+        k += 1
+    return x, k, phibar
 
 
 def cg_solve_fixed(
