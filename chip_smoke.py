@@ -52,6 +52,22 @@ read just after:
   and the preconditioner against the plain B5 / B3, the operator's
   symmetry, a torch.profiler breakdown of one V-cycle with B5's launches
   by level, and the manufactured solve (MINRES) at two levels;
+- the blended-geometry path (BASELINE config 4; kernels B2-2D, B2 and
+  B3 on it, the blended operators plain torch): on the annulus
+  mesh_annulus(0.5, 1, 12, 2) with the radial map, the rims and the area
+  (against the affine mass, B2-2D) at P1 level 11, 100,687,872 DoFs, the
+  exact blended Laplace apply timed there, the manufactured u = ln r by CG
+  at levels 3-5 and the LSQP surrogate's error at level 4, degrees 1-3
+  (``blend_2d``); on the 1920-tet shell with IcosahedralShellMap at P1
+  level 5, 10,649,730 DoFs, the identity-map blended apply against the
+  affine apply (B2), rims, volume, symmetry, the exact apply timed, the
+  surrogate at degrees 1-3 timed and the manufactured u = 1/r at levels
+  3-4 (``blend_shell``); tests/test_p2_blended.py's blended Stokes gate
+  on mesh_spherical_shell(1, 2, 0.55, 1), then make_stokes_gmg(...,
+  gmap=...) on the 1920-tet shell at P2 levels 0-4, 33.3M DoFs: four
+  V(2,2) cycles on A x = 0 (each rate reported against 0.2), with a
+  torch.profiler breakdown of one cycle and B3's launches at set-up
+  (``blend_stokes``);
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
@@ -229,6 +245,46 @@ STOKES_MINRES_RTOL = 1e-6
 STOKES_MINRES_ITERS = 6000
 STOKES_MINRES_RESIDUAL = 1e-4
 STOKES_ERR_DROP_MIN = 4.0
+# the blended path (BASELINE config 4): RadialMap on the annulus and
+# IcosahedralShellMap on the shell, exact blended operators (plain torch)
+BLEND_ANNULUS = (0.5, 1.0, 12, 2)  # mesh_annulus: 48 faces
+BLEND_LEVEL_2D = 11    # 100,687,872 DoFs, one (48, 2049, 2049) 806 MB block
+BLEND_LEVEL_3D = 5     # the shell (SHELL): 10,649,730 DoFs
+RIM_ATOL = 1e-5        # tests/test_blending.py::test_radial_map_snaps_rims
+AREA_RATIO_MAX = 0.05  # blended area / volume error below 0.05 x the affine
+IDENTITY_RTOL = 2e-4   # identity-map blended apply vs affine, of max(1, |y|)
+BLEND_CG_RTOL = 1e-7   # tests/test_blending.py:92
+BLEND_CG_ITERS = 2000
+BLEND_ERR_LEVELS_2D = (3, 4, 5)  # L2 error < 2e-3 at 3, drop >= 3x 4 -> 5
+BLEND_ERR_LEVELS_3D = (3, 4)     # drop >= 3x (O(h^2) predicts 4x)
+BLEND_L2_MAX = 2e-3    # tests/test_blending.py:99, level 3
+BLEND_DROP_MIN = 3.0
+SURROGATE_DEGREES = (1, 2, 3)
+SURROGATE_LEVEL_2D = 4
+SURROGATE_MAX = 0.05   # degree 3, tests/test_blending.py:125
+# tests/test_p2_blended.py:104-132: mesh_spherical_shell(1, 2, 0.55, 1),
+# P2 levels 0-1, epsilon, eigs 3.0, 40 MINRES steps, V(2,2): r3 < 0.2 r0
+BLEND_STOKES_GATE_MESH = (1, 2, 0.55, 1.0)
+BLEND_STOKES_GATE_LEVELS = (0, 1)
+BLEND_STOKES_GATE_EIG = 3.0
+BLEND_STOKES_GATE_COARSE_ITERS = 40
+BLEND_STOKES_GATE_CYCLES = 3
+BLEND_STOKES_GATE_RATIO = 0.2
+BLEND_EPS_SYM_RTOL = 1e-3  # tests/test_p2_blended.py:96
+# the full size: the 1920-tet shell at P2 levels 0-4 (33.3M DoFs),
+# make_stokes_gmg's defaults (V(2,2), omega_p 0.3, 80 MINRES steps) and
+# power-iteration eigs; only "every cycle finite" and "the first cycle
+# cuts the residual" are gated (the affine 3D cycle grows after its first
+# cycle, ROADMAP C-ref8); each rate is reported against 0.2
+BLEND_STOKES_LEVEL = 4
+BLEND_STOKES_CYCLES = 4
+BLEND_RATE_REF = 0.2
+# cycle_profile's kernel groups on the blended path: B3 (set-up), cuBLAS
+# products (the P2 quadrature's small products, the surrogate's
+# polynomials), the exchanges and the reductions; the elementwise passes
+# are the rest
+BLEND_GROUPS = {"b3": ("p1_diag",), "gemm": ("gemm", "gemv"),
+                "index": ("index", "scatter", "gather"), "reduce": ("reduce",)}
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -1408,6 +1464,24 @@ def ms_lost(kernel_ms: float, launches: dict, bounds: dict) -> float:
     return kernel_ms - sum(n * bounds[lv] for lv, n in launches.items())
 
 
+def device_rows(prof) -> list:
+    """(name, device ms, count) of each CUDA activity a profiler window
+    recorded, summed by name off the profiler's raw records: what
+    ``key_averages()`` gives for device events (a kernel has no children,
+    so its self time is its duration), without building the event tree,
+    which took ~200 s for the 738,712 kernels of one blended Stokes cycle
+    (PERF.md section 6)."""
+    from torch.autograd import DeviceType
+
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        ms, n = agg.get(e.name(), (0.0, 0))
+        agg[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(k, ms, n) for k, (ms, n) in agg.items()]
+
+
 def cycle_profile(cycle, cycle_ms: float, kernels: dict,
                   warmup: int = 2) -> dict:
     """torch.profiler over one V-cycle (``cycle()``) after ``warmup``
@@ -1418,7 +1492,6 @@ def cycle_profile(cycle, cycle_ms: float, kernels: dict,
     profiler's own overhead), the ms and launches of each group in
     ``kernels`` (name -> substrings, any of which in the lower-cased CUDA
     symbol puts a kernel in it), and the top 12 by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -1429,8 +1502,7 @@ def cycle_profile(cycle, cycle_ms: float, kernels: dict,
         cycle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
     check(device_ms > 0, "the profiler recorded no device time")
     mine = {}
@@ -1734,10 +1806,11 @@ def stokes_run(storage, level: int, device, card: str, tag: str) -> dict:
     return out
 
 
-def check_b3_stokes_levels(storage, levels, device, seed: int) -> dict:
+def check_b3_stokes_levels(storage, levels, device, seed: int,
+                          pitch: int = PITCH) -> dict:
     """B3 (B3-2D on a 2D mesh) against its plain version on the pressure
-    mass (lumped and not) at P1 levels the Stokes stack reaches below the
-    other phases' checks (pitch 129 in 3D)."""
+    mass (lumped and not) at P1 levels a Stokes stack reaches below the
+    other phases' checks, on the stack's lane pitch (3D)."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.kernels import p1_stencil as b3
     from hyteg_tpu_torch.operators import forms
@@ -1745,7 +1818,7 @@ def check_b3_stokes_levels(storage, levels, device, seed: int) -> dict:
 
     out = {}
     for level in levels:
-        sp = P1Space(storage, level, device=device, pitch=PITCH)
+        sp = P1Space(storage, level, device=device, pitch=pitch)
         elm = compute_elmats(sp, forms.mass_form,
                              sp.resolve_sd().cell_vertices).contiguous()
         outside = ~sp.vertex_mask_t.bool()
@@ -2055,6 +2128,435 @@ def run_2d(device, card: str) -> dict:
             "b4_coeff": b4_coeff, "b3_coeff": b3_coeff}
 
 
+def rim_deviation(sp, comps, radii: tuple) -> dict:
+    """Radii of a blended micro-vertex field (comps: (dim, C, N, lanes)):
+    their range over every vertex slot, and the largest distance from the
+    rim's radius of the slots flagged 1 (inner) and 2 (outer)
+    (tests/test_blending.py::test_radial_map_snaps_rims)."""
+    r = torch.linalg.vector_norm(comps, dim=0)
+    rv = r[:, sp.vertex_mask_t.bool()]
+    out = {"r_min": rv.min().item(), "r_max": rv.max().item()}
+    m = sp.maps
+    sf, fl = m.slot_flat[0], m.slot_meshflag[0]
+    ok = sf < r.numel()
+    for flag, rad in zip((1, 2), radii):
+        idx = torch.as_tensor(sf[ok][fl[ok] == flag], device=r.device)
+        check(idx.numel() > 0, f"no slot flagged {flag}")
+        out[f"flag{flag}_max_dev"] = (r.reshape(-1)[idx] - rad).abs().max().item()
+    check(out["r_min"] > radii[0] - RIM_ATOL
+          and out["r_max"] < radii[1] + RIM_ATOL,
+          f"blended radii outside [{radii[0]}, {radii[1]}]: {out}")
+    for flag in (1, 2):
+        check(out[f"flag{flag}_max_dev"] <= RIM_ATOL,
+              f"rim {flag} off its radius by {out[f'flag{flag}_max_dev']}")
+    return out
+
+
+def blended_measure(sp, gmap, exact: float) -> dict:
+    """Area (2D) or volume (3D) as 1^T M 1 with the blended mass and with
+    the affine one (kernel B2 / B2-2D): the blended error must be below
+    AREA_RATIO_MAX of the affine (polygonal) one
+    (tests/test_blending.py::test_blended_mass_matches_true_area)."""
+    from hyteg_tpu_torch.core.types import DoFType
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_blended import P1BlendedOperator
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+
+    ones = sp.interpolate(1.0, None, DoFType.ALL)
+    aff = sp.dot(ones, P1ElementwiseOperator(sp, forms.mass_form)
+                 .apply_raw(ones)).item()
+    ble = sp.dot(ones, P1BlendedOperator(sp, forms.mass_form, gmap)
+                 .apply_raw(ones)).item()
+    ratio = abs(ble - exact) / abs(aff - exact)
+    check(ratio < AREA_RATIO_MAX,
+          f"blended measure error {abs(ble - exact)} not below "
+          f"{AREA_RATIO_MAX} x the affine {abs(aff - exact)}")
+    return {"exact": exact, "affine": aff, "blended": ble,
+            "affine_error": aff - exact, "blended_error": ble - exact,
+            "error_ratio": ratio}
+
+
+def check_blend_kernels(device) -> dict:
+    """Kernels B2-2D and B2 against their plain versions at the shapes the
+    blended path launches them at (the annulus at P1 level 11, the shell
+    at level 5), on the Laplace and mass stencils of the affine operator
+    and a random consistent block."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_annulus, mesh_spherical_shell
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    gen = torch.Generator(device=device).manual_seed(151)
+    out = {}
+    for name, mesh, level in (
+            ("p1_const_apply_2d", mesh_annulus(*BLEND_ANNULUS), BLEND_LEVEL_2D),
+            ("p1_const_apply", mesh_spherical_shell(*SHELL), BLEND_LEVEL_3D)):
+        sp = P1Space(CellStorage(mesh), level, device=device)
+        x = consistent_randn(sp, gen)
+        args = (sp.level, sp.dim, sp.pitch)
+        for form in (forms.laplace_form, forms.mass_form):
+            op = P1ElementwiseOperator(sp, form)
+            y = b2.p1_const_apply(x, op.stencil, op.stencil_face, *args)
+            y_ref = b2.p1_const_apply_torch(x, op.stencil, *args,
+                                            E=op.stencil_face)
+            err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
+            check(math.isfinite(err) and err <= B2_RTOL * scale,
+                  f"{name} blending level {level}: max|dy| {err} > "
+                  f"{B2_RTOL} * {scale}")
+            check(not y[:, ~sp.vertex_mask_t.bool()].any().item(),
+                  f"{name} blending: nonzero outside the simplex")
+            out[name] = max(out.get(name, 0.0), err)
+            del y, y_ref
+        del sp, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def blended_apply_timing(sp, op, x, tag: str) -> dict:
+    """The exact blended apply's ms (CUDA events, median of 3), GDoF/s,
+    peak memory over the calls and a profile of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(lambda: op.apply_raw(x), 3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = cycle_profile(lambda: op.apply_raw(x), ms, BLEND_GROUPS,
+                         warmup=0)
+    return {f"{tag}_ms": ms, f"{tag}_gdofs_per_s":
+            sp.num_global_dofs() / (ms * 1e-3) / 1e9,
+            f"{tag}_peak_gb": peak, f"{tag}_profile": prof}
+
+
+def blend_manufactured(storage, level: int, device, u_of_r) -> dict:
+    """-lap u = 0 with u = u_of_r(r) on the blended domain (RadialMap),
+    Dirichlet on both rims, by CG from the interpolated boundary values
+    (rtol BLEND_CG_RTOL): the blended-mass L2 error of the solution
+    (tests/test_blending.py::test_blended_annulus_poisson_gmg)."""
+    from hyteg_tpu_torch.core.types import (BoundaryCondition, DoFType,
+                                            FLAG_INNER)
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.geometry.maps import RadialMap
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_blended import P1BlendedOperator
+    from hyteg_tpu_torch.solvers.krylov import cg_solve
+
+    sp = P1Space(storage, level, device=device)
+    sd = sp.shard_data(0, BoundaryCondition.all_dirichlet())
+    lap = P1BlendedOperator(sp, forms.laplace_form, RadialMap())
+    mass = P1BlendedOperator(sp, forms.mass_form, RadialMap())
+    r = torch.clamp(torch.linalg.vector_norm(lap.comps, dim=0), min=1e-9)
+    uex = sp.exchange_rep(u_of_r(r) * sp.vertex_mask_t, sd)
+    x0 = sp.restore_rows(uex, sp.zeros(), DoFType.DIRICHLET, sd)
+    apply = lambda v: lap.apply_inner(v, sd)
+    dot = lambda u, v: sp.dot(u, v, FLAG_INNER, sd)
+    r0 = apply(x0)  # b = 0
+    t0 = time.perf_counter()
+    res = cg_solve(apply, dot, sp.zeros(), x0, BLEND_CG_ITERS,
+                   rtol=BLEND_CG_RTOL)
+    torch.cuda.synchronize()
+    e = res.x - uex
+    l2 = torch.sqrt(sp.dot(e, mass.apply_raw(e), DoFType.ALL, sd)).item()
+    check(math.isfinite(l2), f"blended solve level {level}: L2 error {l2}")
+    return {"level": level, "global_dofs": sp.num_global_dofs(),
+            "cg_iterations": res.iterations, "cg_rel_residual": math.sqrt(
+                res.residual_norm2.item() / dot(r0, r0).item()),
+            "solve_s": time.perf_counter() - t0, "l2_error": l2}
+
+
+def surrogate_rows(sp, exact, x, degrees, timed: bool) -> list:
+    """The LSQP surrogate of ``exact``'s form at each degree: its fit's
+    seconds, its error against the exact apply (computeSurrogateError) and,
+    if ``timed``, its apply's ms and GDoF/s."""
+    from hyteg_tpu_torch.operators.p1_blended import P1SurrogateOperator
+
+    rows = []
+    for deg in degrees:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sur = P1SurrogateOperator(sp, exact.form, exact.gmap, degree=deg)
+        torch.cuda.synchronize()
+        row = {"degree": deg, "setup_s": time.perf_counter() - t0,
+               "error": sur.compute_surrogate_error(exact, x).item()}
+        check(math.isfinite(row["error"]),
+              f"surrogate degree {deg}: error {row['error']}")
+        if timed:
+            row["apply_ms"] = median_ms(lambda: sur.apply_raw(x), 3,
+                                        warmup=1)
+            row["apply_gdofs_per_s"] = (sp.num_global_dofs()
+                                        / (row["apply_ms"] * 1e-3) / 1e9)
+        rows.append(row)
+        del sur
+    return rows
+
+
+def consistent_randn(sp, gen) -> torch.Tensor:
+    return sp.exchange_rep(torch.randn(sp.block_shape, generator=gen,
+                                       device=sp.device) * sp.vertex_mask_t)
+
+
+def blend_2d(device) -> dict:
+    """The blended annulus mesh_annulus(0.5, 1, 12, 2) (RadialMap): rims
+    and area at P1 level 11 (100,687,872 DoFs; the affine mass through
+    B2-2D), the exact blended Laplace apply timed there, the manufactured u = ln r at levels 3-5, and
+    the surrogate's error at level 4, degrees 1-3."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.geometry.maps import RadialMap
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_annulus
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_blended import P1BlendedOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    storage = CellStorage(mesh_annulus(*BLEND_ANNULUS))
+    rmin, rmax = BLEND_ANNULUS[:2]
+    gen = torch.Generator(device=device).manual_seed(150)
+    sp = P1Space(storage, BLEND_LEVEL_2D, device=device)
+    out = {"mesh": f"mesh_annulus{BLEND_ANNULUS}", "level": BLEND_LEVEL_2D,
+           "global_dofs": sp.num_global_dofs(),
+           "block": list(sp.block_shape)}
+    op = P1BlendedOperator(sp, forms.laplace_form, RadialMap())
+    out["rims"] = rim_deviation(sp, op.comps, (rmin, rmax))
+    out["area"] = blended_measure(sp, RadialMap(),
+                                  math.pi * (rmax ** 2 - rmin ** 2))
+    x = consistent_randn(sp, gen)
+    out.update(blended_apply_timing(sp, op, x, "blended_laplace_apply"))
+    del op, x
+    torch.cuda.empty_cache()
+    man = [blend_manufactured(storage, lv, device, torch.log)
+           for lv in BLEND_ERR_LEVELS_2D]
+    out["manufactured"] = man
+    out["l2_error_drop"] = man[1]["l2_error"] / man[2]["l2_error"]
+    check(man[0]["l2_error"] < BLEND_L2_MAX,
+          f"blended annulus L2 error {man[0]['l2_error']} >= {BLEND_L2_MAX}"
+          f" at level {man[0]['level']}")
+    check(out["l2_error_drop"] >= BLEND_DROP_MIN,
+          f"blended annulus L2 error dropped {out['l2_error_drop']}x from "
+          f"level {man[1]['level']} to {man[2]['level']}")
+    sp = P1Space(storage, SURROGATE_LEVEL_2D, device=device)
+    exact = P1BlendedOperator(sp, forms.laplace_form, RadialMap())
+    sur = surrogate_rows(sp, exact, consistent_randn(sp, gen),
+                         SURROGATE_DEGREES, timed=False)
+    out["surrogate"] = {"level": SURROGATE_LEVEL_2D, "rows": sur}
+    errs = [r["error"] for r in sur]
+    check(all(a > b for a, b in zip(errs, errs[1:])),
+          f"surrogate errors do not fall with the degree: {errs}")
+    check(errs[-1] < SURROGATE_MAX, f"surrogate degree 3 error {errs[-1]}")
+    return out
+
+
+def blend_shell(device) -> dict:
+    """The icosahedral shell mesh_spherical_shell(2, 2, 0.55, 1)
+    (IcosahedralShellMap) at P1 level 5 (10,649,730 DoFs): the blended
+    apply on the identity map against the affine apply (kernel B2), rims,
+    volume (against the affine mass, B2), symmetry, the exact blended
+    apply timed; the manufactured u = 1/r at levels 3-4; the
+    surrogate at degrees 1-3."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.geometry.maps import (GeometryMap,
+                                               IcosahedralShellMap)
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_spherical_shell
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_blended import P1BlendedOperator
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    storage = CellStorage(mesh_spherical_shell(*SHELL))
+    rmin, rmax = SHELL[2:]
+    gen = torch.Generator(device=device).manual_seed(160)
+    sp = P1Space(storage, BLEND_LEVEL_3D, device=device)
+    out = {"mesh": f"mesh_spherical_shell{SHELL}", "level": BLEND_LEVEL_3D,
+           "global_dofs": sp.num_global_dofs(),
+           "block": list(sp.block_shape)}
+    x = consistent_randn(sp, gen)
+    ya = P1ElementwiseOperator(sp, forms.laplace_form).apply_raw(x)  # B2
+    yb = P1BlendedOperator(sp, forms.laplace_form, GeometryMap()).apply_raw(x)
+    out["identity_vs_affine"] = max_abs_diff(yb, ya)
+    out["identity_vs_affine_scale"] = ya.abs().max().item()
+    check(out["identity_vs_affine"] <= IDENTITY_RTOL
+          * max(1.0, out["identity_vs_affine_scale"]),
+          f"blended apply on the identity map vs affine: "
+          f"{out['identity_vs_affine']}")
+    del ya, yb
+    gmap = IcosahedralShellMap()
+    op = P1BlendedOperator(sp, forms.laplace_form, gmap)
+    out["rims"] = rim_deviation(sp, op.comps, (rmin, rmax))
+    out["volume"] = blended_measure(sp, gmap, 4 * math.pi / 3
+                                    * (rmax ** 3 - rmin ** 3))
+    out["symmetry"] = symmetric_positive(sp, op.apply_raw, 161,
+                                         "blended shell Laplace")
+    out.update(blended_apply_timing(sp, op, x, "blended_laplace_apply"))
+    out["surrogate"] = {"level": BLEND_LEVEL_3D, "rows": surrogate_rows(
+        sp, op, x, SURROGATE_DEGREES, timed=True)}
+    del op, x
+    torch.cuda.empty_cache()
+    man = [blend_manufactured(storage, lv, device, torch.reciprocal)
+           for lv in BLEND_ERR_LEVELS_3D]
+    out["manufactured"] = man
+    out["l2_error_drop"] = man[0]["l2_error"] / man[1]["l2_error"]
+    check(out["l2_error_drop"] >= BLEND_DROP_MIN,
+          f"blended shell L2 error dropped {out['l2_error_drop']}x from "
+          f"level {man[0]['level']} to {man[1]['level']}")
+    return out
+
+
+def blend_stokes(device) -> dict:
+    """The blended Stokes path (IcosahedralShellMap, epsilon viscous
+    block): tests/test_p2_blended.py's gate on mesh_spherical_shell(1, 2,
+    0.55, 1), P2 levels 0-1; the epsilon operator's symmetry there; then
+    make_stokes_gmg(..., gmap=...) on the 1920-tet shell at P2 levels 0-4
+    with power-iteration eigs, V(2,2), its cycles on A x = 0 from a random
+    consistent start (kernel B3 counted: the lumped pressure mass of every
+    level's smoother and of the coarse preconditioner, held against its
+    plain version on the stack's P1 levels first)."""
+    from hyteg_tpu_torch.composites.stokes import TaylorHoodVec
+    from hyteg_tpu_torch.core.types import DoFType
+    from hyteg_tpu_torch.functions.p2 import P2Space
+    from hyteg_tpu_torch.geometry.maps import IcosahedralShellMap
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_spherical_shell
+    from hyteg_tpu_torch.operators.p2_blended_stokes import (
+        P2BlendedEpsilonOperator)
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.solvers.uzawa import make_stokes_gmg
+
+    gmap = IcosahedralShellMap()
+    gen = torch.Generator(device=device).manual_seed(170)
+    # the JAX package's gate (tests/test_p2_blended.py:104-132)
+    small = CellStorage(mesh_spherical_shell(*BLEND_STOKES_GATE_MESH))
+    lo, hi = BLEND_STOKES_GATE_LEVELS
+    stack = make_stokes_gmg(small, lo, hi, epsilon=True, gmap=gmap,
+                            coarse_iters=BLEND_STOKES_GATE_COARSE_ITERS,
+                            eigs={l: BLEND_STOKES_GATE_EIG
+                                  for l in range(lo, hi + 1)}, device=device)
+    st = stack.stokes[hi]
+    vel = torch.randn((st.dim,) + tuple(st.vel_space.block_shape),
+                      generator=gen, device=device) * st.vel_space.vertex_mask_t
+    b = st.apply_inner(TaylorHoodVec(vel, st.pre_space.zeros()))
+    x = st.zeros()
+    res = [st.norm(b - st.apply_inner(x)).item()]
+    for _ in range(BLEND_STOKES_GATE_CYCLES):
+        x = stack.gmg.cycle(x, b)
+        res.append(st.norm(b - st.apply_inner(x)).item())
+    gate = {"mesh": f"mesh_spherical_shell{BLEND_STOKES_GATE_MESH}",
+            "levels": [lo, hi], "residuals": res, "ratio": res[-1] / res[0]}
+    check(all(math.isfinite(r) for r in res)
+          and res[-1] < BLEND_STOKES_GATE_RATIO * res[0],
+          f"blended Stokes gate: r{BLEND_STOKES_GATE_CYCLES} {res[-1]} not "
+          f"below {BLEND_STOKES_GATE_RATIO} r0 {res[0]}")
+    # the epsilon operator's symmetry and positivity
+    # (tests/test_p2_blended.py::test_blended_epsilon_symmetric_on_shell)
+    p2 = P2Space(small, hi, device=device)
+    K = P2BlendedEpsilonOperator(p2, gmap)
+    us, vs = (torch.stack([consistent_randn(p2.node_space, gen)
+                           for _ in range(3)]) for _ in range(2))
+    Ku, Kv = K.apply_raw(us), K.apply_raw(vs)
+    dot = lambda a, c: sum(p2.dot(a[d], c[d], DoFType.ALL).item()
+                           for d in range(3))
+    s1, s2, quad = dot(Ku, vs), dot(us, Kv), dot(Ku, us)
+    sym = {"Ku_v": s1, "u_Kv": s2, "Ku_u": quad,
+           "rel": abs(s1 - s2) / max(abs(s1), 1.0)}
+    check(abs(s1 - s2) < BLEND_EPS_SYM_RTOL * max(abs(s1), 1.0) and quad > 0,
+          f"blended epsilon operator: {sym}")
+    emit("blend_stokes_gate", gate=gate, epsilon_symmetry=sym)
+    del stack, st, vel, b, x, p2, K, us, vs, Ku, Kv
+    torch.cuda.empty_cache()
+
+    # the full size: the 1920-tet shell, P2 levels 0-4
+    shell = CellStorage(mesh_spherical_shell(*SHELL))
+    lo, hi = 0, BLEND_STOKES_LEVEL
+    pitch = (1 << (hi + 1)) + 1
+    out = {"b3_vs_plain": check_b3_stokes_levels(shell, range(lo, hi + 1),
+                                                 device, 171, pitch=pitch)}
+    b3.p1_diagonal_local.launches = 0  # the main path starts here
+    b3.p1_diagonal_local.launches_by_level.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stack = make_stokes_gmg(shell, lo, hi, epsilon=True, gmap=gmap,
+                            device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    st = stack.stokes[hi]
+    x, b = stokes_rand_vec(st, gen), st.zeros()
+    res, cycle_ms = [st.norm(b - st.apply_inner(x)).item()], []
+    for _ in range(BLEND_STOKES_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        x = stack.gmg.cycle(x, b)
+        ev[1].record()
+        res.append(st.norm(b - st.apply_inner(x)).item())
+        cycle_ms.append(ev[0].elapsed_time(ev[1]))
+    torch.cuda.synchronize()
+    launches = {"p1_diagonal_local": b3.p1_diagonal_local.launches}
+    rates = [res[i + 1] / res[i] for i in range(BLEND_STOKES_CYCLES)]
+    out.update({
+        "mesh": f"mesh_spherical_shell{SHELL}", "levels": [lo, hi],
+        "global_dofs": st.dim * st.vel_space.num_global_dofs()
+        + st.pre_space.num_global_dofs(),
+        "vel_block": [st.dim] + list(st.vel_space.block_shape),
+        "pre_block": list(st.pre_space.block_shape), "eigs": stack.eigs,
+        "setup_s": setup_s, "residuals": res, "rates": rates,
+        "each_rate_le_0_2": all(r <= BLEND_RATE_REF for r in rates),
+        "cycle_ms": cycle_ms, "ms_per_vcycle": sorted(cycle_ms)[
+            len(cycle_ms) // 2], "launches": launches,
+        "b3_launches_by_level": dict(sorted(
+            b3.p1_diagonal_local.launches_by_level.items())),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check(all(math.isfinite(r) for r in res),
+          f"blended Stokes V-cycle: non-finite residuals {res}")
+    check(rates[0] < 1.0, f"blended Stokes: the first cycle's rate {rates[0]}")
+    check(launches["p1_diagonal_local"] > 0,
+          "p1_diagonal_local was not launched on the blended Stokes path")
+    # one V-cycle's time split, and the blocks' times at the finest level
+    out["profile"] = cycle_profile(lambda: stack.gmg.cycle(x, b),
+                                   out["ms_per_vcycle"], BLEND_GROUPS,
+                                   warmup=0)
+    # one call each (CUDA events; their device time is the event time
+    # within 1%: a call is seconds of work in ~10^4 launches)
+    K, B = st.K_eps, st.B
+    for name, fn in (("apply_K", lambda: K.apply_local(x.vel)),
+                     ("div", lambda: B.apply_div_local(x.vel.unbind(0))),
+                     ("grad", lambda: B.apply_gradient_local(x.pre))):
+        out[f"{name}_ms"] = median_ms(fn, 1, warmup=0)
+    del stack, st, x, b, K, B
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_blending(device, card: str) -> dict:
+    """The blended-geometry path (BASELINE config 4), phases blend_2d,
+    blend_shell and blend_stokes, each with its kernels' counts set to 0
+    just before it and read just after: B2-2D on the annulus's affine mass,
+    B2 on the shell's identity-map check and affine mass, B3 on the blended
+    Stokes set-up. Returns the launches and errors for the kernels line."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+
+    t0 = time.perf_counter()
+    errs = check_blend_kernels(device)
+    emit("blend_kernels", max_abs_err=errs, rtol=B2_RTOL)
+    b2.p1_const_apply.launches_2d = 0
+    res2 = blend_2d(device)
+    launches = {"p1_const_apply_2d": b2.p1_const_apply.launches_2d}
+    t1 = time.perf_counter()
+    emit("blend_2d", card=card, launches=launches, phase_s=t1 - t0, **res2)
+    b2.p1_const_apply.launches = 0
+    res3 = blend_shell(device)
+    launches["p1_const_apply"] = b2.p1_const_apply.launches
+    t2 = time.perf_counter()
+    emit("blend_shell", card=card, launches={
+        "p1_const_apply": launches["p1_const_apply"]}, phase_s=t2 - t1,
+        **res3)
+    resS = blend_stokes(device)
+    launches.update(resS["launches"])
+    emit("blend_stokes", card=card, phase_s=time.perf_counter() - t2, **resS)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the blended path")
+    errs["p1_diagonal_local"] = max(v["max_abs_err"] for v in
+                                    resS["b3_vs_plain"].values())
+    return {"launches": launches, "errs": errs,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -2327,6 +2829,7 @@ def main() -> int:
     emit("stokes_checks", phase_s=stokes["phase_s"],
          launches=stokes["launches"])
 
+
     # -- the paired-tet engine (B6, B7, B8): bench_tet's path ----------------
     storages = {"cube": storage, "shell": tetpair_storage("shell")}
     tp_checks = []
@@ -2563,6 +3066,11 @@ def main() -> int:
     for name, (nb, fl) in p2_work.items():
         bounds[name] = bound(nb, fl)
 
+    # -- the blended path (B2-2D, B2, B3) ------------------------------------
+    blending = run_blending(device, card)
+    emit("blend_checks", phase_s=blending["phase_s"],
+         launches=blending["launches"])
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -2657,6 +3165,14 @@ def main() -> int:
             "earlier_paths": launches[name], "stokes": n}
         launches[name] += n
     for name, e in stokes["errs"].items():
+        errs[name] = max(errs[name], e)
+    # and the blended path's launches of B2-2D, B2 and B3
+    for name, n in blending["launches"].items():
+        by_path = extra.setdefault(name, {}).setdefault(
+            "launches_by_path", {"earlier_paths": launches[name]})
+        by_path["blending"] = n
+        launches[name] += n
+    for name, e in blending["errs"].items():
         errs[name] = max(errs[name], e)
     kernels = []
     for name, (src, rep) in REPLACES.items():

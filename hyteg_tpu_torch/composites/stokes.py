@@ -1,5 +1,5 @@
 """P2-P1 Taylor-Hood Stokes composite (vector + block operator); torch
-counterpart of hyteg_tpu/composites/stokes.py (one shard, no blending).
+counterpart of hyteg_tpu/composites/stokes.py (one shard).
 
 Reference: src/hyteg/composites/P2P1TaylorHoodFunction.hpp,
 src/mixed_operator/P2P1TaylorHoodStokesOperator.hpp. The block system
@@ -9,9 +9,10 @@ src/mixed_operator/P2P1TaylorHoodStokesOperator.hpp. The block system
 
 with K = vector P2 viscous block (componentwise Laplace for constant
 viscosity, kernel B5 once per component; the epsilon operator for a
-variable viscosity), B = P2 -> P1 divergence. Velocity Dirichlet rows are
-masked per component; the pressure carries no BC (its constant nullspace
-is removed by mean projection, the reference's projectMean).
+variable viscosity; the blended epsilon operator on curved geometry),
+B = P2 -> P1 divergence (blended on curved geometry). Velocity Dirichlet
+rows are masked per component; the pressure carries no BC (its constant
+nullspace is removed by mean projection, the reference's projectMean).
 
 The velocity of a TaylorHoodVec is one (dim, C, M, lanes) block: each
 component ``vel[d]`` is a contiguous view, which the kernels take as it
@@ -71,17 +72,18 @@ class P2P1TaylorHoodStokes:
     (optional): precomputed element matrices by name, "laplace" (C, T,
     nn, nn), "div" (C, T, nv, nn, dim), "p1_mass" (C, T, nv, nv),
     "epsilon" (C, T, dim, dim, nn, nn), e.g. carried over from the JAX
-    package with interop.stokes_elmats_from_reference. ``device`` has no
-    default."""
+    package with interop.stokes_elmats_from_reference. ``gmap``: a
+    geometry (blending) map: K is the blended epsilon operator and B the
+    blended div / grad, both evaluated on the blended node field, which is
+    built once and shared (operators/p2_blended_stokes.py); the pressure
+    mass of the preconditioners stays the affine lumped P1 mass, as in the
+    reference. ``device`` has no default."""
 
     def __init__(self, storage, level: int, bc: BoundaryCondition | None = None,
                  viscosity: float = 1.0, *, device, dtype=torch.float32,
                  pitch: int | None = None, mu_field=None, epsilon: bool = False,
                  full_viscous: bool = False, elmats: dict | None = None,
                  gmap=None):
-        if gmap is not None:
-            raise NotImplementedError(
-                "blended geometry is not ported yet (ROADMAP A7)")
         self.storage = storage
         self.level = level
         self.dim = storage.dim
@@ -101,24 +103,41 @@ class P2P1TaylorHoodStokes:
         self._pre_sd = self.pre_space.shard_data(
             0, BoundaryCondition.all_neumann())
         elmats = elmats or {}
-        self.use_epsilon = epsilon or full_viscous or (mu_field is not None)
+        self.gmap = gmap
+        self.use_epsilon = (epsilon or full_viscous or (mu_field is not None)
+                            or gmap is not None)
         if callable(mu_field):
             mu_field = self.vel_space.interpolate(
                 mu_field, self.vel_space.zeros(), DoFType.ALL, self._vel_sd)
         self.mu_field = mu_field
-        if self.use_epsilon:
-            from ..operators.p2_epsilon import P2VectorEpsilonOperator
+        if gmap is not None:
+            if not callable(getattr(gmap, "apply", None)):
+                raise TypeError(f"gmap {gmap!r} is no geometry map: it "
+                                "needs apply(affine, ref, cell_vertices)")
+            from ..operators.p2_blended_stokes import (
+                P2BlendedEpsilonOperator, P2P1BlendedDivOperator,
+                node_components_blended)
 
-            self.K_eps = P2VectorEpsilonOperator(
-                self.vel_space, full=full_viscous,
-                elmats=elmats.get("epsilon"))
+            comps = node_components_blended(self.vel_space, gmap)
+            self.K_eps = P2BlendedEpsilonOperator(
+                self.vel_space, gmap, full=full_viscous, coords=comps)
             self.K = None
+            self.B = P2P1BlendedDivOperator(self.vel_space, self.pre_space,
+                                            gmap, coords=comps)
         else:
-            self.K = P2ElementwiseOperator(self.vel_space, "laplace",
-                                           elmats=elmats.get("laplace"))
-            self.K_eps = None
-        self.B = P2ToP1DivOperator(self.vel_space, self.pre_space,
-                                   elmats=elmats.get("div"))
+            if self.use_epsilon:
+                from ..operators.p2_epsilon import P2VectorEpsilonOperator
+
+                self.K_eps = P2VectorEpsilonOperator(
+                    self.vel_space, full=full_viscous,
+                    elmats=elmats.get("epsilon"))
+                self.K = None
+            else:
+                self.K = P2ElementwiseOperator(self.vel_space, "laplace",
+                                               elmats=elmats.get("laplace"))
+                self.K_eps = None
+            self.B = P2ToP1DivOperator(self.vel_space, self.pre_space,
+                                       elmats=elmats.get("div"))
         self.pmass = P1ElementwiseOperator(self.pre_space, forms.mass_form,
                                            elmats=elmats.get("p1_mass"))
 
@@ -189,11 +208,7 @@ class P2P1TaylorHoodStokes:
         """Per-cell partial visc * K u, a fresh (dim, C, M, lanes) block."""
         if self.use_epsilon:
             mu = self.mu_field if mu is None else mu
-            sp = self.vel_space
-            from ..operators.p2_epsilon import p2_vector_apply_local
-
-            y = p2_vector_apply_local(vel, self.K_eps.elmats, sp.level,
-                                      sp.dim, sp.pitch, mu)
+            y = self.K_eps.apply_local(vel, mu)
         else:
             y = torch.empty_like(vel)
             for d in range(self.dim):

@@ -115,3 +115,19 @@ def taylor_hood_to_numpy(x) -> tuple:
     block) as numpy on the host."""
     return (tuple(block_to_numpy(v) for v in x.vel.unbind(0)),
             block_to_numpy(x.pre))
+
+
+def surrogate_from_reference(space, coeffs, mono_fields, degree: int, *,
+                             device, dtype=torch.float32):
+    """A JAX ``P1SurrogateOperator``'s fitted ``_coeffs`` (a sequence per
+    class of (C, n_mono, nv, nv)) and ``_mono_fields`` ((n_mono, N,
+    lanes)) as numpy -> the port's P1SurrogateOperator on ``space`` with
+    the same polynomials (no fit), its tables on ``device`` (the space's)."""
+    from .operators.p1_blended import P1SurrogateOperator
+
+    return P1SurrogateOperator(
+        space, None, None, degree,
+        coeffs=[torch.tensor(np.asarray(c), dtype=dtype, device=device)
+                for c in coeffs],
+        mono_fields=torch.tensor(np.asarray(mono_fields), dtype=dtype,
+                                 device=device))

@@ -142,12 +142,16 @@ class P2VectorEpsilonOperator:
             self.space._exchange_add_(y, sd)
         return ys
 
-    def apply_raw(self, xs, coeff=None, sd=None) -> torch.Tensor:
+    def apply_local(self, xs, coeff=None) -> torch.Tensor:
+        """Per-cell partial apply (no exchange), a fresh (dim, C, M,
+        lanes) block."""
         sp = self.space
-        sd = sp.resolve_sd(sd, self.shard)
-        ys = p2_vector_apply_local(xs, self.elmats, sp.level, sp.dim,
-                                   sp.pitch, coeff)
-        return self._exchange_each_(ys, sd)  # ys is fresh
+        return p2_vector_apply_local(xs, self.elmats, sp.level, sp.dim,
+                                     sp.pitch, coeff)
+
+    def apply_raw(self, xs, coeff=None, sd=None) -> torch.Tensor:
+        sd = self.space.resolve_sd(sd, self.shard)
+        return self._exchange_each_(self.apply_local(xs, coeff), sd)
 
     def apply_inner(self, xs, sd_or_bc=None, flag: DoFType = FLAG_INNER,
                     coeff=None) -> torch.Tensor:

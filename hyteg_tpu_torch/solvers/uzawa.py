@@ -106,6 +106,7 @@ def make_stokes_gmg(
     eigs: dict | None = None,
     elmats: dict | None = None,
     dtype=torch.float32,
+    gmap=None,
     *,
     device,
 ) -> StokesGMGStack:
@@ -117,7 +118,9 @@ def make_stokes_gmg(
     the power iteration, e.g. values carried over from the JAX package);
     otherwise each level's is estimated from a torch.Generator seeded with
     the level. ``elmats``: optional {level: composite elmats dict} (see
-    P2P1TaylorHoodStokes). The coarse solve is MINRES with the
+    P2P1TaylorHoodStokes). ``gmap``: a geometry (blending) map, passed to
+    every level's composite (blended epsilon and div / grad operators).
+    The coarse solve is MINRES with the
     block-diagonal preconditioner, ``coarse_iters`` steps at most, rtol
     1e-8."""
     lrange = range(min_level, max_level + 1)
@@ -125,7 +128,7 @@ def make_stokes_gmg(
     stokes = {l: P2P1TaylorHoodStokes(
         storage, l, bc, viscosity, device=device, dtype=dtype, pitch=pitch,
         mu_field=mu, epsilon=epsilon, full_viscous=full_viscous,
-        elmats=(elmats or {}).get(l)) for l in lrange}
+        elmats=(elmats or {}).get(l), gmap=gmap) for l in lrange}
     gen = torch.Generator(device=stokes[min_level].device)
     smoothers = {}
     for l in lrange:

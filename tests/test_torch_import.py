@@ -75,7 +75,12 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.solvers.stokes_pcg",
               "hyteg_tpu_torch.solvers.gmres",
               "hyteg_tpu_torch.io",
-              "hyteg_tpu_torch.io.sparse"):
+              "hyteg_tpu_torch.io.sparse",
+              "hyteg_tpu_torch.geometry",
+              "hyteg_tpu_torch.geometry.maps",
+              "hyteg_tpu_torch.operators.p1_blended",
+              "hyteg_tpu_torch.operators.p2_blended_stokes",
+              "hyteg_tpu_torch.operators.freeslip"):
         assert m in MODULES
 
 

@@ -199,9 +199,18 @@ def test_taylor_hood_vec_arithmetic():
 
 
 def test_composite_refuses_blending():
+    """Blended geometry is ported (tests/test_torch_blended_stokes.py
+    holds it against the JAX package): the composite refuses only a gmap
+    that is no geometry map, and builds the blended operators for one."""
+    from hyteg_tpu_torch.geometry.maps import RadialMap
+    from hyteg_tpu_torch.operators.p2_blended_stokes import (
+        P2BlendedEpsilonOperator)
+
     _, ts = storages("rect")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         P2P1TaylorHoodStokes(ts, 1, device="cpu", gmap=object())
+    st = P2P1TaylorHoodStokes(ts, 1, device="cpu", gmap=RadialMap())
+    assert isinstance(st.K_eps, P2BlendedEpsilonOperator)
 
 
 def test_stokes_elmats_carried_over():
