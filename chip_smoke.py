@@ -68,6 +68,18 @@ read just after:
   V(2,2) cycles on A x = 0 (each rate reported against 0.2), with a
   torch.profiler breakdown of one cycle and B3's launches at set-up
   (``blend_stokes``);
+- the TerraNeo path (config 5's application; kernels B5, B3, B2, B4 and
+  the 2D B5 and B3 on it): the kernels against their plain versions at
+  the path's shapes (``terraneo_kernels``); ConvectionSimulation on the
+  1920-tet shell with T at P2 level 4 (10,649,730 DoFs; the Stokes system
+  33.3M DoFs), two coupled steps (MINRES Stokes solve, MMOC transport,
+  implicit energy step) timed from the simulation's TimingTree and gated as
+  tests/test_terraneo.py gates them, with a torch.profiler breakdown of a
+  third step (``terraneo_shell``); the same on the annulus at P2 level 8
+  with eta(T), shear and adiabatic heating (``terraneo_annulus``);
+  TransportOperatorStd's implicit step on the shell at P1 level 5 with
+  adiabatic and shear heating (``terraneo_transport_std``); and the MMOC
+  circular flow at P2 level 8 (``mmoc``);
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
@@ -285,6 +297,30 @@ BLEND_RATE_REF = 0.2
 # are the rest
 BLEND_GROUPS = {"b3": ("p1_diag",), "gemm": ("gemm", "gemv"),
                 "index": ("index", "scatter", "gather"), "reduce": ("reduce",)}
+# the TerraNeo path (config 5's application, ConvectionSimulation): the
+# 1920-tet shell (SHELL) with T at P2 level 4 (10,649,730 DoFs) and the
+# P2-P1 Stokes system of 33.3M DoFs; the annulus at P2 level 8 with
+# eta(T), shear and adiabatic heating; ConvectionParameters' defaults
+# otherwise (120 MINRES steps, energy CG to rtol 1e-7 in 200 steps)
+TERRANEO_SHELL = {"dim": 3, "ntan": 2, "nrad": 2, "level": 4}
+TERRANEO_ANNULUS = {"dim": 2, "ntan": 12, "nrad": 2, "level": 8,
+                    "visc_activation": 2.0, "shear_heating": True,
+                    "adiabatic_heating": 0.1}
+TERRANEO_ANNULUS_MESH = (0.55, 1.0, 12, 2)  # what ConvectionSimulation builds: 48 faces
+TERRANEO_STEPS = 2
+# tests/test_terraneo.py's gates: T within [-0.05, 1.05] after the steps,
+# ||div u|| < 0.05 max|u| after the Stokes solve
+TERRANEO_T_RANGE = (-0.05, 1.05)
+TERRANEO_DIV_REL = 0.05
+# TransportOperatorStd on the shell at P1 level 5 (10,649,730 DoFs)
+TERRANEO_STD_LEVEL = 5
+TERRANEO_STD_DT = 1e-3
+# tests/test_transport.py's circular flow at P2 level 8 and its gates
+MMOC_LEVEL = 8
+MMOC_STEPS = 8
+MMOC_ERR_MAX = 0.15
+MMOC_MAX = 1.15
+MMOC_MIN = -0.2
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -2557,6 +2593,335 @@ def run_blending(device, card: str) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+def check_terraneo_kernels(device, seed: int, shell_p2: int = TERRANEO_SHELL["level"],
+                           shell_p1: int = TERRANEO_STD_LEVEL,
+                           annulus_p2: int = TERRANEO_ANNULUS["level"]) -> dict:
+    """The kernels of the TerraNeo path against their plain versions at
+    the shapes it gives them, on each space's own lane pitch: B5 (Laplace
+    and mass) at the shell's P2 level, B3 lumped on its pressure mass, B2
+    (Laplace, mass) and B4 (the mass with a nodal coefficient) at
+    TransportOperatorStd's P1 level; B5-2D and B3-2D on the annulus."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.functions.p2 import P2Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b4
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_annulus, mesh_spherical_shell
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shell = CellStorage(mesh_spherical_shell(*SHELL))
+    annulus = CellStorage(mesh_annulus(*TERRANEO_ANNULUS_MESH))
+    out, errs = {}, {}
+
+    def held(name, tag, y, y_ref, rtol, sp):
+        err, scale = max_abs_diff(y, y_ref), y_ref.abs().max().item()
+        check(math.isfinite(err) and err <= rtol * scale,
+              f"{tag}: max|dy| {err} > {rtol} * {scale}")
+        check(not y[:, ~sp.vertex_mask_t.bool()].any().item(),
+              f"{tag}: nonzero outside the simplex")
+        out[tag] = {"max_abs_err": err, "max_abs": scale,
+                    "block": list(y.shape), "pitch": sp.pitch}
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for storage, level, name in ((shell, shell_p2, "p2_const_apply"),
+                                 (annulus, annulus_p2, "p2_const_apply_2d")):
+        sp = P2Space(storage, level, device=device)
+        x = torch.randn(sp.block_shape, generator=gen, device=device)
+        x *= sp.vertex_mask_t
+        for kind in ("laplace", "mass"):
+            op = P2ElementwiseOperator(sp, kind)
+            args = (op.stencil_folded, level, sp.pitch, sp.dim)
+            held(name, f"{name}_{kind}_level{level}",
+                 b5.p2_const_apply(x, *args),
+                 b5.p2_const_apply_torch(x, *args), B5_RTOL, sp)
+        del x, op
+        pname = "p1_diagonal_local" + name[len("p2_const_apply"):]
+        pre = P1Space(storage, level, device=device,
+                      pitch=(1 << (level + 1)) + 1)
+        pm = P1ElementwiseOperator(pre, forms.mass_form)
+        args = (pm.elmats, level, pre.dim, pre.pitch, True)
+        held(pname, f"{pname}_lumped_mass_level{level}",
+             b4.p1_diagonal_local(*args), b4.p1_diagonal_local_torch(*args),
+             B3_RTOL, pre)
+        torch.cuda.empty_cache()
+    sp = P1Space(shell, shell_p1, device=device)
+    x = torch.randn(sp.block_shape, generator=gen, device=device)
+    x *= sp.vertex_mask_t
+    k = coeff_field(sp, device, gen, "random")
+    for kind, form in (("laplace", forms.laplace_form),
+                       ("mass", forms.mass_form)):
+        op = P1ElementwiseOperator(sp, form)
+        args = (op.stencil, op.stencil_face, shell_p1, 3, sp.pitch)
+        held("p1_const_apply", f"p1_const_apply_{kind}_level{shell_p1}",
+             b2.p1_const_apply(x, *args),
+             b2.p1_const_apply_torch(x, op.stencil, shell_p1, 3, sp.pitch,
+                                     E=op.stencil_face), B2_RTOL, sp)
+    args = (x, op.elmats, shell_p1, 3, sp.pitch, k)
+    held("p1_apply_local", f"p1_apply_local_mass_coeff_level{shell_p1}",
+         b4.p1_apply_local(*args), b4.p1_apply_local_torch(*args), B4_RTOL,
+         sp)
+    return {"checks": out, "errs": errs}
+
+
+def convection_gates(sim) -> dict:
+    """tests/test_terraneo.py's gates on a simulation's state: T finite within
+    [-0.05, 1.05], the radial profile's inner mean above its outer mean,
+    max|u| > 0 and ||div u|| < 0.05 max|u| after the Stokes solve; with
+    vrms (the app's), T's range and the profile's means."""
+    from hyteg_tpu_torch.core.types import DoFType
+
+    st, sp = sim.stokes, sim.T_space
+    vmax = max(float(sp.dof_max(v.abs(), DoFType.ALL)) for v in sim.x.vel)
+    div = st.pre_space.exchange_add(st.B.apply_div_local(
+        sim.x.vel.unbind(0)), st._pre_sd)
+    div_norm = math.sqrt(float(st.pre_space.dot(div, div, DoFType.ALL,
+                                                st._pre_sd)))
+    Tk = sim.T[sp.vertex_mask_t.bool().expand(sim.T.shape)]
+    prof = sim.temperature_profile()
+    vrms = math.sqrt(max(0.0, sum(float(sp.dot(v, v)) for v in sim.x.vel)
+                         / sp.num_global_dofs()))
+    lo, hi = TERRANEO_T_RANGE
+    g = {"T_min": float(Tk.min()), "T_max": float(Tk.max()),
+         "T_finite": bool(torch.isfinite(Tk).all()), "max_abs_u": vmax,
+         "vrms": vrms, "div_norm": div_norm,
+         "div_over_max_u": div_norm / vmax if vmax > 0 else math.inf,
+         "profile_radii": prof.radii.tolist(),
+         "profile_mean": prof.mean.tolist()}
+    g["gates"] = {
+        "T_finite_in_range": g["T_finite"] and lo <= g["T_min"]
+        and g["T_max"] <= hi,
+        "inner_mean_above_outer": bool(prof.mean[0] > prof.mean[-1]),
+        "max_u_positive": vmax > 0,
+        "div_below_0_05_max_u": div_norm < TERRANEO_DIV_REL * vmax}
+    return g
+
+
+def convection_run(params: dict, device, steps: int = TERRANEO_STEPS,
+                   profile: bool = True) -> dict:
+    """ConvectionSimulation at ``params``: set-up seconds, then ``steps``
+    coupled steps, each with dt, the MINRES steps and final residual
+    estimate, the energy CG steps, and the ms of the Stokes solve, MMOC and
+    the energy step from the simulation's TimingTree; the gates after the last
+    step; peak memory; and, with ``profile``, one more step under
+    torch.profiler (its device time against the last unprofiled step's
+    wall: the idle share)."""
+    from hyteg_tpu_torch.terraneo import ConvectionParameters, ConvectionSimulation
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = ConvectionSimulation(ConvectionParameters(**params), device=device)
+    torch.cuda.synchronize()
+    out = {"params": params, "setup_s": time.perf_counter() - t0,
+           "T_global_dofs": sim.T_space.num_global_dofs(),
+           "stokes_global_dofs": sim.dim * sim.T_space.num_global_dofs()
+           + sim.stokes.pre_space.num_global_dofs(),
+           "T_block": list(sim.T_space.block_shape), "steps": []}
+    nodes = sim.timing.root.children
+
+    def totals():
+        e = nodes.get("solveEnergy")
+        return (nodes["solveStokes"].total if "solveStokes" in nodes else 0,
+                e.children["MMOC"].total if e else 0,
+                e.children["energyStep"].total if e else 0)
+
+    for _ in range(steps):
+        before = totals()
+        t0 = time.perf_counter()
+        dt = sim.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = [(a - b) * 1e3 for a, b in zip(totals(), before)]
+        out["steps"].append({
+            "dt": dt, "step_ms": wall, "stokes_ms": ms[0], "mmoc_ms": ms[1],
+            "energy_ms": ms[2], "minres_iterations": sim.stokes_iterations,
+            "minres_residual": sim.stokes_residual,
+            "energy_cg_iterations": sim.energy.last_iterations})
+    out.update(convection_gates(sim))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["mmoc_nodes"] = sim.transport._kept.numel()
+    if profile:
+        out["profile"] = cycle_profile(
+            sim.step, out["steps"][-1]["step_ms"],
+            {"b5": ("p2_const_apply_kernel", "p2_const_apply_2d_kernel"),
+             "b3": ("p1_diag",), "index": ("index", "scatter", "gather"),
+             "reduce": ("reduce",)}, warmup=0)
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def transport_std_run(device, level: int = TERRANEO_STD_LEVEL) -> dict:
+    """TransportOperatorStd.step on the 1920-tet shell at P1 level
+    ``level`` with ADIABATIC_HEATING and SHEAR_HEATING on: T the conductive
+    profile plus a lateral perturbation, u a rigid rotation about z plus a
+    radial part, eta = exp(0.5 - T), C_a = 0.1. Gates: T finite, the
+    Dirichlet rows unchanged."""
+    from hyteg_tpu_torch.core.types import DoFType
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_spherical_shell
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.terraneo.transport_std import TransportOperatorStd
+
+    sp = P1Space(CellStorage(mesh_spherical_shell(*SHELL)), level,
+                 device=device)
+    rmin, rmax = SHELL[2], SHELL[3]
+
+    def T0(x):
+        r = torch.sqrt((x * x).sum(-1))
+        base = torch.clamp((rmax - r) / (rmax - rmin), 0.0, 1.0)
+        return base + 0.05 * torch.sin(3 * x[..., 0]) * torch.sin(
+            math.pi * torch.clamp((r - rmin) / (rmax - rmin), 0.0, 1.0))
+
+    T = sp.interpolate(T0, sp.zeros(), DoFType.ALL)
+    vel = torch.stack([sp.interpolate(f, sp.zeros(), DoFType.ALL) for f in (
+        lambda x: -x[..., 1] + 0.1 * x[..., 0],
+        lambda x: x[..., 0] + 0.1 * x[..., 1],
+        lambda x: 0.1 * x[..., 2])])
+    eta = torch.exp(0.5 - T) * sp.vertex_mask_t
+    op = TransportOperatorStd(sp, kappa=1.0, terms={
+        "ADIABATIC_HEATING": True, "SHEAR_HEATING": True})
+    op.adiabatic_coeff = torch.full_like(T, 0.1) * sp.vertex_mask_t
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T1 = op.step(T, TERRANEO_STD_DT, vel=vel, eta=eta)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    inner = op._inner_mask(T.dtype).bool()
+    dirichlet = ~inner & sp.vertex_mask_t.bool().expand(T.shape)
+    out = {"mesh": f"mesh_spherical_shell{SHELL}", "level": level,
+           "global_dofs": sp.num_global_dofs(), "block": list(sp.block_shape),
+           "dt": TERRANEO_STD_DT, "step_ms": step_ms,
+           "cg_iterations": op.last_iterations,
+           "T_finite": bool(torch.isfinite(T1).all()),
+           "dirichlet_rows": int(dirichlet.sum()),
+           "dirichlet_max_change": float((T1 - T)[dirichlet].abs().max()),
+           "max_change": float((T1 - T).abs().max())}
+    check(out["T_finite"], "TransportOperatorStd: T not finite")
+    check(out["dirichlet_max_change"] == 0.0,
+          f"TransportOperatorStd: Dirichlet rows moved by "
+          f"{out['dirichlet_max_change']}")
+    check(out["cg_iterations"] > 0 and out["max_change"] > 0,
+          "TransportOperatorStd: the step did nothing")
+    return out
+
+
+def mmoc_run(device, level: int = MMOC_LEVEL) -> dict:
+    """tests/test_transport.py's circular flow: a Gaussian blob an
+    eighth-turn around the origin on the square mesh_rectangle((-1, -1),
+    (1, 1), 2, 2) at P2 level ``level``, MMOC_STEPS RK4 steps; its gates
+    (relative L2 error < 0.15, max < 1.15, min > -0.2), the ms per RK4
+    step and the points evaluated per second (per kept node, four
+    velocity evaluations and one of the field)."""
+    from hyteg_tpu_torch.core.types import DoFType
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_rectangle
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.transport import MMOCTransport
+
+    storage = CellStorage(mesh_rectangle(lower=(-1.0, -1.0),
+                                         upper=(1.0, 1.0), nx=2, ny=2))
+    mm = MMOCTransport(storage, level, degree=2, vel_degree=2, device=device)
+    sp = mm.space
+
+    def blob(cx, cy, s=0.08):
+        return lambda x: torch.exp(-((x[..., 0] - cx) ** 2
+                                     + (x[..., 1] - cy) ** 2) / (2 * s * s))
+
+    c = sp.interpolate(blob(0.5, 0.0), sp.zeros(), DoFType.ALL)
+    vel = torch.stack([sp.interpolate(lambda x: -x[..., 1], sp.zeros(),
+                                      DoFType.ALL),
+                       sp.interpolate(lambda x: x[..., 0], sp.zeros(),
+                                      DoFType.ALL)])
+    theta = math.pi / 4.0
+    dt = theta / MMOC_STEPS
+    step_ms = []
+    for _ in range(MMOC_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        c = mm.step(c, vel, dt, rk=4)
+        ev[1].record()
+        ev[1].synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    want = sp.interpolate(blob(0.5 * math.cos(theta), 0.5 * math.sin(theta)),
+                          sp.zeros(), DoFType.ALL)
+    err = math.sqrt(float(sp.dot(c - want, c - want, DoFType.ALL))
+                    / float(sp.dot(want, want, DoFType.ALL)))
+    cmax, cmin = float(sp.dof_max(c, DoFType.ALL)), -float(
+        sp.dof_max(-c, DoFType.ALL))
+    ms = sorted(step_ms)[len(step_ms) // 2]
+    nodes = mm._kept.numel()
+    out = {"mesh": "mesh_rectangle((-1, -1), (1, 1), 2, 2)", "level": level,
+           "global_dofs": sp.num_global_dofs(), "kept_nodes": nodes,
+           "steps": MMOC_STEPS, "step_ms": step_ms, "ms_per_rk4_step": ms,
+           "points_per_step": 5 * nodes,
+           "points_per_s": 5 * nodes / (ms * 1e-3), "rel_l2_error": err,
+           "max": cmax, "min": cmin}
+    check(err < MMOC_ERR_MAX, f"MMOC circular flow: error {err}")
+    check(cmax < MMOC_MAX and cmin > MMOC_MIN,
+          f"MMOC circular flow: range [{cmin}, {cmax}]")
+    return out
+
+
+def run_terraneo(device, card: str) -> dict:
+    """The TerraNeo path (config 5's application): terraneo_kernels (B5,
+    B3, B2, B4 and the 2D B5, B3 against their plain versions at the
+    path's shapes), then terraneo_shell, terraneo_annulus,
+    terraneo_transport_std and mmoc, each with its kernels' counts set to
+    0 just before it and read just after. Returns the launches and errors
+    for the kernels line."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b34
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+
+    t0 = time.perf_counter()
+    kc = check_terraneo_kernels(device, 180)
+    emit("terraneo_kernels", card=card, **kc["checks"])
+    launches = {}
+    b5.p2_const_apply.launches = 0
+    b34.p1_diagonal_local.launches = 0
+    res = convection_run(TERRANEO_SHELL, device)
+    launches["p2_const_apply"] = b5.p2_const_apply.launches
+    launches["p1_diagonal_local"] = b34.p1_diagonal_local.launches
+    res["launches"] = {k: launches[k] for k in ("p2_const_apply",
+                                                 "p1_diagonal_local")}
+    t1 = time.perf_counter()
+    emit("terraneo_shell", card=card, phase_s=t1 - t0,
+         mesh=f"mesh_spherical_shell{SHELL}", **res)
+    shell_gates = res["gates"]
+    b5.p2_const_apply.launches_2d = 0
+    b34.p1_diagonal_local.launches_2d = 0
+    res = convection_run(TERRANEO_ANNULUS, device)
+    launches["p2_const_apply_2d"] = b5.p2_const_apply.launches_2d
+    launches["p1_diagonal_local_2d"] = b34.p1_diagonal_local.launches_2d
+    res["launches"] = {k: launches[k] for k in ("p2_const_apply_2d",
+                                                 "p1_diagonal_local_2d")}
+    t2 = time.perf_counter()
+    emit("terraneo_annulus", card=card, phase_s=t2 - t1,
+         mesh=f"mesh_annulus{TERRANEO_ANNULUS_MESH}", **res)
+    annulus_gates = res["gates"]
+    b2.p1_const_apply.launches = 0
+    b34.p1_apply_local.launches = 0
+    res = transport_std_run(device)
+    launches["p1_const_apply"] = b2.p1_const_apply.launches
+    launches["p1_apply_local"] = b34.p1_apply_local.launches
+    res["launches"] = {k: launches[k] for k in ("p1_const_apply",
+                                                 "p1_apply_local")}
+    t3 = time.perf_counter()
+    emit("terraneo_transport_std", card=card, phase_s=t3 - t2, **res)
+    res = mmoc_run(device)
+    emit("mmoc", card=card, phase_s=time.perf_counter() - t3, **res)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the TerraNeo path")
+    for tag, gates in (("shell", shell_gates), ("annulus", annulus_gates)):
+        for gate, ok in gates.items():
+            check(ok, f"terraneo_{tag}: gate {gate} missed")
+    return {"launches": launches, "errs": kc["errs"],
+            "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -3071,6 +3436,11 @@ def main() -> int:
     emit("blend_checks", phase_s=blending["phase_s"],
          launches=blending["launches"])
 
+    # -- the TerraNeo path (B5, B3, B2, B4; B5-2D, B3-2D) --------------------
+    terraneo = run_terraneo(device, card)
+    emit("terraneo_checks", phase_s=terraneo["phase_s"],
+         launches=terraneo["launches"])
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -3173,6 +3543,14 @@ def main() -> int:
         by_path["blending"] = n
         launches[name] += n
     for name, e in blending["errs"].items():
+        errs[name] = max(errs[name], e)
+    # and the TerraNeo path's launches of B5, B3, B2, B4 (and 2D forms)
+    for name, n in terraneo["launches"].items():
+        by_path = extra.setdefault(name, {}).setdefault(
+            "launches_by_path", {"earlier_paths": launches[name]})
+        by_path["terraneo"] = n
+        launches[name] += n
+    for name, e in terraneo["errs"].items():
         errs[name] = max(errs[name], e)
     kernels = []
     for name, (src, rep) in REPLACES.items():

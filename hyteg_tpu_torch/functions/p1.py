@@ -290,6 +290,15 @@ class P1Space:
     def dof_sum(self, u, flag: DoFType = DoFType.ALL, sd=None):
         return self.dot(u, torch.ones_like(u), flag, sd)
 
+    def unique_weight(self, sd=None) -> torch.Tensor:
+        """(C, N, lanes) weights so that sum(w * u) counts every global DoF
+        once (interior: 1; interface replicas: 1/multiplicity; padding: 0).
+        Used by histogram-style reductions (e.g. radial profiles)."""
+        sd = self.resolve_sd(sd)
+        w = self._interior_w.expand(self.block_shape).clone()
+        w.view(-1)[sd.slot_flat] = sd.slot_inv_mult
+        return w
+
     def dof_max(self, u, flag: DoFType = DoFType.ALL, sd=None):
         sd = self.resolve_sd(sd)
         acc = torch.full((), -torch.inf, dtype=u.dtype, device=u.device)

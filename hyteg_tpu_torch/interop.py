@@ -131,3 +131,18 @@ def surrogate_from_reference(space, coeffs, mono_fields, degree: int, *,
                 for c in coeffs],
         mono_fields=torch.tensor(np.asarray(mono_fields), dtype=dtype,
                                  device=device))
+
+
+def convection_state_from_reference(T, vel, pre, time: float, step: int, *,
+                                    device, dtype=torch.float32):
+    """A JAX ``ConvectionSimulation``'s state as numpy (``T``: the P2 block
+    ``sim.T``; ``vel``, ``pre``: the arrays of ``sim.x``; ``time``,
+    ``step``: ``sim.time``, ``sim.step_count``) -> the port's
+    ConvectionState, to set with ``sim.state = ...`` so that both simulations
+    step on from the same state."""
+    from .terraneo.simulation import ConvectionState
+
+    return ConvectionState(
+        T=torch.tensor(np.asarray(T), dtype=dtype, device=device),
+        x=taylor_hood_from_reference(vel, pre, device=device, dtype=dtype),
+        time=float(time), step_count=int(step))

@@ -80,7 +80,27 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.geometry.maps",
               "hyteg_tpu_torch.operators.p1_blended",
               "hyteg_tpu_torch.operators.p2_blended_stokes",
-              "hyteg_tpu_torch.operators.freeslip"):
+              "hyteg_tpu_torch.operators.freeslip",
+              "hyteg_tpu_torch.core.timing",
+              "hyteg_tpu_torch.core.config",
+              "hyteg_tpu_torch.io.checkpoint",
+              "hyteg_tpu_torch.numerictools",
+              "hyteg_tpu_torch.numerictools.time_discr",
+              "hyteg_tpu_torch.numerictools.spectrum",
+              "hyteg_tpu_torch.numerictools.manufactured",
+              "hyteg_tpu_torch.functions.evaluate",
+              "hyteg_tpu_torch.transport",
+              "hyteg_tpu_torch.transport.mmoc",
+              "hyteg_tpu_torch.transport.particles",
+              "hyteg_tpu_torch.terraneo",
+              "hyteg_tpu_torch.terraneo.params",
+              "hyteg_tpu_torch.terraneo.profiles",
+              "hyteg_tpu_torch.terraneo.sphericalharmonics",
+              "hyteg_tpu_torch.terraneo.plates",
+              "hyteg_tpu_torch.terraneo.transport_std",
+              "hyteg_tpu_torch.terraneo.simulation",
+              "hyteg_tpu_torch.apps",
+              "hyteg_tpu_torch.apps.terraneo_convection"):
         assert m in MODULES
 
 
