@@ -433,7 +433,6 @@ def check_kernels(storage, level: int, device, seed: int) -> dict:
     (``b2_ms``, ``b2_bound_ms``); B3 also with a coefficient in the three
     means."""
     from hyteg_tpu_torch.functions.p1 import P1Space
-    from hyteg_tpu_torch.indexing import micro
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
     from hyteg_tpu_torch.operators import forms
@@ -468,13 +467,7 @@ def check_kernels(storage, level: int, device, seed: int) -> dict:
             out["b2_ms"] = median_ms(
                 lambda: b2.p1_const_apply(x, A, E, level, dim, pitch), 10,
                 batch=10)
-            read = simplex_read_bytes(sp, micro.stencil_directions(dim),
-                                      x.shape[0])
-            # a multiply-add per direction at each simplex slot
-            points = tet_points(sp.n) if dim == 3 else tri_points(sp.n)
-            out["b2_bound_ms"] = bound(
-                nbytes(x) + read + nbytes(A, E),
-                2 * (15 if dim == 3 else 7) * x.shape[0] * points)[0]
+            out["b2_bound_ms"] = bound(*b2_work(sp, x, A, E))[0]
         del x, y, y_ref
         # B3: diagonal (Laplace and mass), lumped (mass; Laplace row sums
         # vanish), and the coefficient modes
@@ -1078,6 +1071,58 @@ def simplex_read_bytes(sp, dirs, C: int) -> int:
     for d in dirs:
         read |= flat.shift_write(M, [int(v) for v in d], sp.pitch, sp.dim) != 0
     return C * int(read.sum()) * 4
+
+
+def class_points(sp, margins=None) -> int:
+    """Base positions of one cell summed over the micro-element classes
+    with the given margins (default: each class's base margin)."""
+    from hyteg_tpu_torch.indexing import micro
+
+    pts = tet_points if sp.dim == 3 else tri_points
+    ms = micro.base_margin(sp.dim) if margins is None else margins
+    return sum(pts(sp.n - int(m)) for m in ms)
+
+
+def b2_work(sp, x, A, E) -> tuple[int, int]:
+    """B2's bytes and f32 operations on block x (C cells) of ``sp``: the
+    stencil's reads of x on the simplex, one write, the stencils; a
+    multiply-add per direction at each simplex slot."""
+    from hyteg_tpu_torch.indexing import micro
+
+    dirs = micro.stencil_directions(sp.dim)
+    C = x.shape[0]
+    return (nbytes(x) + simplex_read_bytes(sp, dirs, C) + nbytes(A, E),
+            2 * len(dirs) * C * class_points(sp, [0]))
+
+
+def b3_work(sp, elm, y) -> tuple[int, int]:
+    """B3's bytes and f32 operations writing block y of ``sp``: the element
+    matrices read, the block written; nv adds per element and vertex."""
+    return (nbytes(elm) + nbytes(y),
+            (sp.dim + 1) * y.shape[0] * class_points(sp))
+
+
+def b4_work(sp, x, elm) -> tuple[int, int]:
+    """B4's bytes and f32 operations with a nodal coefficient on block x:
+    x and the coefficient read on the simplex, one write, the element
+    matrices; per element nv^2 multiply-adds, the nv-term mean and nv
+    scalings."""
+    nv, C = sp.dim + 1, x.shape[0]
+    return (nbytes(x) + 2 * simplex_read_bytes(sp, [(0,) * sp.dim], C)
+            + nbytes(elm), (2 * nv * nv + 2 * nv) * C * class_points(sp))
+
+
+def b5_work(sp, x, W, level: int) -> tuple[int, float]:
+    """B5's bytes and f32 operations on block x of ``sp`` with the folded
+    stencil W: its reads of x on the simplex, one write, W; a multiply-add
+    per nonzero weight of each slot's stencil row."""
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+
+    row, K0 = b5._row_index(level, sp.dim, sp.pitch, torch.float32, x.device)
+    hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
+    return (nbytes(x) + simplex_read_bytes(sp, b5._kernel_dirs(sp.dim),
+                                           x.shape[0]) + nbytes(W),
+            2 * ((W != 0).sum(-1).double() @ hist).sum().item())
 
 
 def conv3d_stencil(weights, dirs) -> torch.Tensor:
@@ -2008,11 +2053,8 @@ def run_2d(device, card: str) -> dict:
     t["apply_raw_2d"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
     t["vcycle_2d"] = median_ms(lambda: stack.gmg.cycle(x, b), 10)
     margins = micro.base_margin(2)
-    work["p1_const_apply_2d"] = (
-        nbytes(x) + simplex_read_bytes(sp, micro.stencil_directions(2), C)
-        + nbytes(A, E), 14 * C * tri_points(sp.n))
-    work["p1_diagonal_local_2d"] = (nbytes(elm) + nbytes(x), 3 * C * sum(
-        tri_points(sp.n - int(m)) for m in margins))
+    work["p1_const_apply_2d"] = b2_work(sp, x, A, E)
+    work["p1_diagonal_local_2d"] = b3_work(sp, elm, x)
     xv = x.view(1, C, sp.N, sp.N)
     kern = conv2d_stencil(A.sum(-1), micro.stencil_directions(2))
     lib["p1_const_apply_2d"] = median_ms(
@@ -2073,11 +2115,7 @@ def run_2d(device, card: str) -> dict:
         lambda: b34.p1_apply_local(x, elm, L, 2, sp.pitch), 10, batch=10)
     t["apply_raw_coeff_2d"] = median_ms(lambda: op.apply_raw(x, coeff=k), 10,
                                         batch=10)
-    # per element: 9 multiply-adds, the 3-term mean and 3 scalings
-    work["p1_apply_local_2d"] = (
-        nbytes(x) + 2 * simplex_read_bytes(sp, [(0, 0)], C) + nbytes(elm),
-        24 * C * sum(
-        tri_points(sp.n - int(m)) for m in margins))
+    work["p1_apply_local_2d"] = b4_work(sp, x, elm)
     b4_ms = {"none": t["p1_apply_local_2d_no_coeff"],
              "arithmetic": t["p1_apply_local_2d"]}
     for m in MODES[1:]:
@@ -2141,13 +2179,8 @@ def run_2d(device, card: str) -> dict:
         warmup=1)
     t["p2_apply_raw_2d"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
     t["p2_vcycle_2d"] = p2res["ms_per_vcycle"]
-    row, K0 = b5._row_index(P2_LEVEL_2D, 2, sp.pitch, torch.float32, device)
-    hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
-    work["p2_const_apply_2d"] = (
-        nbytes(x) + simplex_read_bytes(sp, b5._kernel_dirs(2), x.shape[0])
-        + nbytes(W), 2 * (
-        (W != 0).sum(-1).double() @ hist).sum().item())
-    del stack, sp, op, W, x, b, row, K0, hist
+    work["p2_const_apply_2d"] = b5_work(sp, x, W, P2_LEVEL_2D)
+    del stack, sp, op, W, x, b
     torch.cuda.empty_cache()
     man = {}
     for lv in P2_MANUFACTURED_2D:
@@ -2600,7 +2633,10 @@ def check_terraneo_kernels(device, seed: int, shell_p2: int = TERRANEO_SHELL["le
     the shapes it gives them, on each space's own lane pitch: B5 (Laplace
     and mass) at the shell's P2 level, B3 lumped on its pressure mass, B2
     (Laplace, mass) and B4 (the mass with a nodal coefficient) at
-    TransportOperatorStd's P1 level; B5-2D and B3-2D on the annulus."""
+    TransportOperatorStd's P1 level; B5-2D and B3-2D on the annulus.
+    Each is also timed there with CUDA events, back to back as the
+    kernels line times it, beside its bound for the same work (``ms``,
+    ``bound_ms``, ``bound_by``, ``share_of_bound``)."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.functions.p2 import P2Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
@@ -2627,6 +2663,12 @@ def check_terraneo_kernels(device, seed: int, shell_p2: int = TERRANEO_SHELL["le
                     "block": list(y.shape), "pitch": sp.pitch}
         errs[name] = max(errs.get(name, 0.0), err)
 
+    def timed(tag, call, work):
+        ms = median_ms(call, 10, batch=10)
+        b = bound(*work)
+        out[tag].update(ms=ms, bound_ms=b[0], bound_by=b[1],
+                        share_of_bound=b[0] / ms)
+
     for storage, level, name in ((shell, shell_p2, "p2_const_apply"),
                                  (annulus, annulus_p2, "p2_const_apply_2d")):
         sp = P2Space(storage, level, device=device)
@@ -2635,18 +2677,22 @@ def check_terraneo_kernels(device, seed: int, shell_p2: int = TERRANEO_SHELL["le
         for kind in ("laplace", "mass"):
             op = P2ElementwiseOperator(sp, kind)
             args = (op.stencil_folded, level, sp.pitch, sp.dim)
-            held(name, f"{name}_{kind}_level{level}",
-                 b5.p2_const_apply(x, *args),
+            tag = f"{name}_{kind}_level{level}"
+            held(name, tag, b5.p2_const_apply(x, *args),
                  b5.p2_const_apply_torch(x, *args), B5_RTOL, sp)
+            timed(tag, lambda: b5.p2_const_apply(x, *args),
+                  b5_work(sp, x, args[0], level))
         del x, op
         pname = "p1_diagonal_local" + name[len("p2_const_apply"):]
         pre = P1Space(storage, level, device=device,
                       pitch=(1 << (level + 1)) + 1)
         pm = P1ElementwiseOperator(pre, forms.mass_form)
         args = (pm.elmats, level, pre.dim, pre.pitch, True)
-        held(pname, f"{pname}_lumped_mass_level{level}",
-             b4.p1_diagonal_local(*args), b4.p1_diagonal_local_torch(*args),
-             B3_RTOL, pre)
+        y = b4.p1_diagonal_local(*args)
+        tag = f"{pname}_lumped_mass_level{level}"
+        held(pname, tag, y, b4.p1_diagonal_local_torch(*args), B3_RTOL, pre)
+        timed(tag, lambda: b4.p1_diagonal_local(*args),
+              b3_work(pre, pm.elmats, y))
         torch.cuda.empty_cache()
     sp = P1Space(shell, shell_p1, device=device)
     x = torch.randn(sp.block_shape, generator=gen, device=device)
@@ -2656,14 +2702,17 @@ def check_terraneo_kernels(device, seed: int, shell_p2: int = TERRANEO_SHELL["le
                        ("mass", forms.mass_form)):
         op = P1ElementwiseOperator(sp, form)
         args = (op.stencil, op.stencil_face, shell_p1, 3, sp.pitch)
-        held("p1_const_apply", f"p1_const_apply_{kind}_level{shell_p1}",
-             b2.p1_const_apply(x, *args),
+        tag = f"p1_const_apply_{kind}_level{shell_p1}"
+        held("p1_const_apply", tag, b2.p1_const_apply(x, *args),
              b2.p1_const_apply_torch(x, op.stencil, shell_p1, 3, sp.pitch,
                                      E=op.stencil_face), B2_RTOL, sp)
+        timed(tag, lambda: b2.p1_const_apply(x, *args),
+              b2_work(sp, x, op.stencil, op.stencil_face))
     args = (x, op.elmats, shell_p1, 3, sp.pitch, k)
-    held("p1_apply_local", f"p1_apply_local_mass_coeff_level{shell_p1}",
-         b4.p1_apply_local(*args), b4.p1_apply_local_torch(*args), B4_RTOL,
-         sp)
+    tag = f"p1_apply_local_mass_coeff_level{shell_p1}"
+    held("p1_apply_local", tag, b4.p1_apply_local(*args),
+         b4.p1_apply_local_torch(*args), B4_RTOL, sp)
+    timed(tag, lambda: b4.p1_apply_local(*args), b4_work(sp, x, op.elmats))
     return {"checks": out, "errs": errs}
 
 
@@ -2700,11 +2749,43 @@ def convection_gates(sim) -> dict:
     return g
 
 
+def stokes_solve_residual(sim, T) -> dict:
+    """The simulation's last Stokes solve, made on temperature T, against
+    its rhs b, in the norm whose estimate MINRES's phibar is (||v||_P =
+    <v, P v>^1/2, P the block-diagonal preconditioner): phibar / ||b||_P
+    (the estimate against a zero start), the true residual
+    ||b - A x||_P / ||b||_P, and ||b - A x|| / ||b||. The kernels'
+    launch counts are left as they were."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.kernels import p1_stencil as b34
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+
+    counts = [(w, k, getattr(w, k)) for w in (b5.p2_const_apply,
+                                              b34.p1_diagonal_local)
+              for k in ("launches", "launches_2d")]
+    st, mu = sim.stokes, sim.viscosity_field(T)
+    b = sim.buoyancy_rhs(T)
+    prec = st.block_diag_preconditioner(mu=mu)
+    r = b - st.apply_inner(sim.x, FLAG_INNER, mu=mu)
+
+    def norms(v):
+        return (math.sqrt(float(st.dot(v, prec(v), FLAG_INNER))),
+                math.sqrt(float(st.dot(v, v, FLAG_INNER))))
+
+    (b_p, b_l2), (r_p, r_l2) = norms(b), norms(r)
+    for w, k, n in counts:
+        setattr(w, k, n)
+    return {"minres_phibar_over_b": sim.stokes_residual / b_p,
+            "minres_true_residual_over_b": r_p / b_p,
+            "minres_true_residual_l2_over_b": r_l2 / b_l2}
+
+
 def convection_run(params: dict, device, steps: int = TERRANEO_STEPS,
                    profile: bool = True) -> dict:
     """ConvectionSimulation at ``params``: set-up seconds, then ``steps``
-    coupled steps, each with dt, the MINRES steps and final residual
-    estimate, the energy CG steps, and the ms of the Stokes solve, MMOC and
+    coupled steps, each with dt, the MINRES steps, its final residual
+    estimate and the solve's residuals against |b| (stokes_solve_residual),
+    the energy CG steps, and the ms of the Stokes solve, MMOC and
     the energy step from the simulation's TimingTree; the gates after the last
     step; peak memory; and, with ``profile``, one more step under
     torch.profiler (its device time against the last unprofiled step's
@@ -2728,20 +2809,26 @@ def convection_run(params: dict, device, steps: int = TERRANEO_STEPS,
                 e.children["MMOC"].total if e else 0,
                 e.children["energyStep"].total if e else 0)
 
+    peak = 0
     for _ in range(steps):
-        before = totals()
+        before, T_solve = totals(), sim.T.clone()
         t0 = time.perf_counter()
         dt = sim.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         ms = [(a - b) * 1e3 for a, b in zip(totals(), before)]
+        # the peak of the set-up and the steps, not of the check below
+        peak = max(peak, torch.cuda.max_memory_allocated())
         out["steps"].append({
             "dt": dt, "step_ms": wall, "stokes_ms": ms[0], "mmoc_ms": ms[1],
             "energy_ms": ms[2], "minres_iterations": sim.stokes_iterations,
             "minres_residual": sim.stokes_residual,
+            **stokes_solve_residual(sim, T_solve),
             "energy_cg_iterations": sim.energy.last_iterations})
+        del T_solve
+        torch.cuda.reset_peak_memory_stats()
     out.update(convection_gates(sim))
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_gb"] = peak / 1e9
     out["mmoc_nodes"] = sim.transport._kept.numel()
     if profile:
         out["profile"] = cycle_profile(
@@ -3041,11 +3128,8 @@ def main() -> int:
     # interior stencil (equal to B2 on interior points only)
     C = sp.C_loc
     bounds = {
-        "p1_const_apply": bound(
-            nbytes(x) + simplex_read_bytes(sp, micro.stencil_directions(3), C)
-            + nbytes(A, E), 30 * C * tet_points(sp.n)),
-        "p1_diagonal_local": bound(nbytes(elm) + nbytes(x), 4 * C * sum(
-            tet_points(sp.n - int(m)) for m in micro.base_margin(3)))}
+        "p1_const_apply": bound(*b2_work(sp, x, A, E)),
+        "p1_diagonal_local": bound(*b3_work(sp, elm, x))}
     xv = x.view(1, C, sp.N, sp.N, sp.pitch)
     kern = conv3d_stencil(A.sum(-1), micro.stencil_directions(3))
     lib_ms = {"p1_const_apply": median_ms(
@@ -3094,12 +3178,7 @@ def main() -> int:
         lambda: b4.p1_apply_local(x, elm, lv, 3, PITCH), 10, batch=10)
     t["apply_raw_coeff"] = median_ms(lambda: op.apply_raw(x, coeff=k), 10,
                                      batch=10)
-    # per element: 16 multiply-adds, the 4-term mean and 4 scalings
-    # x and k are read on the tet's slots only
-    bounds["p1_apply_local"] = bound(
-        nbytes(x) + 2 * simplex_read_bytes(sp, [(0, 0, 0)], sp.C_loc)
-        + nbytes(elm), 40 * sp.C_loc * sum(
-            tet_points(sp.n - int(m)) for m in micro.base_margin(3)))
+    bounds["p1_apply_local"] = bound(*b4_work(sp, x, elm))
     # B4 at level 7 in each mean and without a coefficient (bound: no
     # coefficient read, 16 multiply-adds per element and vertex)
     b4_ms = {"none": t["p1_apply_local_no_coeff"],
@@ -3151,12 +3230,7 @@ def main() -> int:
         lambda: b5.p2_const_apply_torch(x, W, P2_LEVEL, PITCH), 3, warmup=1)
     t["p2_apply_raw"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
     t["p2_vcycle"] = p2res["ms_per_vcycle"]
-    row, K0 = b5._row_index(P2_LEVEL, 3, PITCH, torch.float32, device)
-    hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
-    b5_flops = 2 * ((W != 0).sum(-1).double() @ hist).sum().item()
-    bounds["p2_const_apply"] = bound(
-        nbytes(x) + simplex_read_bytes(sp, b5._kernel_dirs(3), x.shape[0])
-        + nbytes(W), b5_flops)
+    bounds["p2_const_apply"] = bound(*b5_work(sp, x, W, P2_LEVEL))
     # the P2 coefficient apply (plain torch in both packages) at level 6
     ones = sp.vertex_mask_t.expand(sp.block_shape).contiguous()
     rel1 = rel_err(op.apply_raw(x), op.apply_raw(x, coeff=ones))
@@ -3170,7 +3244,7 @@ def main() -> int:
                                         warmup=1)
     emit("p2_coeff", card=card, level=P2_LEVEL, unit_coeff_vs_b5_rel=rel1,
          **sym, apply_raw_coeff_ms=t["p2_apply_raw_coeff"])
-    del stack, sp, op, W, x, b, row, K0, hist, ones, k
+    del stack, sp, op, W, x, b, ones, k
     torch.cuda.empty_cache()
     man = {}
     for lv in P2_MANUFACTURED:

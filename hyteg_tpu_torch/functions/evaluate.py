@@ -98,12 +98,14 @@ class FieldEvaluator:
 
     ``u`` blocks are the space's dense per-cell node grids, (C, N, lanes)
     or (B, C, N, lanes); all cells of the storage are present (one
-    shard). ``chunk``: queries per chunk (None: all at once); the results
+    shard). A 3D block's lane pitch is read off its shape (lanes = N *
+    pitch, see indexing/flat.py), so the block's space owns the layout.
+    ``chunk``: queries per chunk (None: all at once); the results
     do not depend on it. ``device`` has no default.
     """
 
     def __init__(self, storage: CellStorage, level: int, degree: int = 1, *,
-                 device, dtype=torch.float32, pitch: int | None = None,
+                 device, dtype=torch.float32,
                  chunk: int | None = DEFAULT_CHUNK):
         self.storage = storage
         self.level = level
@@ -113,8 +115,6 @@ class FieldEvaluator:
         self.n = n = 1 << level
         # node grid: P1 -> level grid; P2 -> doubled (level+1) grid
         self.N = (2 * n + 1) if degree == 2 else (n + 1)
-        # lane pitch of the flat 3D block layout (see indexing/flat.py)
-        self.pitch = self.N if (pitch is None or dim == 2) else int(pitch)
         self.dtype = dtype
         self.chunk = chunk
 
@@ -212,12 +212,11 @@ class FieldEvaluator:
                 node_idx: torch.Tensor) -> torch.Tensor:
         """u (..., C, N, lanes) flat blocks, node_idx (Q, nn, dim) int ->
         (..., Q, nn)."""
-        N, P = self.N, self.pitch
+        N, lanes = self.N, u.shape[-1]
         if self.dim == 2:
-            lanes = N
             flat = node_idx[..., 0] * N + node_idx[..., 1]
         else:
-            lanes = N * P
+            P = lanes // N
             flat = (node_idx[..., 0] * lanes + node_idx[..., 1] * P
                     + node_idx[..., 2])
         gidx = c[:, None] * (N * lanes) + flat          # (Q, nn)

@@ -24,6 +24,8 @@ its adiabatic term (the mass with a nodal coefficient) through B4.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..core.types import BoundaryCondition, DoFType, FLAG_INNER
@@ -64,6 +66,22 @@ def element_volumes(space: P1Space, cell_vertices) -> torch.Tensor:
     return (torch.linalg.det(E).abs() / fact).to(space.dtype)
 
 
+#: per space and shard, (element_basis_gradients, element_volumes): a
+#: float64 batched inverse and determinant over (C, T), built once
+_ELEMENT_TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def element_tables(space: P1Space, shard: int = 0):
+    """(gradients (C, T, nv, dim), volumes (C, T)) of the shard's
+    micro-elements, computed on the first call for a space and kept."""
+    per_shard = _ELEMENT_TABLES.setdefault(space, {})
+    if shard not in per_shard:
+        cv = space.resolve_sd(None, shard).cell_vertices
+        per_shard[shard] = (element_basis_gradients(space, cv),
+                            element_volumes(space, cv))
+    return per_shard[shard]
+
+
 def _col(a: torch.Tensor) -> torch.Tensor:
     """(C,) per-cell value -> (C, 1, 1), broadcasting over a block."""
     return a.reshape(-1, 1, 1)
@@ -74,15 +92,12 @@ class SUPGAdvectionOperator:
     velocity read from nodal P1 velocity component fields."""
 
     def __init__(self, space: P1Space, supg: bool = True, shard: int = 0,
-                 kappa: float = 0.0, cell_vertices=None):
+                 kappa: float = 0.0):
         self.space = space
         self.supg = supg
         #: diffusivity for the Peclet-limited tau (0 = pure advective tau)
         self.kappa = float(kappa)
-        cv = (space.resolve_sd(None, shard).cell_vertices
-              if cell_vertices is None else cell_vertices)
-        self.grads = element_basis_gradients(space, cv)   # (C,T,nv,dim)
-        self.vols = element_volumes(space, cv)            # (C,T)
+        self.grads, self.vols = element_tables(space, shard)
         # characteristic element size for tau: h = vol^(1/dim)
         self.h_e = self.vols ** (1.0 / space.dim)
 
@@ -136,9 +151,7 @@ def shear_heating_source(space: P1Space, vel, eta, sd=None,
     fields (a sequence or a (dim, C, N, lanes) tensor)."""
     sp = space
     dim, level, pitch = sp.dim, sp.level, sp.pitch
-    cv = sp.resolve_sd(None, shard).cell_vertices
-    grads = element_basis_gradients(sp, cv)
-    vols = element_volumes(sp, cv)
+    grads, vols = element_tables(sp, shard)
     offs = micro.offsets(dim)
     Tn, nv = offs.shape[0], offs.shape[1]
     masks = _class_masks(level, dim, pitch, eta.dtype, eta.device)

@@ -26,7 +26,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..core.types import BoundaryCondition, DoFType
-from ..functions.evaluate import DEFAULT_CHUNK, FieldEvaluator
+from ..functions.evaluate import FieldEvaluator
 from ..primitives.storage import CellStorage
 
 # Butcher tableaus (explicit): reference MMOCTransport TimeSteppingScheme
@@ -44,18 +44,16 @@ class MMOCTransport:
 
     ``degree``: polynomial degree of the transported field c.
     ``vel_degree``: degree of the velocity components (P2 for Taylor-Hood).
-    ``chunk``: the evaluators' queries per chunk. ``device`` has no
-    default.
+    ``device`` has no default.
     """
 
     def __init__(self, storage: CellStorage, level: int, degree: int = 2,
-                 vel_degree: int = 2, *, device, dtype=torch.float32,
-                 chunk: int | None = DEFAULT_CHUNK):
+                 vel_degree: int = 2, *, device, dtype=torch.float32):
         self.storage = storage
         self.level = level
         self.dim = storage.dim
         self.degree = degree
-        kw = dict(device=device, dtype=dtype, chunk=chunk)
+        kw = dict(device=device, dtype=dtype)
         self.eval_c = FieldEvaluator(storage, level, degree, **kw)
         self.eval_v = (self.eval_c if vel_degree == degree
                        else FieldEvaluator(storage, level, vel_degree, **kw))

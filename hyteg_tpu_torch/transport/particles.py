@@ -109,8 +109,10 @@ class ParticleDomain:
         """Evaluate a velocity field (``dim`` component blocks: a sequence
         or a (dim, C, N, lanes) tensor) at the particle positions ->
         (P, dim)."""
-        comps = [self.ev.evaluate(vb, ps.position) for vb in vel_blocks]
-        return torch.stack(comps, dim=-1)
+        vel = (vel_blocks if isinstance(vel_blocks, torch.Tensor)
+               else torch.stack(list(vel_blocks)))
+        # one pass locates each point once for all components
+        return self.ev.evaluate(vel, ps.position).T
 
     # -- integration kernels (reference: kernel/ExplicitEuler.h etc.) -------------
 

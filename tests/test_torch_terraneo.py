@@ -249,22 +249,45 @@ def gate_values(sim, dof_max, div_local, dot, pre_sp, pre_sd, mask, T):
     return vmax, div_rel, float(Tk.min()), float(Tk.max())
 
 
-def main(levels):
-    """Both simulations on the CPU at the card's annulus case
-    (chip_smoke.TERRANEO_ANNULUS: mesh_annulus(0.55, 1, 12, 2), eta(T),
-    shear and adiabatic heating, 120 MINRES steps) at coarser levels: two
-    steps each, then tests/test_terraneo.py's gate values. Usage:
-    python -m tests.test_torch_terraneo 2 3 4"""
-    import jax.numpy as jnp
-    from hyteg_tpu.core.types import DoFType as JDoF
+def last_solve_residual(sim, T, flag) -> float:
+    """||b - A x||_P / ||b||_P of ``sim``'s last Stokes solve, made on
+    temperature T (P the block-diagonal preconditioner: the norm of
+    MINRES's residual estimate); either package's simulation."""
+    st, mu = sim.stokes, sim.viscosity_field(T)
+    prec = st.block_diag_preconditioner(mu=mu)
+    b = sim.buoyancy_rhs(T)
+    r = b - st.apply_inner(sim.x, flag, mu=mu)
+    return math.sqrt(float(st.dot(r, prec(r), flag))
+                     / float(st.dot(b, prec(b), flag)))
 
-    kw = dict(dim=2, ntan=12, nrad=2, visc_activation=2.0,
-              shear_heating=True, adiabatic_heating=0.1)
+
+CASES = {
+    # chip_smoke.TERRANEO_ANNULUS at coarser levels
+    "annulus": dict(dim=2, ntan=12, nrad=2, visc_activation=2.0,
+                    shear_heating=True, adiabatic_heating=0.1),
+    # chip_smoke.TERRANEO_SHELL at coarser levels
+    "shell": dict(dim=3, ntan=2, nrad=2),
+}
+
+
+def main(case, levels):
+    """Both simulations on the CPU at one of the card's cases (defaults
+    otherwise: 120 MINRES steps) at coarser levels: two steps each, then
+    tests/test_terraneo.py's gate values and the last Stokes solve's true
+    residual against |b|. Usage:
+    python -m tests.test_torch_terraneo [annulus|shell] 2 3 4"""
+    import jax.numpy as jnp
+    from hyteg_tpu.core.types import FLAG_INNER as JFLAG_INNER
+    from hyteg_tpu.core.types import DoFType as JDoF
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+
+    kw = CASES[case]
     for level in levels:
         jsim = JSim(JParams(**kw, level=level))
         tsim = ConvectionSimulation(ConvectionParameters(**kw, level=level),
                                     device="cpu")
         for _ in range(2):
+            jT, tT = jsim.T, tsim.T.clone()
             jsim.step()
             tsim.step()
         js, ts = jsim.stokes, tsim.stokes
@@ -280,13 +303,17 @@ def main(levels):
             lambda d: ts.pre_space.dot(d, d, DoFType.ALL, ts._pre_sd),
             ts.pre_space, ts._pre_sd,
             tsim.T_space.vertex_mask_t.bool().numpy(), tsim.T.numpy())
-        for name, v in (("jax", jv), ("port", tv)):
-            print(f"level {level} {name}: max|u| {v[0]:.4g}  "
-                  f"div/max|u| {v[1]:.4g}  T in [{v[2]:.4g}, {v[3]:.4g}]",
-                  flush=True)
+        res = (last_solve_residual(jsim, jT, JFLAG_INNER),
+               last_solve_residual(tsim, tT, FLAG_INNER))
+        for name, v, r in (("jax", jv, res[0]), ("port", tv, res[1])):
+            print(f"{case} level {level} {name}: max|u| {v[0]:.4g}  "
+                  f"div/max|u| {v[1]:.4g}  T in [{v[2]:.4g}, {v[3]:.4g}]  "
+                  f"|b - Ax|_P/|b|_P {r:.4g}", flush=True)
 
 
 if __name__ == "__main__":
     import sys
 
-    main([int(a) for a in sys.argv[1:]] or [2, 3, 4])
+    args = sys.argv[1:]
+    case = args.pop(0) if args and args[0] in CASES else "annulus"
+    main(case, [int(a) for a in args] or [2, 3, 4])

@@ -264,6 +264,20 @@ def test_particle_integration_matches_reference(method):
         assert err.max() < 5e-3
 
 
+def test_particle_velocity_sampled_in_one_pass():
+    """sample_velocity takes the components as a sequence or stacked, and
+    gives each component's own evaluation at the particles."""
+    _, td = domains(3)
+    _, vel = fields("square", 3, 1)
+    seeds = np.random.default_rng(8).uniform(-0.9, 0.9, size=(24, 2))
+    ps = create_particles(seeds, device="cpu")
+    got = td.sample_velocity(t(vel), ps)
+    assert got.shape == (24, 2)
+    assert torch.equal(got, td.sample_velocity(list(t(vel)), ps))
+    for d in range(2):
+        assert torch.equal(got[:, d], td.sample(t(vel)[d], ps))
+
+
 def test_particle_owners_and_temperature():
     jd, td = domains(3)
     js, _ = storages("square")

@@ -91,6 +91,21 @@ def test_element_gradients_and_volumes(name):
 
 
 @pytest.mark.parametrize("name", list(MESHES))
+def test_element_tables_built_once(name):
+    """element_tables computes a space's gradients and volumes on its first
+    call and hands the same tensors to every later caller (shear heating
+    on each energy step, each SUPG operator)."""
+    _, tsp = spaces(name)
+    cv = tsp.resolve_sd().cell_vertices
+    grads, vols = tts.element_tables(tsp)
+    assert torch.equal(grads, tts.element_basis_gradients(tsp, cv))
+    assert torch.equal(vols, tts.element_volumes(tsp, cv))
+    again = tts.element_tables(tsp)
+    assert again[0] is grads and again[1] is vols
+    assert tts.SUPGAdvectionOperator(tsp).grads is grads
+
+
+@pytest.mark.parametrize("name", list(MESHES))
 @pytest.mark.parametrize("supg,kappa", [(False, 0.0), (True, 0.0),
                                         (True, 0.05)])
 def test_supg_apply_matches_reference(name, supg, kappa):
