@@ -80,6 +80,24 @@ read just after:
   TransportOperatorStd's implicit step on the shell at P1 level 5 with
   adiabatic and shear heating (``terraneo_transport_std``); and the MMOC
   circular flow at P2 level 8 (``mmoc``);
+- the sharded path (A8; kernels B2, B3, B5 and B1 on it): 4 shards of an
+  SFC partition in one process on the one card (LocalGroup), each held
+  against the one-shard run: at P1 level 7 the sharded applies against
+  the one-shard apply, four V(3,3) cycles with the agglomerated coarse
+  solve on the main path's problem against gmg_solve's residuals and on
+  A x = 0 against the one-shard stack, a torch.profiler breakdown of one
+  cycle, its B2 / B3 launches and the exchange's ms; on mesh_unit_cube(4)
+  at level 5, where shards hold interior cells, the overlapped apply and
+  B2 on its interface and interior sub-blocks against the plain version
+  (``spmd_p1``); the Stokes V-cycle at 3D P2 level 6 from the Stokes
+  path's start, two cycles against its residuals (``spmd_stokes``); the
+  level-9 box solve over four row slabs against box_gmg_1e9's residuals,
+  and B1 on a 3-row edge strip against its plain version
+  (``spmd_box``); one convection step on the shell at P2 level 4, 4
+  shards against 1 (``terraneo_spmd``); particle migration by one
+  all_to_all (``migration``); and, only with 4 or more cards, the
+  P1 V-cycle over NCCL, one process per card (``spmd_nccl``; on one card
+  a line says it did not run);
 - the stream-copy probe (kernel P1) at the level-7 and level-9 box sizes
   and the level-7 macro-tet and paired blocks: the card's measured
   bandwidth ceiling.
@@ -321,6 +339,21 @@ MMOC_STEPS = 8
 MMOC_ERR_MAX = 0.15
 MMOC_MAX = 1.15
 MMOC_MIN = -0.2
+# the sharded path (A8): 4 shards of an SFC partition in one process on
+# the one card (LocalGroup), each result held against the one-shard run
+SPMD_SHARDS = 4
+SPMD_P1_LEVEL = 7         # mesh_unit_cube(2): 16,974,593 DoFs
+SPMD_P1_CYCLES = 4
+# the overlapped apply splits only where a shard has interior cells: on
+# mesh_unit_cube(2) every cell of a 12-cell shard touches the interface,
+# on mesh_unit_cube(4) 72 of a shard's 96 cells do; the sharded P1
+# path's level, so that B2 runs on the sub-blocks at the path's N = 129
+SPMD_OVERLAP_CASE = (4, SPMD_P1_LEVEL)  # (mesh_unit_cube n, P1 level)
+SPMD_CYCLE_REL = 1e-3     # each cycle's residual against the one-shard one
+SPMD_APPLY_REL = 1e-5     # the sharded applies against the one-shard apply
+SPMD_STOKES_CYCLES = 2
+SPMD_CONV_REL = 2e-5      # tests/test_terraneo_spmd.py's bound
+SPMD_PARTICLES = 4096     # per shard, with twice the slots
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -1943,7 +1976,9 @@ def run_stokes(storage3d, device, card: str) -> dict:
                       "mesh_rectangle(nx=4, ny=4)")
     emit("stokes_2d", card=card, **res2)
     return {"launches": {**res3["launches"], **res2["launches"]},
-            "errs": errs, "phase_s": time.perf_counter() - t0}
+            "errs": errs, "phase_s": time.perf_counter() - t0,
+            "ref3d": {k: res3[k] for k in ("residuals", "eigs", "cycle_ms",
+                                            "global_dofs")}}
 
 
 def run_2d(device, card: str) -> dict:
@@ -3009,6 +3044,713 @@ def run_terraneo(device, card: str) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+# -- the sharded path (A8) ---------------------------------------------------
+
+
+def spmd_gather(storage, parts: list, axis: int = 0) -> torch.Tensor:
+    """Every shard's blocks -> the one-shard storage's cell order (its
+    cells are the mesh's, in order), padding cells dropped."""
+    cat = torch.cat(parts, dim=axis)
+    valid = torch.as_tensor(storage.cell_valid, device=cat.device)
+    cgi = torch.as_tensor(storage.cell_global_index, device=cat.device)
+    out = torch.empty_like(cat.narrow(axis, 0, storage.topo.num_cells))
+    out.index_copy_(axis, cgi[valid], cat.index_select(
+        axis, torch.nonzero(valid)[:, 0]))
+    return out
+
+
+def spmd_split(storage, whole: torch.Tensor, axis: int = 0) -> list:
+    """The one-shard layout -> each shard's blocks (padding cells 0)."""
+    C = storage.cells_per_shard
+    out = []
+    for d in range(storage.num_shards):
+        cgi = storage.cell_global_index[d * C:(d + 1) * C]
+        idx = torch.as_tensor(np.maximum(cgi, 0), device=whole.device)
+        blk = whole.index_select(axis, idx)
+        pad = np.flatnonzero(cgi < 0)
+        if pad.size:
+            blk.index_fill_(axis, torch.as_tensor(pad, device=whole.device), 0)
+        out.append(blk)
+    return out
+
+
+def spmd_cycle_rel(res: list, ref: list, what: str,
+                   noise: float = 0.0) -> list:
+    """Each cycle's |r - r_ref| / r_ref. Every cycle is gated:
+    |r - r_ref| <= SPMD_CYCLE_REL * r_ref + ``noise``, where ``noise`` is
+    the one-shard run's own spread on its f32 round-off plateau, measured
+    in the same run (0 for a history that has no plateau)."""
+    rel = [abs(a - b) / b for a, b in zip(res, ref)]
+    check(all(math.isfinite(r) for r in res), f"{what}: residuals {res}")
+    bad = [k for k, (a, b) in enumerate(zip(res, ref))
+           if abs(a - b) > SPMD_CYCLE_REL * b + noise]
+    check(not bad, f"{what}: cycles {bad}: residuals {res} vs one shard "
+          f"{ref}: {rel} (noise {noise})")
+    return rel
+
+
+def spmd_overlap_case(device) -> dict:
+    """The overlapped apply where it splits (SPMD_OVERLAP_CASE, 4 SFC
+    shards): overlapped, neighbour and all-reduce applies against the
+    one-shard apply on a random consistent u, B2 on the interface and
+    interior sub-blocks against its plain version, and the overlapped and
+    neighbour applies timed."""
+    import dataclasses
+
+    from hyteg_tpu_torch.core.types import BoundaryCondition
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.parallel import spmd
+    from hyteg_tpu_torch.parallel.comm import LocalGroup
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    n, level = SPMD_OVERLAP_CASE
+    bc = BoundaryCondition.all_dirichlet()
+    storage = CellStorage(mesh_unit_cube(n), num_shards=SPMD_SHARDS,
+                          partitioner="sfc")
+    ctx = spmd.SpmdContext(storage, LocalGroup(SPMD_SHARDS), bc,
+                           device=device)
+    sp = ctx.space(level)
+    sp1 = P1Space(CellStorage(mesh_unit_cube(n)), level, device=device)
+    op1 = P1ElementwiseOperator(sp1, forms.laplace_form)
+    gen = torch.Generator(device=device).manual_seed(161)
+    u1 = sp1.exchange_rep(torch.randn(
+        sp1.block_shape, generator=gen, device=device) * sp1.vertex_mask_t,
+        sp1.shard_data(0, bc))
+    y1 = op1.apply_raw(u1)
+    us = spmd_split(storage, u1)
+    ops = ctx.run(lambda g: P1ElementwiseOperator(sp, forms.laplace_form,
+                                                  shard=g.rank))
+    sds = {"overlapped": lambda g: ctx.sd(g, level),
+           "neighbour": lambda g: dataclasses.replace(ctx.sd(g, level),
+                                                      ovl=None),
+           "all_reduce": lambda g: sp.group_shard_data(g, bc, False)}
+    scale = y1.abs().max().item()
+    ovl = ctx.run(lambda g: ctx.sd(g, level).ovl)
+    out = {"mesh": f"mesh_unit_cube({n})", "level": level,
+           "cells_per_shard": storage.cells_per_shard,
+           "interface_cells": [ov.K for ov in ovl]}
+    for name, sd_of in sds.items():
+        run = lambda: ctx.run(lambda g, op, u: op.apply_raw(u, sd=sd_of(g)),
+                              ops, us)
+        out[f"{name}_rel"] = max_abs_diff(spmd_gather(storage, run()),
+                                          y1) / scale
+        check(out[f"{name}_rel"] <= SPMD_APPLY_REL,
+              f"spmd overlap case: {name} apply {out[name + '_rel']}")
+        out[f"{name}_ms"] = median_ms(run, 10)
+    out["one_shard_ms"] = median_ms(lambda: op1.apply_raw(u1), 10)
+    # B2 on each sub-block of a shard that splits
+    r = next(i for i, ov in enumerate(ovl)
+             if 0 < ov.K < storage.cells_per_shard)
+    ov, op = ovl[r], ops[r]
+    for name, cells in (("interface", ov.ifc), ("interior", ov.interior)):
+        x_sub = us[r].index_select(0, cells)
+        _, A, E = op._tables(cells)
+        yk = b2.p1_const_apply(x_sub, A, E, level, 3, sp.pitch)
+        yp = b2.p1_const_apply_torch(x_sub, A, level, 3, sp.pitch, E=E)
+        err = max_abs_diff(yk, yp)
+        out[f"b2_{name}_cells"] = cells.numel()
+        out[f"b2_{name}_max_abs_err"] = err
+        check(err <= B2_RTOL * yp.abs().max().item(),
+              f"B2 on the {name} sub-block: {err}")
+    return out
+
+
+def spmd_p1(device, card: str, ref: dict) -> dict:
+    """The sharded P1 path at level 7: SPMD_P1_CYCLES V(3,3) cycles with
+    the agglomerated coarse solve on the main path's manufactured problem
+    against gmg_solve's history (``ref``) and on A x = 0 against the
+    one-shard stack; the overlapped (here unsplit: every cell touches the
+    interface), neighbour and all-reduce sharded applies against the
+    one-shard apply; spmd_overlap_case; a cycle's profile, launches and
+    the exchange's ms."""
+    import dataclasses
+
+    from hyteg_tpu_torch.core.types import BoundaryCondition, DoFType, FLAG_INNER
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.parallel import spmd
+    from hyteg_tpu_torch.parallel.comm import LocalGroup
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.solvers.templates import make_p1_gmg
+
+    level, bc = SPMD_P1_LEVEL, BoundaryCondition.all_dirichlet()
+    storage = CellStorage(mesh_unit_cube(MESH_N), num_shards=SPMD_SHARDS,
+                          partitioner="sfc")
+    ctx = spmd.SpmdContext(storage, LocalGroup(SPMD_SHARDS), bc,
+                           device=device)
+    sol, rhs = exact(3)
+    # A x = 0 from a random consistent start (no round-off floor): the
+    # one-shard stack's history first, before the sharded path's counts
+    one = CellStorage(mesh_unit_cube(MESH_N))
+    stack1 = make_p1_gmg(one, min_level=MIN_LEVEL, max_level=level,
+                         coarse_iters=COARSE_ITERS, device=device)
+    sp1, sd1 = stack1.space(), stack1.sd()
+    gen = torch.Generator(device=device).manual_seed(160)
+    z1 = sp1.exchange_rep(torch.randn(sp1.block_shape, generator=gen,
+                                      device=device) * sp1.vertex_mask_t, sd1)
+    z1 = sp1._restore_rows_(z1, None, FLAG_INNER, sd1)
+    zs = spmd_split(storage, z1)
+    zero1 = sp1.zeros()
+    hom1 = [stack1.residual_norm(z1, zero1).item()]
+    for _ in range(SPMD_P1_CYCLES):
+        z1 = stack1.gmg.cycle(z1, zero1)
+        hom1.append(stack1.residual_norm(z1, zero1).item())
+    del stack1, z1, zero1
+    torch.cuda.empty_cache()
+
+    b2.p1_const_apply.launches = 0  # the sharded path: counts start here
+    b3.p1_diagonal_local.launches = 0
+    t0 = time.perf_counter()
+    vc = spmd.build_spmd_poisson_vcycle(
+        ctx, MIN_LEVEL, level, coarse_iters=COARSE_ITERS,
+        agglomerate_coarse=True)
+    ctx, sp = vc.ctx, vc.ctx.space(level)
+
+    def problem(g, st):
+        sd = st.sds[level]
+        mass = P1ElementwiseOperator(sp, forms.mass_form, shard=g.rank)
+        f = sp.interpolate(rhs, sp.zeros(), DoFType.ALL, sd)
+        return (sp.interpolate(sol, sp.zeros(), DoFType.DIRICHLET, sd),
+                sp.restore_rows(mass.apply_raw(f, sd=sd), sp.zeros(),
+                                FLAG_INNER, sd))
+
+    xb = ctx.run(problem, vc.stacks)
+    xs, bs = [p[0] for p in xb], [p[1] for p in xb]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def rnorm(xs, bs):
+        return ctx.run(lambda g, st, x, b: st.residual_norm(x, b).item(),
+                       vc.stacks, xs, bs)[0]
+
+    res, cycle_ms = [rnorm(xs, bs)], []
+    for _ in range(SPMD_P1_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        xs = vc(xs, bs)
+        ev[1].record()
+        res.append(rnorm(xs, bs))
+        cycle_ms.append(ev[0].elapsed_time(ev[1]))
+    zeros = [torch.zeros_like(z) for z in zs]
+    hom = [rnorm(zs, zeros)]
+    for _ in range(SPMD_P1_CYCLES):
+        zs = vc(zs, zeros)
+        hom.append(rnorm(zs, zeros))
+    # read straight after the sharded work: nothing one-shard ran since 0
+    launches = {"p1_const_apply": b2.p1_const_apply.launches,
+                "p1_diagonal_local": b3.p1_diagonal_local.launches}
+    del zs, zeros
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the sharded P1 path")
+    # gmg_solve's cycles past those compared sit on its f32 plateau: their
+    # spread is the noise of a residual there
+    plateau = ref["residuals"][SPMD_P1_CYCLES + 1:]
+    noise = max(plateau) - min(plateau)
+    ref_res = ref["residuals"][:SPMD_P1_CYCLES + 1]
+    rel = spmd_cycle_rel(res, ref_res, "spmd_p1 manufactured", noise)
+    hom_rel = spmd_cycle_rel(hom, hom1, "spmd_p1 A x = 0")
+    rate = (res[SPMD_P1_CYCLES] / res[0]) ** (1.0 / SPMD_P1_CYCLES)
+    check(rate <= RATE_MAX, f"spmd_p1: rate {rate} > {RATE_MAX}")
+
+    # the applies against the one-shard apply, on the same random
+    # consistent u (a smooth u makes A u cancel to O(h^2) of its terms,
+    # and any order of the interface sums then moves it by 1e-4 of max|y|)
+    sp1 = P1Space(one, level, device=device, pitch=sp.pitch)
+    op1 = P1ElementwiseOperator(sp1, forms.laplace_form)
+    u1 = sp1.exchange_rep(torch.randn(
+        sp1.block_shape, generator=gen, device=device) * sp1.vertex_mask_t,
+        sp1.shard_data(0, bc))
+    y1 = op1.apply_raw(u1)
+    us = spmd_split(storage, u1)
+    sds = {"overlapped": lambda g, st: st.sds[level],
+           "neighbour": lambda g, st: dataclasses.replace(st.sds[level],
+                                                          ovl=None),
+           "all_reduce": lambda g, st: sp.group_shard_data(g, bc, False)}
+    scale = y1.abs().max().item()
+    apply_rel = {}
+    for name, sd_of in sds.items():
+        ys = ctx.run(lambda g, st, u: st.operators[level].apply_raw(
+            u, sd=sd_of(g, st)), vc.stacks, us)
+        apply_rel[name] = max_abs_diff(spmd_gather(storage, ys), y1) / scale
+        check(apply_rel[name] <= SPMD_APPLY_REL,
+              f"spmd_p1: {name} apply {apply_rel[name]} > {SPMD_APPLY_REL}")
+    K = [st.sds[level].ovl.K for st in vc.stacks]
+
+    # times: a cycle, its profile, launches per cycle, apply and exchange
+    ms = sorted(cycle_ms)[len(cycle_ms) // 2]
+    prof = cycle_profile(lambda: vc(xs, bs), ms,
+                         {"b2": ("p1_const_apply_kernel",),
+                          "b3": ("p1_diag_kernel",),
+                          "index": ("index", "scatter", "gather"),
+                          "reduce": ("reduce",)}, warmup=0)
+    b2.p1_const_apply.launches = 0
+    b3.p1_diagonal_local.launches = 0
+    vc(xs, bs)
+    per_cycle = {"p1_const_apply": b2.p1_const_apply.launches,
+                 "p1_diagonal_local": b3.p1_diagonal_local.launches}
+    # B3 builds the diagonals once, at set-up; a cycle launches B2 only
+    check(per_cycle["p1_const_apply"] > 0,
+          "p1_const_apply was not launched in a sharded V-cycle")
+    # an exchange works in place: each timed call first copies the apply
+    # result back in, and the copies alone are timed too
+    scratch = [torch.empty_like(u) for u in us]
+    y1c, sd1 = torch.empty_like(y1), sp1.shard_data(0, bc)
+    times = {
+        "apply_sharded_ms": median_ms(lambda: ctx.run(
+            lambda g, st, u: st.operators[level].apply_raw(
+                u, sd=st.sds[level]), vc.stacks, us), 10),
+        "apply_one_shard_ms": median_ms(lambda: op1.apply_raw(u1), 10),
+        "exchange_sharded_ms_incl_copy": median_ms(lambda: ctx.run(
+            lambda g, st, u, y: sp._exchange_add_(y.copy_(u),
+                                                  st.sds[level]),
+            vc.stacks, us, scratch), 10),
+        "copy_sharded_ms": median_ms(lambda: [
+            y.copy_(u) for y, u in zip(scratch, us)], 10),
+        "exchange_one_shard_ms_incl_copy": median_ms(
+            lambda: sp1._exchange_add_(y1c.copy_(y1), sd1), 10),
+        "copy_one_shard_ms": median_ms(lambda: y1c.copy_(y1), 10)}
+    return {"mesh": f"mesh_unit_cube({MESH_N})", "level": level,
+            "shards": SPMD_SHARDS, "partitioner": "sfc",
+            "global_dofs": sp.num_global_dofs(),
+            "shard_block": list(sp.block_shape), "interface_cells": K,
+            "setup_s": setup_s, "residuals": res,
+            "one_shard_residuals": ref_res, "cycle_rel": rel,
+            "one_shard_plateau_noise": noise,
+            "homogeneous_residuals": hom,
+            "homogeneous_one_shard_residuals": hom1,
+            "homogeneous_cycle_rel": hom_rel,
+            "rate_cycles_1_4": rate, "cycle_ms": cycle_ms,
+            "ms_per_vcycle": ms, "one_shard_ms_per_vcycle": ref.get("vcycle_ms"),
+            "apply_rel": apply_rel, "overlap": spmd_overlap_case(device),
+            "profile": prof,
+            "launches_per_vcycle": per_cycle, **times, "launches": launches}
+
+
+def spmd_stokes(device, card: str, ref: dict) -> dict:
+    """The sharded Stokes (Uzawa) V-cycle at 3D P2 level 6: stokes_run's
+    start (its seed) split over the shards, SPMD_STOKES_CYCLES cycles on
+    A x = 0 against stokes_run's residuals (``ref``)."""
+    from hyteg_tpu_torch.composites.stokes import (P2P1TaylorHoodStokes,
+                                                   TaylorHoodVec)
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.parallel import spmd
+    from hyteg_tpu_torch.parallel.comm import LocalGroup
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    level = STOKES_LEVEL
+    one = CellStorage(mesh_unit_cube(MESH_N))
+    st1 = P2P1TaylorHoodStokes(one, level, device=device)
+    x1 = stokes_rand_vec(st1, torch.Generator(device=device).manual_seed(
+        130 + one.dim))
+    del st1
+    storage = CellStorage(mesh_unit_cube(MESH_N), num_shards=SPMD_SHARDS,
+                          partitioner="sfc")
+    ctx = spmd.SpmdContext(storage, LocalGroup(SPMD_SHARDS), device=device)
+    b5.p2_const_apply.launches = 0  # the sharded path: counts start here
+    b3.p1_diagonal_local.launches = 0
+    t0 = time.perf_counter()
+    vc = spmd.build_spmd_stokes_vcycle(ctx, STOKES_MIN_LEVEL, level,
+                                       eigs=ref["eigs"], **STOKES_KW)
+    xs = [TaylorHoodVec(v, p) for v, p in zip(
+        spmd_split(storage, x1.vel, axis=1), spmd_split(storage, x1.pre))]
+    del x1
+    bs = ctx.run(lambda g, stack: stack.stokes[level].zeros(), vc.stacks)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def rnorm(xs):
+        return ctx.run(lambda g, stack, x, b: stack.stokes[level].norm(
+            b - stack.stokes[level].apply_inner(x)).item(),
+            vc.stacks, xs, bs)[0]
+
+    res, cycle_ms = [rnorm(xs)], []
+    for _ in range(SPMD_STOKES_CYCLES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        xs = vc(xs, bs)
+        ev[1].record()
+        res.append(rnorm(xs))
+        cycle_ms.append(ev[0].elapsed_time(ev[1]))
+    launches = {"p2_const_apply": b5.p2_const_apply.launches,
+                "p1_diagonal_local": b3.p1_diagonal_local.launches}
+    ref_res = ref["residuals"][:SPMD_STOKES_CYCLES + 1]
+    rel = [abs(a - b) / b for a, b in zip(res, ref_res)]
+    check(all(math.isfinite(r) for r in res), f"spmd_stokes: {res}")
+    check(max(rel) <= SPMD_CYCLE_REL,  # both diverge alike after cycle 1
+          f"spmd_stokes: residuals {res} vs one shard {ref_res}: {rel}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the sharded Stokes path")
+    st = vc.stacks[0].stokes[level]
+    return {"mesh": f"mesh_unit_cube({MESH_N})", "level": level,
+            "shards": SPMD_SHARDS, "global_dofs": ref["global_dofs"],
+            "vel_shard_block": [st.dim] + list(st.vel_space.block_shape),
+            "setup_s": setup_s, "residuals": res,
+            "one_shard_residuals": ref_res, "cycle_rel": rel,
+            "cycle_ms": cycle_ms, "one_shard_cycle_ms": ref["cycle_ms"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+
+
+def spmd_box(device, card: str, ref: dict) -> dict:
+    """The sharded box path at level 9 over SPMD_SHARDS row slabs: the
+    manufactured solve of box_solve (V(2,2), BOX_BIG_CYCLES cycles)
+    against box_gmg_1e9's recorded residuals (``ref``); B1 on a 3-row
+    edge strip against its plain version."""
+    from hyteg_tpu_torch.kernels import box_stencil as b1
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.parallel.comm import LocalGroup
+    from hyteg_tpu_torch.structured import BoxDomain, BoxStencilOperator
+    from hyteg_tpu_torch.structured import spmd as box_spmd
+
+    torch.cuda.reset_peak_memory_stats()
+    dom = BoxDomain(BOX_M, BOX_BIG_LEVEL, device=device)
+    group = LocalGroup(SPMD_SHARDS)
+    b1.box_apply.launches = 0  # the sharded path: counts start here
+    t0 = time.perf_counter()
+    levels = box_spmd.build_spmd_hierarchy(dom, SPMD_SHARDS,
+                                           min_level=BOX_MIN_LEVEL)
+    rows = levels[0].rows
+    mass = box_spmd.SpmdBoxOperator(BoxStencilOperator(dom, forms.mass_form),
+                                    rows)
+    xf, yf, zf = dom.coord_factors()
+
+    def rhs(g):
+        s, e = rows[g.rank]
+        f = (3 * math.pi ** 2 * box_sol(xf[s:e], yf, zf)).contiguous()
+        return mass.apply_raw(g, f)
+
+    bs = group.run(rhs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def solve(g, b):
+        r = levels[0].inner_(g, b.clone())
+        r0 = torch.sqrt(g.all_reduce(torch.sum(r * r)))
+        x, rns = box_spmd.spmd_solve_poisson(g, levels, b,
+                                             cycles=BOX_BIG_CYCLES)
+        return x, [r0.item()] + rns.tolist()
+
+    t0 = time.perf_counter()
+    out = group.run(solve, bs)
+    solve_s = time.perf_counter() - t0
+    launches = {"box_apply": b1.box_apply.launches}
+    res = out[0][1]
+    xs = [o[0] for o in out]
+    del out
+    ref_res = ref["residuals"]
+    rel = spmd_cycle_rel(res, ref_res, "spmd_box")
+    rate = (res[4] / res[0]) ** 0.25
+    check(rate <= BOX_RATE_MAX, f"spmd_box: rate {rate} > {BOX_RATE_MAX}")
+    check(launches["box_apply"] > 0, "box_apply was not launched on the "
+          "sharded box path")
+    eig_same = [l.eig_max for l in levels] == ref["eig_max"]
+    check(eig_same, "spmd_box: the slabs' Chebyshev bounds differ")
+
+    # one cycle's time, and B1 on a 3-row strip at a slab edge vs plain
+    ms = median_ms(lambda: group.run(
+        lambda g, x, b: box_spmd.spmd_vcycle(g, levels, x, b), xs, bs), 3,
+        warmup=1)
+    s1 = rows[1][0]
+    X, Y, Z = dom.dims
+    strip = (3 * math.pi ** 2 * box_sol(xf[s1 - 1:s1 + 2], yf, zf)).contiguous()
+    w = levels[0].op.op.w_vecs
+    yk = b1.box_apply(strip, w, (3, Y, Z))
+    yp = b1.box_apply_torch(strip, w, (3, Y, Z))
+    strip_err = max_abs_diff(yk, yp)
+    check(strip_err <= B1_RTOL * yp.abs().max().item(),
+          f"B1 on a 3-row strip: {strip_err}")
+    return {"m": list(BOX_M), "level": BOX_BIG_LEVEL, "dofs": dom.num_dofs(),
+            "shards": SPMD_SHARDS, "rows": rows, "setup_s": setup_s,
+            "solve_s_incl_residual_norms": solve_s, "residuals": res,
+            "one_slab_residuals": ref_res, "cycle_rel": rel,
+            "rate_cycles_1_4": rate, "ms_per_vcycle": ms,
+            "one_slab_ms_per_vcycle": ref["ms_per_vcycle"],
+            "b1_strip_max_abs_err": strip_err,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+
+
+def spmd_by_gid(space, blocks: list) -> torch.Tensor:
+    """A one-shard run's field by global DoF id (interface replicas agree:
+    any one of them is kept), on the blocks' device."""
+    out = torch.zeros(space.num_global_dofs(), dtype=blocks[0].dtype,
+                      device=blocks[0].device)
+    for d, blk in enumerate(blocks):
+        ids = torch.as_tensor(space.global_ids(d), device=blk.device)
+        sel = ids >= 0
+        out[ids[sel]] = blk[sel]
+    return out
+
+
+def spmd_gid_err(space, blocks: list, want: torch.Tensor) -> float:
+    """max |blocks - want| over every shard's copy of every global DoF,
+    interface replicas included."""
+    err = 0.0
+    for d, blk in enumerate(blocks):
+        ids = torch.as_tensor(space.global_ids(d), device=blk.device)
+        sel = ids >= 0
+        err = max(err, (blk[sel] - want[ids[sel]]).abs().max().item())
+    return err
+
+
+def spmd_energy_floor(sim, T0: list, x: list, T: list) -> float:
+    """The one-shard energy step's own f32 floor: the largest change of
+    its result T (from T0 and the Stokes velocity x) when each cell's mass
+    and Laplace stencils move by one ulp, with a fixed random sign per
+    cell, as another order of the interface sums moves them."""
+    e = sim._energy[0]
+    gen = torch.Generator(device=T[0].device).manual_seed(16)
+    for op in (e.M, e.A):
+        C = op.stencil.shape[0]
+        s = 1.0 + 2.0 ** -23 * (2.0 * torch.randint(
+            0, 2, (C,), generator=gen, device=T[0].device) - 1.0)
+        for w in (op.stencil, op.stencil_face):
+            w.mul_(s.view(-1, *[1] * (w.dim() - 1)))
+    Tp = sim.ctx.run(lambda g, en, t, xx: sim._energy_step(en, t, xx.vel),
+                     sim._energy, T0, x)
+    return (Tp[0] - T[0]).abs().max().item()
+
+
+def spmd_convection(device, card: str) -> dict:
+    """One sharded convection step on the shell (TERRANEO_SHELL), 4
+    shards against 1 of the same code: |T| and |u_i| within SPMD_CONV_REL;
+    at every shard's copy of every global node, each velocity component
+    within SPMD_CONV_REL of its one-shard max, T within SPMD_CONV_REL of
+    max|T| plus the one-shard step's own f32 floor (spmd_energy_floor);
+    T finite in TERRANEO_T_RANGE. The one-shard run comes first, outside
+    the counts."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.terraneo.params import ConvectionParameters
+    from hyteg_tpu_torch.terraneo.spmd_sim import ShardedConvectionSimulation
+
+    counted = (b2.p1_const_apply, b3.p1_diagonal_local, b5.p2_const_apply)
+    names = ["T"] + [f"u_{c}" for c in "xyz"[:TERRANEO_SHELL["dim"]]]
+    out, launches, want, node_rel = {}, {}, {}, {}
+    for S in (1, SPMD_SHARDS):
+        if S == SPMD_SHARDS:
+            for w in counted:  # the sharded path: counts start here
+                w.launches = 0
+        t0 = time.perf_counter()
+        sim = ShardedConvectionSimulation(
+            ConvectionParameters(**TERRANEO_SHELL), num_shards=S,
+            device=device, partitioner="sfc")
+        T0, x = sim.initial_state()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        T, x = sim.step(T0, x)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if S == SPMD_SHARDS:
+            launches = {w.__name__: w.launches for w in counted}
+        lo = min(t.min().item() for t in T)
+        hi = max(t.max().item() for t in T)
+        out[S] = {"setup_s": t1 - t0, "step_s": t2 - t1,
+                  "observables": sim.observables(T, x), "T_min": lo,
+                  "T_max": hi}
+        check(all(math.isfinite(v) for v in out[S]["observables"]),
+              f"terraneo_spmd {S} shards: non-finite state")
+        check(TERRANEO_T_RANGE[0] <= lo and hi <= TERRANEO_T_RANGE[1],
+              f"terraneo_spmd {S} shards: T in [{lo}, {hi}]")
+        fields = {"T": T}
+        for c, name in enumerate(names[1:]):
+            fields[name] = [xx.vel[c] for xx in x]
+        for name, blocks in fields.items():
+            if S == 1:
+                nodes = sim.T_sp.num_global_dofs()
+                want[name] = spmd_by_gid(sim.T_sp, blocks)
+                if name == "T":
+                    t_max = want[name].abs().max().item()
+            else:
+                node_rel[name] = (spmd_gid_err(sim.T_sp, blocks, want[name])
+                                  / want[name].abs().max().item())
+        if S == 1:  # last: it changes the one-shard operators
+            floor = spmd_energy_floor(sim, T0, x, T)
+        del sim, T0, T, x, fields
+        torch.cuda.empty_cache()
+    del want
+    rel = [abs(a - b) / abs(b) for a, b in zip(
+        out[SPMD_SHARDS]["observables"], out[1]["observables"])]
+    check(max(rel) <= SPMD_CONV_REL,
+          f"terraneo_spmd: {SPMD_SHARDS} shards vs 1: {rel}")
+    floor_rel = floor / t_max
+    node_bound = {k: SPMD_CONV_REL + (floor_rel if k == "T" else 0.0)
+                  for k in node_rel}
+    check(all(node_rel[k] <= node_bound[k] for k in node_rel),
+          f"terraneo_spmd: {SPMD_SHARDS} shards vs 1 per node: {node_rel}, "
+          f"bounds {node_bound}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the sharded convection "
+              "step")
+    return {"params": TERRANEO_SHELL, "shards": SPMD_SHARDS,
+            "one_shard": out[1], "sharded": out[SPMD_SHARDS],
+            "observables": "[|T|, |u_x|, |u_y|, |u_z|] over the blocks",
+            "rel": rel, "node_rel": node_rel,
+            "one_shard_T_floor_rel": floor_rel, "node_bound": node_bound,
+            "T_nodes": nodes, "launches": launches}
+
+
+def spmd_migration(device, card: str) -> dict:
+    """Particles seeded on every shard over the whole cube handed to
+    their owner shards by one all_to_all: counts conserved, overflow 0,
+    every particle on its owner."""
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.parallel.comm import LocalGroup
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.transport.migration import migrate
+    from hyteg_tpu_torch.transport.particles import (ParticleDomain,
+                                                     create_particles)
+
+    storage = CellStorage(mesh_unit_cube(MESH_N), num_shards=SPMD_SHARDS,
+                          partitioner="sfc")
+    dom = ParticleDomain(storage, level=2, device=device)
+    cps, P = storage.cells_per_shard, SPMD_PARTICLES
+    rng = np.random.default_rng(16)
+    sets = []
+    for d in range(SPMD_SHARDS):
+        ps = create_particles(rng.uniform(0.05, 0.95, (P, 3)),
+                              capacity=2 * P, device=device)
+        ps.temperature[:P] = torch.as_tensor(
+            rng.standard_normal(P).astype(np.float32), device=device)
+        sets.append(ps)
+    moved = sum(int((dom.owners(ps)[:P] // cps != d).sum())
+                for d, ps in enumerate(sets))
+    t0 = time.perf_counter()
+    out = LocalGroup(SPMD_SHARDS).run(
+        lambda g, ps: migrate(ps, dom.owners(ps) // cps, g, M=P), sets)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    total = sum(int(ps.active.sum()) for ps, _ in out)
+    dropped = sum(int(n) for _, n in out)
+    misplaced = sum(int((dom.owners(ps)[ps.active] // cps != d).sum())
+                    for d, (ps, _) in enumerate(out))
+    check(total == SPMD_SHARDS * P, f"migration: {total} particles after, "
+          f"{SPMD_SHARDS * P} before")
+    check(dropped == 0, f"migration: {dropped} dropped")
+    check(misplaced == 0, f"migration: {misplaced} particles off their owner")
+    return {"shards": SPMD_SHARDS, "particles_per_shard": P,
+            "slots_per_destination": P, "moved": moved, "after": total,
+            "dropped": dropped, "misplaced": misplaced,
+            "host_ms_incl_owner_lookup": ms}
+
+
+def _nccl_worker(rank: int, world: int, tmp: str) -> None:
+    """One card per process: the sharded exchange and P1 V-cycle over
+    NCCL, the results saved for the parent to compare."""
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.parallel import spmd
+    from hyteg_tpu_torch.parallel.comm import DistGroup
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    device = torch.device("cuda", rank)
+    g = DistGroup(init_method=f"file://{tmp}/rendezvous", rank=rank,
+                  world_size=world, backend="nccl", device=device)
+    try:
+        np.save(f"{tmp}/rank{rank}.npy", spmd_nccl_cycle(
+            g, CellStorage(mesh_unit_cube(MESH_N), num_shards=world,
+                           partitioner="sfc"), device)[0])
+    finally:
+        g.close()
+
+
+def spmd_nccl_cycle(group, storage, device) -> list:
+    """Two sharded P1 V-cycles at level 5 from the manufactured solution
+    with b = 0: the local shards' blocks (numpy)."""
+    from hyteg_tpu_torch.parallel import spmd
+
+    sol, _ = exact(3)
+    ctx = spmd.SpmdContext(storage, group, device=device)
+    vc = spmd.build_spmd_poisson_vcycle(ctx, MIN_LEVEL, 5,
+                                        coarse_iters=COARSE_ITERS,
+                                        agglomerate_coarse=True)
+    xs = vc.ctx.interpolate(5, sol)
+    bs = [torch.zeros_like(x) for x in xs]
+    for _ in range(2):
+        xs = vc(xs, bs)
+    return [x.cpu().numpy() for x in xs]
+
+
+def spmd_nccl(device, card: str) -> dict:
+    """DistGroup over NCCL, one process per card, against the LocalGroup
+    on this card: only with >= SPMD_SHARDS cards, else a line saying why
+    it did not run. Never counted as passed."""
+    import multiprocessing as mp
+    import tempfile
+
+    n = torch.cuda.device_count()
+    if n < SPMD_SHARDS:
+        return {"ran": False, "why": f"torch.cuda.device_count() is {n}: "
+                f"NCCL puts one rank on each card, and the run needs "
+                f"{SPMD_SHARDS}"}
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.parallel.comm import LocalGroup
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_nccl_worker, args=(r, SPMD_SHARDS, tmp))
+                 for r in range(SPMD_SHARDS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * SPMD_SHARDS, f"spmd_nccl: exit codes {codes}")
+        dist = [np.load(f"{tmp}/rank{r}.npy") for r in range(SPMD_SHARDS)]
+    storage = CellStorage(mesh_unit_cube(MESH_N), num_shards=SPMD_SHARDS,
+                          partitioner="sfc")
+    local = spmd_nccl_cycle(LocalGroup(SPMD_SHARDS), storage, device)
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(dist, local))
+    scale = max(float(np.abs(b).max()) for b in local)
+    check(diff <= SPMD_APPLY_REL * scale, f"spmd_nccl: {diff} of {scale}")
+    return {"ran": True, "cards": n, "max_abs_diff": diff, "max_abs": scale}
+
+
+def run_spmd(device, card: str, p1_ref: dict, stokes_ref: dict,
+             box_ref: dict) -> dict:
+    """The sharded path (A8) on the one card, SPMD_SHARDS shards of an SFC
+    partition in one process: spmd_p1, spmd_stokes, spmd_box,
+    terraneo_spmd, migration, then spmd_nccl (several cards only). Each
+    phase's kernel counts are set to 0 just before it and read just
+    after. Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name, fn, ref in (("spmd_p1", spmd_p1, p1_ref),
+                          ("spmd_stokes", spmd_stokes, stokes_ref),
+                          ("spmd_box", spmd_box, box_ref)):
+        t1 = time.perf_counter()
+        res = fn(device, card, ref)
+        emit(name, card=card, phase_s=time.perf_counter() - t1, **res)
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    res = spmd_convection(device, card)
+    emit("terraneo_spmd", card=card, phase_s=time.perf_counter() - t1, **res)
+    for k, n in res["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    for name, fn in (("migration", spmd_migration), ("spmd_nccl", spmd_nccl)):
+        t1 = time.perf_counter()
+        res = fn(device, card)
+        emit(name, card=card, phase_s=time.perf_counter() - t1, **res)
+    return {"launches": launches, "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     from hyteg_tpu_torch.kernels import build
 
@@ -3414,6 +4156,8 @@ def main() -> int:
     big["peak_bytes"] = torch.cuda.max_memory_allocated()
     big["peak_gb"] = big["peak_bytes"] / 1e9
     emit("box_gmg_1e9", card=card, **big)
+    box_big_ref = {k: big[k] for k in ("residuals", "eig_max",
+                                       "ms_per_vcycle")}
     box_t["box_vcycle_level9"] = big["ms_per_vcycle"]
     box_dofs[9] = big["dofs"]
     box_prof = cycle_profile(lambda: box_gmg.vcycle(levels, u, b),
@@ -3514,6 +4258,15 @@ def main() -> int:
     terraneo = run_terraneo(device, card)
     emit("terraneo_checks", phase_s=terraneo["phase_s"],
          launches=terraneo["launches"])
+
+    # -- the sharded path (B2, B3, B5, B1), 4 shards on the one card -----------
+    sharded = run_spmd(
+        device, card,
+        {"residuals": results[SLICE_LEVELS[-1]]["residuals"],
+         "vcycle_ms": t["vcycle"]},
+        stokes["ref3d"], box_big_ref)
+    emit("spmd_checks", phase_s=sharded["phase_s"],
+         launches=sharded["launches"])
 
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
@@ -3626,6 +4379,12 @@ def main() -> int:
         launches[name] += n
     for name, e in terraneo["errs"].items():
         errs[name] = max(errs[name], e)
+    # and the sharded path's launches of B2, B3, B5 and B1
+    for name, n in sharded["launches"].items():
+        by_path = extra.setdefault(name, {}).setdefault(
+            "launches_by_path", {"earlier_paths": launches[name]})
+        by_path["spmd"] = n
+        launches[name] += n
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

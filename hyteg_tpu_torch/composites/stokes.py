@@ -1,5 +1,6 @@
 """P2-P1 Taylor-Hood Stokes composite (vector + block operator); torch
-counterpart of hyteg_tpu/composites/stokes.py (one shard).
+counterpart of hyteg_tpu/composites/stokes.py (one shard of a storage;
+with group shard data, one shard of a sharded solve).
 
 Reference: src/hyteg/composites/P2P1TaylorHoodFunction.hpp,
 src/mixed_operator/P2P1TaylorHoodStokesOperator.hpp. The block system
@@ -61,6 +62,14 @@ class TaylorHoodVec:
                              torch.zeros_like(self.pre))
 
 
+def stokes_spaces(storage, level: int, pitch: int, *, device,
+                  dtype=torch.float32) -> tuple:
+    """(velocity P2Space, pressure P1Space) of one level on one lane
+    pitch: what P2P1TaylorHoodStokes builds, for shards to share."""
+    return (P2Space(storage, level, device=device, dtype=dtype, pitch=pitch),
+            P1Space(storage, level, device=device, dtype=dtype, pitch=pitch))
+
+
 class P2P1TaylorHoodStokes:
     """Spaces, operators and BC handling of the Stokes system on one level.
 
@@ -77,13 +86,21 @@ class P2P1TaylorHoodStokes:
     blended div / grad, both evaluated on the blended node field, which is
     built once and shared (operators/p2_blended_stokes.py); the pressure
     mass of the preconditioners stays the affine lumped P1 mass, as in the
-    reference. ``device`` has no default."""
+    reference. ``device`` has no default.
+
+    Sharded (the JAX package's ``shard``, ``vel_sd``, ``pre_sd`` and
+    ``axis_name``): ``shard`` names the shard whose cells the operators
+    hold; ``vel_sd`` / ``pre_sd`` replace the velocity (node grid, under
+    ``bc``) and pressure (all-Neumann) shard data, and when they carry a
+    group every exchange and dot of the composite runs over it;
+    ``spaces`` (stokes_spaces) lets shards share their spaces."""
 
     def __init__(self, storage, level: int, bc: BoundaryCondition | None = None,
                  viscosity: float = 1.0, *, device, dtype=torch.float32,
                  pitch: int | None = None, mu_field=None, epsilon: bool = False,
                  full_viscous: bool = False, elmats: dict | None = None,
-                 gmap=None):
+                 gmap=None, shard: int = 0, vel_sd=None, pre_sd=None,
+                 spaces: tuple | None = None):
         self.storage = storage
         self.level = level
         self.dim = storage.dim
@@ -93,15 +110,15 @@ class P2P1TaylorHoodStokes:
         # multi-level (GMG) stacks pass the max-level pitch explicitly
         pitch = ((1 << (level + 1)) + 1) if pitch is None else pitch
         self.pitch = pitch
-        self.vel_space = P2Space(storage, level, device=device, dtype=dtype,
-                                 pitch=pitch)
-        self.pre_space = P1Space(storage, level, device=device, dtype=dtype,
-                                 pitch=pitch)
+        self.vel_space, self.pre_space = spaces or stokes_spaces(
+            storage, level, pitch, device=device, dtype=dtype)
         self.device = self.vel_space.device
         self.visc = viscosity
-        self._vel_sd = self.vel_space.shard_data(0, self.bc)
-        self._pre_sd = self.pre_space.shard_data(
-            0, BoundaryCondition.all_neumann())
+        self.shard = shard
+        self._vel_sd = vel_sd or self.vel_space.shard_data(shard, self.bc)
+        self._pre_sd = pre_sd or self.pre_space.shard_data(
+            shard, BoundaryCondition.all_neumann())
+        self.group = self._vel_sd.group
         elmats = elmats or {}
         self.gmap = gmap
         self.use_epsilon = (epsilon or full_viscous or (mu_field is not None)
@@ -130,15 +147,18 @@ class P2P1TaylorHoodStokes:
 
                 self.K_eps = P2VectorEpsilonOperator(
                     self.vel_space, full=full_viscous,
-                    elmats=elmats.get("epsilon"))
+                    elmats=elmats.get("epsilon"),
+                    cell_vertices=self.vel_space.cell_vertices(shard))
                 self.K = None
             else:
                 self.K = P2ElementwiseOperator(self.vel_space, "laplace",
+                                               shard=shard,
                                                elmats=elmats.get("laplace"))
                 self.K_eps = None
             self.B = P2ToP1DivOperator(self.vel_space, self.pre_space,
-                                       elmats=elmats.get("div"))
+                                       shard=shard, elmats=elmats.get("div"))
         self.pmass = P1ElementwiseOperator(self.pre_space, forms.mass_form,
+                                           shard=shard,
                                            elmats=elmats.get("p1_mass"))
 
     # -- vectors -------------------------------------------------------------

@@ -1,5 +1,6 @@
 """P2 (quadratic Lagrange) function space on dense node grids (torch
-counterpart of hyteg_tpu/functions/p2.py, 2D and 3D, one shard).
+counterpart of hyteg_tpu/functions/p2.py, 2D and 3D; sharded through
+the node space's shard data, as the JAX package's ``axis_name`` paths).
 
 The micro-edge midpoints of refinement level L are exactly the
 micro-vertices of level L+1, so all P2 DoFs (vertex DoFs and the 7 edge
@@ -63,6 +64,10 @@ class P2Space:
 
     def shard_data(self, shard: int, bc: BoundaryCondition) -> P1ShardData:
         return self.node_space.shard_data(shard, bc)
+
+    def group_shard_data(self, group, bc: BoundaryCondition,
+                         neighbor: bool = True) -> P1ShardData:
+        return self.node_space.group_shard_data(group, bc, neighbor)
 
     def resolve_sd(self, sd_or_bc=None, shard: int = 0) -> P1ShardData:
         return self.node_space.resolve_sd(sd_or_bc, shard)

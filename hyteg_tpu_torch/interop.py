@@ -146,3 +146,39 @@ def convection_state_from_reference(T, vel, pre, time: float, step: int, *,
         T=torch.tensor(np.asarray(T), dtype=dtype, device=device),
         x=taylor_hood_from_reference(vel, pre, device=device, dtype=dtype),
         time=float(time), step_count=int(step))
+
+
+def shards_from_reference(block: np.ndarray, num_shards: int, *, device,
+                          dtype=torch.float32) -> list:
+    """A sharded JAX array, shard-major (D * C_loc, N, lanes) with each
+    shard's padding cells at the end of its range, -> the port's
+    per-shard blocks [(C_loc, N, lanes)] * D (parallel/spmd.py)."""
+    a = np.asarray(block)
+    if a.shape[0] % num_shards:
+        raise ValueError(f"{a.shape[0]} cells do not split into "
+                         f"{num_shards} shards")
+    return [torch.tensor(p, dtype=dtype, device=device)
+            for p in np.split(a, num_shards, axis=0)]
+
+
+def shards_to_reference(parts: list) -> np.ndarray:
+    """Per-shard blocks (every shard's, in rank order) -> the JAX
+    package's shard-major (D * C_loc, N, lanes) numpy array."""
+    return np.concatenate([block_to_numpy(p) for p in parts], axis=0)
+
+
+def box_slabs_from_reference(block: np.ndarray, rows: list, *, device,
+                             dtype=torch.float32) -> list:
+    """A row-sharded JAX box array (Xp, L), zero-padded to equal slabs
+    (hyteg_tpu/structured/spmd.py:shard_field), -> the port's slabs on
+    ``rows`` (structured/spmd.py:slab_rows)."""
+    a = np.asarray(block, dtype=np.float32)
+    return [torch.tensor(a[s:e], dtype=dtype, device=device) for s, e in rows]
+
+
+def box_slabs_to_reference(parts: list, num_shards: int) -> np.ndarray:
+    """The port's slabs -> the JAX package's (Xp, L) layout: rows
+    concatenated and zero-padded to a multiple of ``num_shards``."""
+    a = np.concatenate([block_to_numpy(p) for p in parts], axis=0)
+    Xp = -(-a.shape[0] // num_shards) * num_shards
+    return np.pad(a, ((0, Xp - a.shape[0]), (0, 0)))

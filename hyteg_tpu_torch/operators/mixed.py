@@ -96,7 +96,7 @@ class P2ToP1DivOperator:
         self.p2, self.p1 = p2, p1
         self.shard = shard
         if elmats is None:
-            elmats = compute_divergence_elmats(p2)
+            elmats = compute_divergence_elmats(p2, p2.cell_vertices(shard))
         self.elmats = torch.as_tensor(elmats, dtype=p2.dtype,
                                       device=p2.device).contiguous()
         self._node_offs = p2_node_offsets(p2.dim)

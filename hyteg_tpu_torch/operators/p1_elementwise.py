@@ -66,26 +66,67 @@ class P1ElementwiseOperator(nn.Module):
                              stencil_weights(elmats, space.dim).contiguous())
         self.register_buffer("stencil_face",
                              face_weights_full(elmats, space.dim).contiguous())
+        self._sub_tables: dict = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_raw(x)
 
     # -- raw array API (used by the solvers) ---------------------------------
 
-    def _apply_local(self, x, coeff=None):
-        """Per-cell partial apply (no exchange)."""
+    def _tables(self, cells):
+        """(elmats, stencil, stencil_face) of the cells ``cells`` (a
+        sub-block of the overlapped apply; None: every cell), gathered once
+        per index tensor."""
+        if cells is None:
+            return self.elmats, self.stencil, self.stencil_face
+        key = id(cells)
+        hit = self._sub_tables.get(key)
+        if hit is None or hit[0] is not cells:
+            hit = (cells, tuple(t.index_select(0, cells).contiguous() for t in
+                                (self.elmats, self.stencil,
+                                 self.stencil_face)))
+            self._sub_tables[key] = hit
+        return hit[1]
+
+    def _apply_local(self, x, coeff=None, cells=None):
+        """Per-cell partial apply (no exchange). ``cells`` restricts it to
+        those cells: ``x`` (and ``coeff``) must already be gathered to
+        them, and the kernels get those cells' tables."""
         sp = self.space
+        elmats, stencil, face = self._tables(cells)
         if coeff is not None:
-            return p1_apply_local(x, self.elmats, sp.level, sp.dim, sp.pitch,
+            return p1_apply_local(x, elmats, sp.level, sp.dim, sp.pitch,
                                   coeff, self.coeff_avg)
-        return p1_const_apply(x, self.stencil, self.stencil_face, sp.level,
-                              sp.dim, sp.pitch)
+        return p1_const_apply(x, stencil, face, sp.level, sp.dim, sp.pitch)
 
     def apply_raw(self, x, coeff=None, sd=None) -> torch.Tensor:
-        """Full A x on every row (interface rows exchanged additively)."""
+        """Full A x on every row (interface rows exchanged additively).
+
+        With a group and overlap tables the apply is split: the cells
+        incident to a cross-shard interface first, their exchange started,
+        the interior cells while it is in flight, then the received
+        partials folded in (reference: BufferedCommunication
+        start/endCommunication). A shard whose every cell touches the
+        interface has nothing to overlap and applies in one piece."""
         sd = self.space.resolve_sd(sd, self.shard)
+        if (sd.group is not None and sd.ovl is not None
+                and 0 < sd.ovl.K < x.shape[0]):
+            return self._apply_overlapped(x, coeff, sd)
         # the exchange writes in place into the fresh apply result
         return self.space._exchange_add_(self._apply_local(x, coeff), sd)
+
+    def _apply_overlapped(self, x, coeff, sd) -> torch.Tensor:
+        sp, ov = self.space, sd.ovl
+        take = lambda a, idx: None if a is None else a.index_select(0, idx)
+        y_ifc = self._apply_local(take(x, ov.ifc), take(coeff, ov.ifc),
+                                  cells=ov.ifc)
+        started = sp._ovl_start(y_ifc, sd)
+        y = torch.empty_like(x)
+        y.index_copy_(0, ov.ifc, y_ifc)
+        y.index_copy_(0, ov.interior, self._apply_local(
+            take(x, ov.interior), take(coeff, ov.interior),
+            cells=ov.interior))
+        return sp._ovl_finish_(y, started, sd)
 
     def gemv(self, x, y, alpha=1.0, beta=1.0, coeff=None, sd=None) -> torch.Tensor:
         """alpha * A x + beta * y

@@ -186,7 +186,8 @@ class P2ElementwiseOperator(nn.Module):
         self.space = space
         self.shard = shard
         if elmats is None:
-            elmats = compute_p2_elmats(space, kind, form=form)
+            elmats = compute_p2_elmats(space, kind, form=form,
+                                       cell_vertices=space.cell_vertices(shard))
         elmats = torch.as_tensor(elmats, dtype=space.dtype,
                                  device=space.device).contiguous()
         self.register_buffer("elmats", elmats)

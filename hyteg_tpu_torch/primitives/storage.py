@@ -127,6 +127,9 @@ class CellStorage:
         self.num_shards = num_shards
 
         C_real = self.topo.num_cells
+        if not 1 <= num_shards <= C_real:
+            raise ValueError(f"{num_shards} shards for a mesh of {C_real} "
+                             "cells: each shard needs at least one cell")
         if assignment is None:
             assignment = self._partition(C_real, num_shards, partitioner)
         else:
@@ -168,14 +171,21 @@ class CellStorage:
 
     # -- partitioning (reference: src/hyteg/primitivestorage/loadbalancing/) --
 
-    @staticmethod
-    def _partition(num_cells: int, num_shards: int, method: str) -> np.ndarray:
+    def _partition(self, num_cells: int, num_shards: int,
+                   method: str) -> np.ndarray:
         if method == "round_robin":
             return np.arange(num_cells) % num_shards
         if method == "contiguous":
             return np.arange(num_cells) * num_shards // num_cells
         if method == "all_on_root":
             return np.zeros(num_cells, dtype=np.int64)
+        if method in ("sfc", "greedy_volume"):
+            from . import loadbalancing as lb
+
+            if method == "sfc":
+                return lb.partition_sfc(lb.cell_centroids(self.mesh),
+                                        num_shards)
+            return lb.partition_greedy(num_shards, lb.cell_volumes(self.mesh))
         raise ValueError(f"unknown partitioner {method}")
 
     # -- sub-simplex lookup tables ------------------------------------------

@@ -1,8 +1,10 @@
 """Canned P1 and P2 GMG solver stacks; torch counterpart of
-hyteg_tpu/solvers/templates.py (one shard).
+hyteg_tpu/solvers/templates.py.
 
 Wires spaces, operators, transfers, smoothers and the coarse solver into
-a ready GeometricMultigridSolver on one device.
+a ready GeometricMultigridSolver for one shard: the whole storage, or one
+shard of a sharded one when ``sd_per_level`` carries a group
+(parallel/spmd.py builds one such stack per shard).
 """
 
 from __future__ import annotations
@@ -74,6 +76,10 @@ def make_p1_gmg(
     *,
     device,
     space_kind: str = "p1",
+    shard: int = 0,
+    sd_per_level: dict | None = None,
+    spaces: dict | None = None,
+    coarse_solve_fn: Callable | None = None,
 ) -> P1GMGStack:
     """GMG stack for a scalar P1 (or, with ``space_kind="p2"``, P2)
     operator on ``device``, which has no default (reference pattern:
@@ -88,6 +94,14 @@ def make_p1_gmg(
     from a torch.Generator seeded with the level. P2 levels take no
     separate residual callable, as in the JAX package. For P2, ``form`` is
     the kind ('laplace' or 'mass'); a callable means 'laplace'.
+
+    Sharded: ``shard`` names the shard whose cells the operators hold,
+    ``sd_per_level`` (level -> P1ShardData, e.g. with a group) replaces
+    each level's shard data, ``spaces`` (level -> space) lets the shards
+    of one storage share their spaces, and ``coarse_solve_fn(b, x0)``
+    replaces the coarse CG (e.g. spmd.build_agglomerated_coarse_solve).
+    With a group, the default P1 eigenvalue bound is the maximum over
+    shards, which is the one-shard bound.
     """
     if not flag & DoFType.INNER:
         raise ValueError("the solved rows must include INNER")
@@ -99,9 +113,10 @@ def make_p1_gmg(
     # pitch and ignore it
     if space_kind == "p1":
         pitch = (1 << max_level) + 1
-        spaces = {l: P1Space(storage, l, device=device, dtype=dtype,
-                             pitch=pitch) for l in lrange}
-        ops = {l: P1ElementwiseOperator(spaces[l], form, elmats=elm(l))
+        spaces = spaces or {l: P1Space(storage, l, device=device, dtype=dtype,
+                                       pitch=pitch) for l in lrange}
+        ops = {l: P1ElementwiseOperator(spaces[l], form, shard=shard,
+                                        elmats=elm(l))
                for l in lrange}
         transfers = {l: P1Transfer(spaces[l - 1], spaces[l])
                      for l in range(min_level + 1, max_level + 1)}
@@ -112,15 +127,17 @@ def make_p1_gmg(
 
         pitch = (1 << (max_level + 1)) + 1
         kind = form if isinstance(form, str) else "laplace"
-        spaces = {l: P2Space(storage, l, device=device, dtype=dtype,
-                             pitch=pitch) for l in lrange}
-        ops = {l: P2ElementwiseOperator(spaces[l], kind, elmats=elm(l))
+        spaces = spaces or {l: P2Space(storage, l, device=device, dtype=dtype,
+                                       pitch=pitch) for l in lrange}
+        ops = {l: P2ElementwiseOperator(spaces[l], kind, shard=shard,
+                                        elmats=elm(l))
                for l in lrange}
         transfers = {l: P2Transfer(spaces[l - 1], spaces[l])
                      for l in range(min_level + 1, max_level + 1)}
     else:
         raise ValueError(f"unknown space_kind {space_kind!r}")
-    sds = {l: spaces[l].shard_data(0, bc) for l in lrange}
+    sds = sd_per_level or {l: spaces[l].shard_data(shard, bc) for l in lrange}
+    group = sds[max_level].group
     inv_diags = {l: ops[l].inverse_diagonal(sd=sds[l]) for l in lrange}
 
     def make_apply(l):
@@ -136,6 +153,10 @@ def make_p1_gmg(
         # analytic symbol bound of lambda_max(D^-1 A) per level
         eigs = {l: p1_stencil_eig_fourier(ops[l].stencil, spaces[l].dim)
                 for l in lrange}
+        if group is not None:
+            eigs = {l: float(group.all_reduce(torch.tensor(
+                e, dtype=torch.float64, device=spaces[l].device), "max"))
+                for l, e in eigs.items()}
     elif smoother == "chebyshev" and eigs is None:
         gen = torch.Generator(device=spaces[min_level].device)
         eigs = {}
@@ -205,6 +226,8 @@ def make_p1_gmg(
         )
 
     def coarse_solve(b, x0):
+        if coarse_solve_fn is not None:
+            return coarse_solve_fn(b, x0)
         return cg_solve_fixed(applies[min_level], dots[min_level], b, x0,
                               coarse_iters)
 

@@ -1,5 +1,6 @@
 """Inexact Uzawa smoother + Stokes GMG assembly; torch counterpart of
-hyteg_tpu/solvers/uzawa.py (one shard).
+hyteg_tpu/solvers/uzawa.py (one shard of a storage; sharded through the
+composites' group shard data).
 
 Reference: src/hyteg/solvers/UzawaSmoother.hpp:99-481 and the
 stokesSphere/scaling-workshop solver stack (apps/2020-scaling-workshop/
@@ -109,6 +110,10 @@ def make_stokes_gmg(
     gmap=None,
     *,
     device,
+    shard: int = 0,
+    sd_per_level: dict | None = None,
+    spaces_per_level: dict | None = None,
+    coarse_rtol: float = 1e-8,
 ) -> StokesGMGStack:
     """GMG solver over the Stokes composite with Uzawa smoothing, on
     ``device``, which has no default.
@@ -121,14 +126,22 @@ def make_stokes_gmg(
     P2P1TaylorHoodStokes). ``gmap``: a geometry (blending) map, passed to
     every level's composite (blended epsilon and div / grad operators).
     The coarse solve is MINRES with the
-    block-diagonal preconditioner, ``coarse_iters`` steps at most, rtol
-    1e-8."""
+    block-diagonal preconditioner, ``coarse_iters`` steps at most, to
+    ``coarse_rtol`` (1e-8, as in the JAX package, which float32 does not
+    reach: see ShardedConvectionSimulation). Sharded: ``shard`` and ``sd_per_level`` ({level: (velocity
+    shard data, pressure shard data)}, e.g. with a group) go to every
+    level's composite, ``spaces_per_level`` ({level: stokes_spaces(...)})
+    lets shards share their spaces; the smoothers, transfers, dots and
+    the coarse MINRES then run over the group."""
     lrange = range(min_level, max_level + 1)
     pitch = (1 << (max_level + 1)) + 1  # one lane pitch across all levels
     stokes = {l: P2P1TaylorHoodStokes(
         storage, l, bc, viscosity, device=device, dtype=dtype, pitch=pitch,
         mu_field=mu, epsilon=epsilon, full_viscous=full_viscous,
-        elmats=(elmats or {}).get(l), gmap=gmap) for l in lrange}
+        elmats=(elmats or {}).get(l), gmap=gmap, shard=shard,
+        vel_sd=(sd_per_level or {}).get(l, (None, None))[0],
+        pre_sd=(sd_per_level or {}).get(l, (None, None))[1],
+        spaces=(spaces_per_level or {}).get(l)) for l in lrange}
     gen = torch.Generator(device=stokes[min_level].device)
     smoothers = {}
     for l in lrange:
@@ -185,7 +198,7 @@ def make_stokes_gmg(
         x, _, _ = minres_solve(
             lambda v: st_c.apply_inner(v, flag),
             lambda u, v: st_c.dot(u, v, flag),
-            b_c, x0, coarse_iters, rtol=1e-8, prec_fn=prec)
+            b_c, x0, coarse_iters, rtol=coarse_rtol, prec_fn=prec)
         return x
 
     gmg = GeometricMultigridSolver(levels, coarse_solve, min_level, max_level,

@@ -43,17 +43,19 @@ from .transport_std import shear_heating_source
 
 
 def make_convection_simulation(params: ConvectionParameters | None = None,
-                               num_shards: int = 1, *, device):
-    """Factory for the convection simulation (reference:
-    apps/TerraNeo/Origin/Convection.cpp). num_shards == 1 returns the
-    single-device ConvectionSimulation (MMOC transport, MINRES Stokes);
-    the sharded simulation of the JAX package (num_shards > 1) is not ported
-    yet."""
+                               num_shards: int = 1, *, device, **kwargs):
+    """Factory for the convection simulation at any shard count
+    (reference: apps/TerraNeo/Origin/Convection.cpp). num_shards == 1
+    returns the single-device ConvectionSimulation (MMOC transport,
+    MINRES Stokes); num_shards > 1 the ShardedConvectionSimulation
+    (sharded Uzawa-GMG Stokes and sharded SUPG energy over a shard group;
+    ``kwargs`` go to it, e.g. ``group``, ``stokes_cycles``)."""
     if num_shards == 1:
         return ConvectionSimulation(params, device=device)
-    raise NotImplementedError(
-        f"num_shards={num_shards}: the sharded convection simulation is not "
-        "ported yet (ROADMAP A8, multi-GPU)")
+    from .spmd_sim import ShardedConvectionSimulation
+
+    return ShardedConvectionSimulation(params, num_shards=num_shards,
+                                       device=device, **kwargs)
 
 
 @dataclasses.dataclass

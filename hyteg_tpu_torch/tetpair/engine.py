@@ -45,7 +45,12 @@ class TetPairEngine:
         if space.dim != 3:
             raise ValueError("tetpair is the 3D fast path")
         if space.storage.num_shards != 1:
-            raise ValueError("tetpair requires a single-shard storage")
+            raise ValueError(
+                "tetpair requires a single-shard storage: the paired-tet "
+                "engine has no sharded exchange of its face arrays, and the "
+                "JAX package has no sharded paired-tet path to port "
+                "(ROADMAP A8); run a sharded storage through "
+                "P1ElementwiseOperator")
         if not bool(np.all(space.storage.cell_valid)):
             raise ValueError("tetpair requires a padding-free storage")
         if space.C_loc % 2:

@@ -156,7 +156,10 @@ class IfcMeta:
 def build_ifc(storage, level: int) -> IfcMeta:
     """Interface maps for a single-shard 3D storage."""
     if storage.num_shards != 1:
-        raise ValueError("the paired-tet exchange is the single-shard path")
+        raise ValueError(
+            "the paired-tet exchange is the single-shard path: its pair "
+            "tables span the whole storage, and neither package has a "
+            "sharded form of them (ROADMAP A8)")
     if storage.dim != 3:
         raise ValueError("the paired-tet exchange is 3D")
     N = (1 << level) + 1

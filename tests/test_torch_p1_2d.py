@@ -200,9 +200,12 @@ def test_2d_interpolate_dot_exchange_match_jax(name, level):
 
 
 def test_p1_space_still_refuses_multi_shard():
-    with pytest.raises(NotImplementedError, match="A8"):
-        P1Space(CellStorage(tmi.mesh_rectangle(nx=2, ny=2), num_shards=2), 2,
-                device="cpu")
+    # a sharded storage is accepted now; more shards than cells is not
+    sp = P1Space(CellStorage(tmi.mesh_rectangle(nx=2, ny=2), num_shards=2), 2,
+                 device="cpu")
+    assert sp.block_shape[0] == sp.storage.cells_per_shard
+    with pytest.raises(ValueError, match="shards"):
+        CellStorage(tmi.mesh_rectangle(nx=1, ny=1), num_shards=3)
 
 
 # ---------------------------------------------------------------------------

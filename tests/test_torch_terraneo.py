@@ -210,9 +210,12 @@ def test_heating_variant_matches_reference():
 
 
 def test_more_shards_name_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_convection_simulation(ConvectionParameters(**PARAMS),
-                                   num_shards=2, device="cpu")
+    # A8 is ported: more than one shard gives the sharded simulation
+    from hyteg_tpu_torch.terraneo.spmd_sim import ShardedConvectionSimulation
+
+    assert isinstance(make_convection_simulation(
+        ConvectionParameters(**PARAMS), num_shards=2, device="cpu"),
+        ShardedConvectionSimulation)
     sim = make_convection_simulation(ConvectionParameters(**PARAMS),
                                      device="cpu")
     assert isinstance(sim, ConvectionSimulation)
