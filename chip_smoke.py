@@ -64,7 +64,7 @@ read just after:
   surrogate at degrees 1-3 timed and the manufactured u = 1/r at levels
   3-4 (``blend_shell``); tests/test_p2_blended.py's blended Stokes gate
   on mesh_spherical_shell(1, 2, 0.55, 1), then make_stokes_gmg(...,
-  gmap=...) on the 1920-tet shell at P2 levels 0-4, 33.3M DoFs: four
+  gmap=...) on the 1920-tet shell at P2 levels 0-3, 4,229,352 DoFs: two
   V(2,2) cycles on A x = 0 (each rate reported against 0.2), with a
   torch.profiler breakdown of one cycle and B3's launches at set-up
   (``blend_stokes``);
@@ -72,10 +72,10 @@ read just after:
   the 2D B5 and B3 on it): the kernels against their plain versions at
   the path's shapes (``terraneo_kernels``); ConvectionSimulation on the
   1920-tet shell with T at P2 level 4 (10,649,730 DoFs; the Stokes system
-  33.3M DoFs), two coupled steps (MINRES Stokes solve, MMOC transport,
+  33.3M DoFs), one coupled step (MINRES Stokes solve, MMOC transport,
   implicit energy step) timed from the simulation's TimingTree and gated as
   tests/test_terraneo.py gates them, with a torch.profiler breakdown of a
-  third step (``terraneo_shell``); the same on the annulus at P2 level 8
+  second step (``terraneo_shell``); the same on the annulus at P2 level 8
   with eta(T), shear and adiabatic heating (``terraneo_annulus``);
   TransportOperatorStd's implicit step on the shell at P1 level 5 with
   adiabatic and shear heating (``terraneo_transport_std``); and the MMOC
@@ -90,11 +90,11 @@ read just after:
   at level 5, where shards hold interior cells, the overlapped apply and
   B2 on its interface and interior sub-blocks against the plain version
   (``spmd_p1``); the Stokes V-cycle at 3D P2 level 6 from the Stokes
-  path's start, two cycles against its residuals (``spmd_stokes``); the
+  path's start, one cycle against its residuals (``spmd_stokes``); the
   level-9 box solve over four row slabs against box_gmg_1e9's residuals,
   and B1 on a 3-row edge strip against its plain version
-  (``spmd_box``); one convection step on the shell at P2 level 4, 4
-  shards against 1 (``terraneo_spmd``); particle migration by one
+  (``spmd_box``); one convection step (one Stokes V-cycle) on the shell
+  at P2 level 4, 4 shards against 1 (``terraneo_spmd``); particle migration by one
   all_to_all (``migration``); and, only with 4 or more cards, the
   P1 V-cycle over NCCL, one process per card (``spmd_nccl``; on one card
   a line says it did not run);
@@ -119,6 +119,14 @@ read just after:
   bound: ``b3_2d_coeff``); the P2 GMG stack at P2 level 10, 67,125,249 DoFs, gated on a
   seeded rhs and on A x = 0, with a breakdown of one V-cycle and B5-2D's
   launches in it by level; the manufactured P2 solve at levels 1-3.
+- the A10 phases (B2 and B3 in bf16; B2 and B3 in f32 under the other
+  solvers): B2-bf16 and B3-bf16 against their plain versions at P1
+  levels 2-7 (``bf16_kernels_vs_plain``); an f32 iterative refinement
+  around the bf16 V(3,3) cycle of make_p1_gmg(dtype=bfloat16) at P1
+  level 7 (``mixed_precision``); colored Gauss-Seidel under the flexible
+  multigrid and FAS at level 7 (``solvers_extra``); Hiptmair-smoothed
+  N1E1 cycles at element levels 4-6 (``n1e1``); DG1 SIP and EG Poisson
+  solves and the operators' symmetry (``dg_eg``).
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -145,6 +153,8 @@ import torch.nn.functional as F
 
 from hyteg_tpu_torch.core.benchtime import card as smi_card
 from hyteg_tpu_torch.core.benchtime import median_graph_ms, median_ms
+
+START = time.perf_counter()
 
 MESH_N = 2            # mesh_unit_cube(2): 48 macro-tets
 SLICE_LEVELS = (6, 7)
@@ -265,12 +275,13 @@ STOKES_CYCLES = 4
 # manufactured solve (u = curl psi, tests/test_stokes.py:19-23 in 2D) by
 # MINRES with the block-diagonal preconditioner (tests/test_stokes.py:
 # 101-145), which must meet its own stopping test: the velocity L2 error
-# drop (O(h^3): 8x), in 3D from level 3 to 4, in 2D (the rect's 32 faces)
+# drop (O(h^3): 8x), in 3D from level 2 to 3, in 2D (the rect's 32 faces)
 # from 1 to 2. The true float32 residual is reported against the JAX
 # test's 1e-4 of |b| (tests/test_stokes.py:133, 2D level 2): it grows
 # with the level, ~5x a level, and misses 1e-4 at 3D level 4 in the JAX
-# package alike (PERF.md section 6)
-STOKES_MANUFACTURED = {3: (3, 4), 2: (1, 2)}
+# package alike (PERF.md section 6). 3D levels 3 -> 4 (977 MINRES steps
+# at level 4, 62 s on the card) would not fit the script's time limit
+STOKES_MANUFACTURED = {3: (2, 3), 2: (1, 2)}
 STOKES_MINRES_RTOL = 1e-6
 STOKES_MINRES_ITERS = 6000
 STOKES_MINRES_RESIDUAL = 1e-4
@@ -301,13 +312,15 @@ BLEND_STOKES_GATE_COARSE_ITERS = 40
 BLEND_STOKES_GATE_CYCLES = 3
 BLEND_STOKES_GATE_RATIO = 0.2
 BLEND_EPS_SYM_RTOL = 1e-3  # tests/test_p2_blended.py:96
-# the full size: the 1920-tet shell at P2 levels 0-4 (33.3M DoFs),
-# make_stokes_gmg's defaults (V(2,2), omega_p 0.3, 80 MINRES steps) and
-# power-iteration eigs; only "every cycle finite" and "the first cycle
-# cuts the residual" are gated (the affine 3D cycle grows after its first
-# cycle, ROADMAP C-ref8); each rate is reported against 0.2
-BLEND_STOKES_LEVEL = 4
-BLEND_STOKES_CYCLES = 4
+# the 1920-tet shell at P2 levels 0-3 (4,229,352 DoFs), make_stokes_gmg's
+# defaults (V(2,2), omega_p 0.3, 80 MINRES steps) and power-iteration
+# eigs; only "every cycle finite" and "the first cycle cuts the residual"
+# are gated (the affine 3D cycle grows after its first cycle, ROADMAP
+# C-ref8); each rate is reported against 0.2. To fit the script's time
+# limit, level 3 (level 4, 33,300,936 DoFs, took 31-37 s a cycle on the
+# card, mostly host launches) and two cycles with a profiled third
+BLEND_STOKES_LEVEL = 3
+BLEND_STOKES_CYCLES = 2
 BLEND_RATE_REF = 0.2
 # cycle_profile's kernel groups on the blended path: B3 (set-up), cuBLAS
 # products (the P2 quadrature's small products, the surrogate's
@@ -325,7 +338,7 @@ TERRANEO_ANNULUS = {"dim": 2, "ntan": 12, "nrad": 2, "level": 8,
                     "visc_activation": 2.0, "shear_heating": True,
                     "adiabatic_heating": 0.1}
 TERRANEO_ANNULUS_MESH = (0.55, 1.0, 12, 2)  # what ConvectionSimulation builds: 48 faces
-TERRANEO_STEPS = 2
+TERRANEO_STEPS = 1  # and one more under the profiler
 # tests/test_terraneo.py's gates: T within [-0.05, 1.05] after the steps,
 # ||div u|| < 0.05 max|u| after the Stokes solve
 TERRANEO_T_RANGE = (-0.05, 1.05)
@@ -351,9 +364,36 @@ SPMD_P1_CYCLES = 4
 SPMD_OVERLAP_CASE = (4, SPMD_P1_LEVEL)  # (mesh_unit_cube n, P1 level)
 SPMD_CYCLE_REL = 1e-3     # each cycle's residual against the one-shard one
 SPMD_APPLY_REL = 1e-5     # the sharded applies against the one-shard apply
-SPMD_STOKES_CYCLES = 2
+SPMD_STOKES_CYCLES = 1    # 26 s a sharded cycle on the card
+# the sharded convection step on TERRANEO_SHELL: one Stokes V-cycle a
+# step (the model's default is two) to fit the script's time limit; the
+# step is host-bound (P2 level 3 took as long as level 4 on the card)
+SPMD_CONV_STOKES_CYCLES = 1
 SPMD_CONV_REL = 2e-5      # tests/test_terraneo_spmd.py's bound
 SPMD_PARTICLES = 4096     # per shard, with twice the slots
+# A10 (mixed precision, colored GS / FAS, N1E1, DG1, EG)
+BF16_CHECK_LEVELS = tuple(range(MIN_LEVEL, SLICE_LEVELS[-1] + 1))
+MP_LEVEL = 7
+MP_OUTER = 10            # f32 outer steps, one bf16 V(3,3) cycle each
+MP_PLATEAU_FACTOR = 2.0  # refined residual <= 2 x the f32 GMG's plateau
+MP_BF16_RATIO = 0.1      # and < 0.1 x the bf16-only loop's
+XTRA_CYCLES = 4
+XTRA_GS_SWEEPS = 2       # symmetric sweeps: one reaches rate 0.20 by cycle 5
+FAS_REL = 0.05           # FAS vs the linear V-cycle, per cycle
+N1E1_LEVELS = (4, 5, 6)  # element levels (nodes at level + 1)
+N1E1_CYCLES = 4
+N1E1_COARSE_SWEEPS = 30
+N1E1_RATE_MAX = 0.5      # tests/test_n1e1_transfer.py's gates
+N1E1_ALPHA, N1E1_BETA = 1.0, 0.1
+CURL_GRAD_RTOL = 1e-5    # |curl grad p| against the size of its terms
+DG_LEVELS = (4, 5)       # 48-cell cube: 1,572,864 and 6,291,456 DG1 DoFs
+DG_CG_ITERS, DG_CG_RTOL = 6000, 1e-8  # tests/test_dg.py's cross-macro rtol
+DG_DROP_MIN = 2.8        # tests/test_dg.py:90-97 (O(h^2) predicts 4)
+DG_F32_FACTOR = 2.0      # float32 error / float64 error at one level
+EG_LEVELS = (4, 5)       # one macro-tet: the EG operator takes one cell
+EG_CG_ITERS, EG_CG_RTOL = 4000, 1e-7
+EG_DROP_MIN = 2.5        # tests/test_eg.py:138-141
+A10_SYM_RTOL = 1e-4
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -388,6 +428,12 @@ REPLACES = {
                           "hyteg_tpu/kernels/p1_stencil.py:222 (dim 2)"),
     "p2_const_apply_2d": ("hyteg_tpu_torch/csrc/p2_const_stencil.cu",
                           "hyteg_tpu/kernels/p2_const_stencil.py:432 (dim 2)"),
+    "p1_const_apply_bf16": ("hyteg_tpu_torch/csrc/p1_const_stencil.cu",
+                            "hyteg_tpu/kernels/p1_const_stencil.py:746,776 "
+                            "(bf16 source)"),
+    "p1_diagonal_local_bf16": ("hyteg_tpu_torch/csrc/p1_diag.cu",
+                               "hyteg_tpu/kernels/p1_stencil.py:303 (bf16 "
+                               "element matrices)"),
 }
 # the one PyTorch call timed beside each kernel (library_ms), or why none
 LIBRARY_CALLS = {
@@ -415,6 +461,10 @@ LIBRARY_CALLS = {
     "p1_diagonal_local_2d": None,  # no library call builds an FE diagonal
     "p1_apply_local_2d": None,  # per-element coefficient means: no conv form
     "p2_const_apply_2d": None,  # weights vary with node parity: no conv form
+    "p1_const_apply_bf16": "F.conv3d grouped per cell in bf16, interior "
+                           "stencil (equal to B2-bf16 on interior points "
+                           "only)",
+    "p1_diagonal_local_bf16": None,  # no library call builds an FE diagonal
 }
 
 
@@ -439,7 +489,9 @@ def ptxas_by_function(log: str) -> dict:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the script's wall clock when it is printed."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - START,
+                      **fields}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -586,8 +638,8 @@ def bf16_ulp_excess(yb: torch.Tensor, ref: torch.Tensor, scale: float) -> float:
     most 1 when every element is within one bf16 ulp of the plain value
     (the B1_RTOL term covers sums that cancel to near zero). A kernel that
     accumulated in bf16 lands several ulps off in many elements."""
-    tol = ref.float().abs_().mul_(B1_BF16_ULP).add_(B1_RTOL * scale)
-    d = yb.float().sub_(ref.float()).abs_()
+    tol = ref.float().abs().mul_(B1_BF16_ULP).add_(B1_RTOL * scale)
+    d = yb.float().sub(ref.float()).abs_()
     return d.div_(tol).max().item()
 
 
@@ -1090,8 +1142,9 @@ def masked_read_slots(N: int, pitch: int, mask: str, n_taps: int,
     return int(read.sum())
 
 
-def simplex_read_bytes(sp, dirs, C: int) -> int:
-    """Bytes of one f32 input block of ``sp`` (C cells) that a stencil over
+def simplex_read_bytes(sp, dirs, C: int, itemsize: int = 4) -> int:
+    """Bytes of one input block of ``sp`` (C cells, ``itemsize`` bytes an
+    entry: 4 for f32, 2 for bf16) that a stencil over
     the simplex's slots must read: every slot p + d with p in the simplex
     and d in ``dirs``, as flat.shift_read reads it (a move past the block
     reads nothing). The slots past the simplex and the padding lanes are
@@ -1103,7 +1156,7 @@ def simplex_read_bytes(sp, dirs, C: int) -> int:
     read = torch.zeros(M.shape, dtype=torch.bool, device=M.device)
     for d in dirs:
         read |= flat.shift_write(M, [int(v) for v in d], sp.pitch, sp.dim) != 0
-    return C * int(read.sum()) * 4
+    return C * int(read.sum()) * itemsize
 
 
 def class_points(sp, margins=None) -> int:
@@ -1124,8 +1177,8 @@ def b2_work(sp, x, A, E) -> tuple[int, int]:
 
     dirs = micro.stencil_directions(sp.dim)
     C = x.shape[0]
-    return (nbytes(x) + simplex_read_bytes(sp, dirs, C) + nbytes(A, E),
-            2 * len(dirs) * C * class_points(sp, [0]))
+    return (nbytes(x) + simplex_read_bytes(sp, dirs, C, x.element_size())
+            + nbytes(A, E), 2 * len(dirs) * C * class_points(sp, [0]))
 
 
 def b3_work(sp, elm, y) -> tuple[int, int]:
@@ -2507,7 +2560,7 @@ def blend_stokes(device) -> dict:
     """The blended Stokes path (IcosahedralShellMap, epsilon viscous
     block): tests/test_p2_blended.py's gate on mesh_spherical_shell(1, 2,
     0.55, 1), P2 levels 0-1; the epsilon operator's symmetry there; then
-    make_stokes_gmg(..., gmap=...) on the 1920-tet shell at P2 levels 0-4
+    make_stokes_gmg(..., gmap=...) on the 1920-tet shell at P2 levels 0-3
     with power-iteration eigs, V(2,2), its cycles on A x = 0 from a random
     consistent start (kernel B3 counted: the lumped pressure mass of every
     level's smoother and of the coarse preconditioner, held against its
@@ -2565,7 +2618,7 @@ def blend_stokes(device) -> dict:
     del stack, st, vel, b, x, p2, K, us, vs, Ku, Kv
     torch.cuda.empty_cache()
 
-    # the full size: the 1920-tet shell, P2 levels 0-4
+    # the 1920-tet shell, P2 levels 0-BLEND_STOKES_LEVEL
     shell = CellStorage(mesh_spherical_shell(*SHELL))
     lo, hi = 0, BLEND_STOKES_LEVEL
     pitch = (1 << (hi + 1)) + 1
@@ -3522,8 +3575,9 @@ def spmd_energy_floor(sim, T0: list, x: list, T: list) -> float:
 
 
 def spmd_convection(device, card: str) -> dict:
-    """One sharded convection step on the shell (TERRANEO_SHELL), 4
-    shards against 1 of the same code: |T| and |u_i| within SPMD_CONV_REL;
+    """One sharded convection step on the shell (TERRANEO_SHELL, with
+    SPMD_CONV_STOKES_CYCLES Stokes V-cycles), 4 shards against 1 of the
+    same code: |T| and |u_i| within SPMD_CONV_REL;
     at every shard's copy of every global node, each velocity component
     within SPMD_CONV_REL of its one-shard max, T within SPMD_CONV_REL of
     max|T| plus the one-shard step's own f32 floor (spmd_energy_floor);
@@ -3545,6 +3599,7 @@ def spmd_convection(device, card: str) -> dict:
         t0 = time.perf_counter()
         sim = ShardedConvectionSimulation(
             ConvectionParameters(**TERRANEO_SHELL), num_shards=S,
+            stokes_cycles=SPMD_CONV_STOKES_CYCLES,
             device=device, partitioner="sfc")
         T0, x = sim.initial_state()
         torch.cuda.synchronize()
@@ -3594,6 +3649,7 @@ def spmd_convection(device, card: str) -> dict:
         check(n > 0, f"{name} was not launched on the sharded convection "
               "step")
     return {"params": TERRANEO_SHELL, "shards": SPMD_SHARDS,
+            "stokes_cycles": SPMD_CONV_STOKES_CYCLES,
             "one_shard": out[1], "sharded": out[SPMD_SHARDS],
             "observables": "[|T|, |u_x|, |u_y|, |u_z|] over the blocks",
             "rel": rel, "node_rel": node_rel,
@@ -3749,6 +3805,694 @@ def run_spmd(device, card: str, p1_ref: dict, stokes_ref: dict,
         res = fn(device, card)
         emit(name, card=card, phase_s=time.perf_counter() - t1, **res)
     return {"launches": launches, "phase_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# A10: mixed precision (B2 and B3 in bf16), colored GS and FAS, N1E1 with
+# Hiptmair, DG1 and EG
+# ---------------------------------------------------------------------------
+
+
+def bf16_kernel_check(storage, level: int, device, seed: int) -> dict:
+    """B2-bf16 and B3-bf16 against their plain versions at one level (pitch
+    129), Laplace and mass: each element within one bf16 ulp of the f32
+    result of the same bf16 values (bf16_ulp_excess <= 1, B1's rule), and
+    of the plain bf16 version; 0 outside the tet and on padding lanes."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+
+    sp = P1Space(storage, level, device=device, dtype=torch.bfloat16,
+                 pitch=PITCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    outside = ~sp.vertex_mask_t.bool()
+    out = {"level": level, "block": list(sp.block_shape)}
+    for name, form in (("laplace", forms.laplace_form),
+                       ("mass", forms.mass_form)):
+        op = P1ElementwiseOperator(sp, form)
+        A, E, elm = op.stencil, op.stencil_face, op.elmats
+        x = (torch.randn(sp.block_shape, generator=gen, device=device)
+             * sp.vertex_mask_t).to(torch.bfloat16)
+        y = b2.p1_const_apply(x, A, E, level, 3, PITCH)
+        exact = b2.p1_const_apply_torch(x.float(), A.float(), level, 3, PITCH,
+                                        E=E.float())
+        plain = b2.p1_const_apply_torch(x, A, level, 3, PITCH, E=E)
+        scale = exact.abs().max().item()
+        ex = bf16_ulp_excess(y, exact, scale)
+        ex_plain = bf16_ulp_excess(y, plain, scale)
+        check(y.dtype == torch.bfloat16 and ex <= 1.0 and ex_plain <= 1.0,
+              f"B2-bf16 {name} level {level}: {ex} / {ex_plain} ulp excess")
+        check(not y[:, outside].any().item(),
+              f"B2-bf16 {name} level {level}: nonzero outside the tet")
+        out[f"b2_bf16_{name}_ulp_excess"] = ex
+        out[f"b2_bf16_{name}_max_abs_err"] = max_abs_diff(y, plain)
+        del x, y, exact, plain
+        for lumped in ((False, True) if name == "mass" else (False,)):
+            d = b3.p1_diagonal_local(elm, level, 3, PITCH, lumped)
+            exact = b3.p1_diagonal_local_torch(elm.float(), level, 3, PITCH,
+                                               lumped)
+            plain = b3.p1_diagonal_local_torch(elm, level, 3, PITCH, lumped)
+            scale = exact.abs().max().item()
+            ex = bf16_ulp_excess(d, exact, scale)
+            ex_plain = bf16_ulp_excess(d, plain, scale)
+            tag = name + ("_lumped" if lumped else "")
+            check(d.dtype == torch.bfloat16 and ex <= 1.0 and ex_plain <= 1.0,
+                  f"B3-bf16 {tag} level {level}: {ex} / {ex_plain} ulp excess")
+            check(not d[:, outside].any().item(),
+                  f"B3-bf16 {tag} level {level}: nonzero outside the tet")
+            out[f"b3_bf16_{tag}_ulp_excess"] = ex
+            out[f"b3_bf16_{tag}_max_abs_err"] = max_abs_diff(d, plain)
+    return out
+
+
+def bf16_refusals(storage, device) -> dict:
+    """The wrappers raise on what no kernel takes, and never cast the
+    source: B3 in bf16 with a coefficient, B4 in bf16. B2 with a bf16
+    source rounds f32 weights to bf16 as the Pallas kernel does (and as
+    the plain version does on the CPU): the same result as bf16 weights."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+
+    sp = P1Space(storage, 3, device=device, dtype=torch.bfloat16, pitch=9)
+    op = P1ElementwiseOperator(sp, forms.laplace_form)
+    gen = torch.Generator(device=device).manual_seed(330)
+    x = torch.randn(sp.block_shape, generator=gen, device=device).to(
+        torch.bfloat16)
+    out = {"b2_bf16_f32_weights_rounded": torch.equal(
+        b2.p1_const_apply(x, op.stencil.float(), op.stencil_face.float(),
+                          3, 3, 9),
+        b2.p1_const_apply(x, op.stencil, op.stencil_face, 3, 3, 9))}
+    check(out["b2_bf16_f32_weights_rounded"],
+          "B2-bf16 with f32 weights differs from bf16 weights")
+    calls = {
+        "b3_bf16_with_coefficient": lambda: b3.p1_diagonal_local(
+            op.elmats, 3, 3, 9, False, x),
+        "b4_bf16": lambda: b3.p1_apply_local(x, op.elmats, 3, 3, 9),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = "ran"
+        except ValueError as e:
+            out[name] = f"refused: {str(e)[:60]}"
+        check(out[name].startswith("refused"), f"{name} was not refused")
+    return out
+
+
+def mixed_precision(storage, device, card: str, f32_residuals: list) -> dict:
+    """An f32 outer iterative_refinement (B2 f32 residual) around one bf16
+    V(3,3) cycle of make_p1_gmg(dtype=bf16) per step (B2-bf16, B3-bf16 at
+    set-up, bf16 transfers and Chebyshev) at P1 level 7 on the 48-cell
+    cube; the same number of bf16-only outer steps; timings. Gates: the
+    refined residual within MP_PLATEAU_FACTOR of the f32 GMG's own plateau
+    (read in this run) and below MP_BF16_RATIO x the bf16-only residual.
+    The plateau: the mean of the
+    main path's last three level-7 residuals, where they are flat."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.solvers.refinement import iterative_refinement
+    from hyteg_tpu_torch.solvers.templates import make_p1_gmg
+
+    kw = dict(min_level=MIN_LEVEL, max_level=MP_LEVEL, smoother="chebyshev",
+              coarse_iters=COARSE_ITERS, device=device)
+    t0 = time.perf_counter()
+    s32 = make_p1_gmg(storage, **kw)
+    s16 = make_p1_gmg(storage, dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(s16.space().dtype == torch.bfloat16
+          and s16.inv_diags[MP_LEVEL].dtype == torch.bfloat16,
+          "the bf16 stack is not bf16")
+    x0, b, _ = manufactured(s32)
+    sp, sd = s32.space(), s32.sd()
+    op = s32.operators[MP_LEVEL]
+    apply_hi = lambda v: op.apply_inner(v, sd, FLAG_INNER)
+    sp16 = s16.space()
+    inner = lambda r: s16.gmg.cycle(sp16.zeros(), r)
+    r0 = s32.residual_norm(x0, b).item()
+    plateau = sum(f32_residuals[-3:]) / 3  # the flat end of the f32 solve
+    x, rel = x0, []
+    for _ in range(MP_OUTER):
+        x = iterative_refinement(apply_hi, inner, b, x, 1)
+        rel.append(s32.residual_norm(x, b).item() / r0)
+    b16, x16, rel16 = b.to(torch.bfloat16), x0.to(torch.bfloat16), []
+    for _ in range(MP_OUTER):
+        x16 = x16 + inner(s16.residual(x16, b16))
+        rel16.append(s32.residual_norm(x16.float(), b).item() / r0)
+    launches = {"p1_const_apply_bf16": b2.p1_const_apply.launches_bf16,
+                "p1_diagonal_local_bf16": b3.p1_diagonal_local.launches_bf16,
+                "p1_const_apply": b2.p1_const_apply.launches
+                - b2.p1_const_apply.launches_bf16,
+                "p1_diagonal_local": b3.p1_diagonal_local.launches
+                - b3.p1_diagonal_local.launches_bf16}
+    check(all(math.isfinite(r) for r in rel + rel16),
+          "mixed precision: non-finite residuals")
+    check(rel[-1] * r0 <= MP_PLATEAU_FACTOR * plateau,
+          f"refined residual {rel[-1] * r0} > {MP_PLATEAU_FACTOR} x the f32 "
+          f"plateau {plateau}")
+    check(rel[-1] < MP_BF16_RATIO * rel16[-1],
+          f"refined rel {rel[-1]} >= {MP_BF16_RATIO} x bf16-only {rel16[-1]}")
+    x1 = s16.residual(sp16.zeros(), b16)
+    cyc16 = lambda: s16.gmg.cycle(sp16.zeros(), x1)
+    ms16 = median_ms(cyc16, 5, warmup=2)
+    ms32 = median_ms(lambda: s32.gmg.cycle(x0, b), 5, warmup=2)
+    ms_step = median_ms(lambda: iterative_refinement(apply_hi, inner, b, x0, 1),
+                        5, warmup=1)
+    n0 = b2.p1_const_apply.launches_bf16
+    cyc16()
+    per_cycle = b2.p1_const_apply.launches_bf16 - n0
+    prof = cycle_profile(cyc16, ms16, {"b2_bf16": ("p1_const_apply_kernel",),
+                                       "b3": ("p1_diag",)})
+    prof32 = cycle_profile(lambda: s32.gmg.cycle(x0, b), ms32,
+                           {"b2": ("p1_const_apply_kernel",)})
+    return {"level": MP_LEVEL, "global_dofs": sp.num_global_dofs(),
+            "block": list(sp.block_shape), "outer_steps": MP_OUTER,
+            "refined_rel_residuals": rel, "bf16_only_rel_residuals": rel16,
+            "f32_plateau_abs": plateau, "r0": r0,
+            "refined_over_plateau": rel[-1] * r0 / plateau,
+            "refined_over_bf16_only": rel[-1] / rel16[-1],
+            "setup_s_both_stacks": setup_s, "bf16_vcycle_ms": ms16,
+            "f32_vcycle_ms": ms32, "refinement_step_ms": ms_step,
+            "bf16_over_f32_cycle": ms16 / ms32, "launches": launches,
+            "b2_bf16_launches_per_vcycle": per_cycle,
+            "bf16_profile": {k: prof[k] for k in (
+                "device_ms", "idle_share", "kernels", "device_kernels")},
+            "f32_profile": {k: prof32[k] for k in (
+                "device_ms", "idle_share", "kernels")}}, (s32, x0, b)
+
+
+def colored_gs_smoother(stack, level: int, sweeps: int = 1):
+    """A FlexibleMultigridSolver smoother: ``sweeps`` symmetric colored
+    GS sweeps (2 x 8 masked residual updates each) on the stack's level."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.solvers.colored_gs import symmetric_colored_gs_smooth
+
+    sp, sd = stack.spaces[level], stack.sds[level]
+    op, inv = stack.operators[level], stack.inv_diags[level]
+    apply_fn = lambda v: op.apply_inner(v, sd, FLAG_INNER)
+
+    def smooth(x, b):
+        xn = symmetric_colored_gs_smooth(apply_fn, inv, b, x, level, sp.dim,
+                                         num_sweeps=sweeps, pitch=sp.pitch)
+        return sp._restore_rows_(xn, x, FLAG_INNER, sd)
+
+    return smooth
+
+
+def fas_solver(stack):
+    """FASSolver over a P1 GMG stack's parts: its smoothers, restriction,
+    injection, prolongation and coarse solve (the linear operator)."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.solvers.fas import FASLevel, FASSolver
+
+    g = stack.gmg
+    levels = {}
+    for l, L in g.levels.items():
+        sp, sd = stack.spaces[l], stack.sds[l]
+        tr = stack.transfers.get(l)
+        levels[l] = FASLevel(
+            apply=L.apply, smooth=L.smooth, restrict=L.restrict,
+            restrict_inj=(lambda x, tr=tr, l=l: stack.spaces[l - 1].restore_rows(
+                tr.restrict_injection(x), stack.spaces[l - 1].zeros(),
+                FLAG_INNER, stack.sds[l - 1])) if tr is not None else None,
+            prolongate=(lambda xc, tr=tr, sp=sp, sd=sd: sp._restore_rows_(
+                tr.prolongate(xc), None, FLAG_INNER, sd))
+            if tr is not None else None,
+            zeros=L.zeros)
+    return FASSolver(levels, g.coarse_solve, g.min_level, g.max_level,
+                     g.pre, g.post)
+
+
+def homogeneous_start(stack, device, seed: int):
+    """A seeded random x0 (replicas consistent, 0 on Dirichlet rows) and
+    b = 0, as homogeneous_rates starts."""
+    sp = stack.space()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(sp.block_shape, generator=gen, device=device)
+    x = stack.residual(torch.zeros_like(x),
+                       sp.exchange_rep(x * sp.vertex_mask_t))
+    return x, torch.zeros_like(x)
+
+
+def solvers_extra(stack, device, card: str) -> dict:
+    """Colored GS as the finest level's smoother of a V-cycle under
+    FlexibleMultigridSolver (XTRA_GS_SWEEPS symmetric sweeps before and
+    after, the stack's Chebyshev below), and FAS on the linear problem, against the
+    stack's V-cycle, on A x = 0 from a random start at P1 level 7. Gates:
+    each cycle's rate <= RATE_MAX; FAS within FAS_REL of the linear
+    V-cycle's residual after each cycle."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.solvers.gmg import FlexibleMultigridSolver
+
+    L, g = stack.gmg.max_level, stack.gmg
+    gs = colored_gs_smoother(stack, L, sweeps=XTRA_GS_SWEEPS)
+    flex = FlexibleMultigridSolver(g.levels, g.coarse_solve, g.min_level, L,
+                                   pre_lists={L: [gs]}, post_lists={L: [gs]})
+    fas = fas_solver(stack)
+    out = {"level": L}
+    x0, b = homogeneous_start(stack, device, 171)
+    hist = {}
+    solvers = (("flexible_colored_gs", flex), ("fas", fas),
+               ("linear_vcycle", g))
+    for name, s in solvers:
+        x, res = x0, [stack.residual_norm(x0, b).item()]
+        for _ in range(XTRA_CYCLES):
+            x = s.cycle(x, b)
+            res.append(stack.residual_norm(x, b).item())
+        rates = [res[i + 1] / res[i] for i in range(XTRA_CYCLES)]
+        check(all(math.isfinite(r) for r in res), f"{name}: non-finite")
+        check(max(rates) <= RATE_MAX,
+              f"{name}: a cycle's rate {max(rates)} > {RATE_MAX}")
+        hist[name] = res
+        out[name] = {"residuals": res, "rates": rates}
+    out["launches"] = {"p1_const_apply": b2.p1_const_apply.launches}
+    for name, s in solvers:
+        out[name]["cycle_ms"] = median_ms(lambda s=s: s.cycle(x0, b), 3,
+                                          warmup=1)
+    gaps = [abs(a - c) / c for a, c in zip(hist["fas"][1:],
+                                           hist["linear_vcycle"][1:])]
+    out["fas_vs_linear_rel"] = gaps
+    check(max(gaps) <= FAS_REL,
+          f"FAS vs the linear V-cycle: {max(gaps)} > {FAS_REL}")
+    return out
+
+
+def n1e1_hierarchy(storage, device, top: int):
+    """N1E1 spaces, alpha curl curl + beta id operators, Hiptmair
+    smoothers and Whitney transfers at element levels 0..top."""
+    from hyteg_tpu_torch.functions.n1e1 import N1E1Space
+    from hyteg_tpu_torch.operators.n1e1_ops import N1E1ElementwiseOperator
+    from hyteg_tpu_torch.operators.n1e1_transfer import N1E1Transfer
+    from hyteg_tpu_torch.solvers.hiptmair import HiptmairSmoother
+
+    sp = {l: N1E1Space(storage, l, device=device) for l in range(top + 1)}
+    ops = {l: N1E1ElementwiseOperator(sp[l], N1E1_ALPHA, N1E1_BETA)
+           for l in sp}
+    sm = {l: HiptmairSmoother(ops[l]) for l in sp}
+    tr = {l: N1E1Transfer(sp[l - 1], sp[l]) for l in range(1, top + 1)}
+    return sp, ops, sm, tr
+
+
+def n1e1_cycle(h, x, b, l):
+    """tests/test_n1e1_transfer.py's V(2,2) cycle: Hiptmair sweeps,
+    N1E1_COARSE_SWEEPS of them on level 0, Whitney transfers, Dirichlet
+    rows held at 0 in every correction."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+
+    sp, ops, sm, tr = h
+    inner = lambda k, y: sp[k].node_space._restore_rows_(
+        y, None, FLAG_INNER, sp[k].resolve_sd(None))
+    if l == 0:
+        return sm[0].smooth(x, b, num_sweeps=N1E1_COARSE_SWEEPS)
+    x = sm[l].smooth(x, b, num_sweeps=2)
+    rc = inner(l - 1, tr[l].restrict(b - inner(l, ops[l].apply_raw(x))))
+    ec = n1e1_cycle(h, torch.zeros_like(rc), rc, l - 1)
+    x = x + inner(l, tr[l].prolongate(ec))
+    return sm[l].smooth(x, b, num_sweeps=2)
+
+
+def n1e1_phase(device, card: str) -> dict:
+    """alpha curl curl + beta id (alpha 1, beta 0.1) on the 48-cell cube,
+    element levels 0..6: Hiptmair V(2,2) cycles (the JAX test's, at full
+    size) from x = 0 on a seeded consistent rhs at levels 4, 5, 6; curl o
+    grad = 0 on a random potential at level 6; timings. Gates: the
+    N1E1_CYCLES-cycle mean rate < N1E1_RATE_MAX at each level and rate(6)
+    <= max(2.5 rate(4), N1E1_RATE_MAX)."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.operators import n1e1_ops
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    storage = CellStorage(mesh_unit_cube(MESH_N))
+    top = N1E1_LEVELS[-1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = n1e1_hierarchy(storage, device, top)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sp, ops, sm, tr = h
+    out = {"levels": list(N1E1_LEVELS), "setup_s": setup_s,
+           "edge_dofs": {l: sp[l].num_global_dofs() for l in N1E1_LEVELS},
+           "node_block": list(sp[top].block_shape),
+           "omega_edge": {l: sm[l].omega_e for l in N1E1_LEVELS},
+           "omega_vertex": {l: sm[l].omega_v for l in N1E1_LEVELS}}
+    rates = {}
+    for l in N1E1_LEVELS:
+        s = sp[l]
+        gen = torch.Generator(device=device).manual_seed(300 + l)
+        b = s.node_space.exchange_rep(torch.randn(
+            s.block_shape, generator=gen, device=device) * s.edge_mask_t)
+        b = s.node_space._restore_rows_(b, None, FLAG_INNER,
+                                        s.resolve_sd(None))
+
+        def rn(x):
+            r = b - s.node_space._restore_rows_(ops[l].apply_raw(x), None,
+                                                FLAG_INNER, s.resolve_sd(None))
+            return torch.sqrt(s.dot(r, r)).item()
+
+        x, res = torch.zeros_like(b), [rn(torch.zeros_like(b))]
+        for _ in range(N1E1_CYCLES):
+            x = n1e1_cycle(h, x, b, l)
+            res.append(rn(x))
+        rates[l] = (res[-1] / res[0]) ** (1.0 / N1E1_CYCLES)
+        out[f"residuals_level{l}"] = res
+        check(all(math.isfinite(r) for r in res), f"N1E1 level {l}: non-finite")
+        check(rates[l] < N1E1_RATE_MAX,
+              f"N1E1 level {l}: mean rate {rates[l]} >= {N1E1_RATE_MAX}")
+        if l == top:
+            out["cycle_ms"] = median_ms(lambda: n1e1_cycle(h, x, b, l), 3,
+                                        warmup=1)
+            out["apply_ms"] = median_ms(lambda: ops[l].apply_raw(x), 10)
+            out["hiptmair_sweep_ms"] = median_ms(
+                lambda: sm[l].smooth(x, b), 5)
+            rc = tr[l].restrict(b)
+            out["prolongate_ms"] = median_ms(lambda: tr[l].prolongate(rc), 5)
+            out["restrict_ms"] = median_ms(lambda: tr[l].restrict(b), 5)
+            out["gradient_ms"] = median_ms(lambda: s.gradient_apply(x), 5)
+    out["rates"] = rates
+    lo = N1E1_LEVELS[0]
+    check(rates[top] <= max(2.5 * rates[lo], N1E1_RATE_MAX),
+          f"N1E1 rate({top}) {rates[top]} > max(2.5 rate({lo}), "
+          f"{N1E1_RATE_MAX})")
+    # curl o grad = 0 at the top level, against the terms' own size
+    s = sp[top]
+    cc = n1e1_ops.N1E1ElementwiseOperator(s, 1.0, 0.0)
+    gen = torch.Generator(device=device).manual_seed(310)
+    p = s.node_space.exchange_rep(torch.randn(
+        s.block_shape, generator=gen, device=device)) * s.vertexnode_mask_t
+    gp = s.gradient_apply(p)
+    y = cc.apply_raw(gp)
+    terms = s.node_space.exchange_add(n1e1_ops.n1e1_apply_local(
+        gp.abs(), cc.elmats.abs(), s.level, s.node_space.pitch))
+    cg = (y.abs().max() / terms.max()).item()
+    check(math.isfinite(cg) and cg <= CURL_GRAD_RTOL,
+          f"curl grad = {cg} of the terms > {CURL_GRAD_RTOL}")
+    out["curl_grad_rel"] = cg
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def dg_poisson(storage, level: int, device, dtype=torch.float32) -> dict:
+    """DG1 SIP Poisson with u = prod x_i (1 - x_i) (tests/test_dg.py's
+    cross-macro case) on ``storage`` in ``dtype``: CG to DG_CG_RTOL; the
+    mass-weighted L2 error, CG steps and the apply's ms."""
+    from hyteg_tpu_torch.functions.dg import DG1Space
+    from hyteg_tpu_torch.operators.dg_ops import DG1SIPLaplaceOperator
+    from hyteg_tpu_torch.solvers.krylov import cg_solve
+
+    def U(p):
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        return x * (1 - x) * y * (1 - y) * z * (1 - z)
+
+    def F(p):
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        return 2 * (y * (1 - y) * z * (1 - z) + x * (1 - x) * z * (1 - z)
+                    + x * (1 - x) * y * (1 - y))
+
+    t0 = time.perf_counter()
+    sp = DG1Space(storage, level, device=device, dtype=dtype)
+    op = DG1SIPLaplaceOperator(sp)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = sp.mass_apply(sp.interpolate(F))
+    t0 = time.perf_counter()
+    res = cg_solve(op.apply, sp.dot, b, torch.zeros_like(b), DG_CG_ITERS,
+                   rtol=DG_CG_RTOL)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    e = res.x - sp.interpolate(U)
+    err = torch.sqrt(sp.dot(e, sp.mass_apply(e))).item()
+    check(math.isfinite(err), f"DG level {level}: non-finite error")
+    return {"level": level, "dtype": str(dtype), "dofs": sp.num_global_dofs(),
+            "l2_error": err, "cg_steps": res.iterations, "setup_s": setup_s,
+            "solve_s": solve_s,
+            "cross_facets": int(op.cross_self.numel()),
+            "apply_ms": median_ms(lambda: op.apply(b), 5)}, (sp, op)
+
+
+def eg_poisson(level: int, device) -> dict:
+    """EG vector Poisson with the tet bubble (tests/test_eg.py's case) on
+    one macro-tet: CG on the interior rows to EG_CG_RTOL; the total L2
+    error of u_CG + c psi (degree-2 element quadrature), CG steps, the
+    apply's ms."""
+    from hyteg_tpu_torch.core.types import (BoundaryCondition, DoFType,
+                                            FLAG_INNER)
+    from hyteg_tpu_torch.functions.eg import EGFunction, EGSpace
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_single_tet
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.eg_ops import EGLaplaceOperator
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.solvers.krylov import cg_solve
+
+    sp = EGSpace(CellStorage(mesh_single_tet()), level, device=device)
+    op = EGLaplaceOperator(sp)
+    sd = sp.p1.resolve_sd(BoundaryCondition.all_dirichlet())
+    f = lambda p: 2.0 * (p[..., 0] * p[..., 1] + p[..., 1] * p[..., 2]
+                         + p[..., 0] * p[..., 2])
+    mass = P1ElementwiseOperator(sp.p1, forms.mass_form)
+    fh = sp.p1.interpolate(f, sp.p1.zeros(), DoFType.ALL, sd)
+    bv = sp.p1.restore_rows(mass.apply_raw(fh), sp.p1.zeros(), FLAG_INNER, sd)
+    b = EGFunction((bv,) * 3, sp.p0.zeros(), sp)
+    apply_fn = lambda x: op.apply_inner(x, FLAG_INNER)
+    t0 = time.perf_counter()
+    res = cg_solve(apply_fn, sp.dot, b, sp.zeros(), EG_CG_ITERS,
+                   rtol=EG_CG_RTOL)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    err = eg_l2_error(sp, res.x)
+    check(math.isfinite(err), f"EG level {level}: non-finite error")
+    return {"level": level, "dofs": sp.num_global_dofs(), "l2_error": err,
+            "cg_steps": res.iterations, "solve_s": solve_s,
+            "apply_ms": median_ms(lambda: op.apply(b), 3, warmup=1)}, sp
+
+
+def eg_l2_error(sp, x) -> float:
+    """|| u_CG + c psi - bubble ||_L2 (all components equal the bubble) by
+    the degree-2 simplex rule per element, batched over the elements of
+    each class (tests/test_eg.py::_total_l2_error's sum)."""
+    from hyteg_tpu_torch.indexing import micro
+    from hyteg_tpu_torch.operators import quadrature as q
+
+    dim, n, p1 = sp.dim, sp.p0.n, sp.p1
+    pts, w = q.simplex_rule(dim, 2)
+    pts, w = np.asarray(pts, dtype=np.float64), np.asarray(w, dtype=np.float64)
+    lam = np.concatenate([1 - pts.sum(-1, keepdims=True), pts], -1)
+    offs = micro.offsets(dim)
+    cv = np.asarray(sp.storage.cell_vertices, dtype=np.float64)[..., :dim]
+    grids = [v.double().cpu().reshape(v.shape[0], p1.N, p1.N, p1.pitch)
+             .numpy()[..., :p1.N] for v in x.vel]
+    enr = x.enr.double().cpu().numpy()
+    bub = lambda p: (p[..., 0] * p[..., 1] * p[..., 2]
+                     * (1.0 - p[..., 0] - p[..., 1] - p[..., 2]))
+    err2 = 0.0
+    for c in range(cv.shape[0]):
+        v0, J = cv[c, 0], (cv[c, 1:] - cv[c, :1]).T
+        vol_e = abs(np.linalg.det(J)) / 6.0 / n ** dim
+        for t in range(sp.p0.T):
+            B = np.argwhere(sp.p0.base_mask[t])
+            verts = v0 + ((B[:, None, :] + offs[t][None]) / n) @ J.T  # (M,nv,3)
+            m = verts.mean(axis=1)
+            ce = enr[c, t][tuple(B.T)]
+            nodal = np.stack([np.stack([grids[d][c][tuple((B + offs[t, a]).T)]
+                                        for a in range(dim + 1)], -1)
+                              for d in range(dim)], 1)  # (M, dim, nv)
+            xq = np.einsum("qa,mad->mqd", lam, verts)
+            ucg = np.einsum("qa,mda->mqd", lam, nodal)
+            utot = ucg + ce[:, None, None] * (xq - m[:, None, :])
+            diff = utot - bub(xq)[..., None]
+            err2 += vol_e * float(np.einsum("q,mqd->", w, diff ** 2))
+    return float(np.sqrt(err2))
+
+
+def dg_eg_phase(device, card: str) -> dict:
+    """DG1 SIP Poisson on the 48-cell cube and EG Poisson on one macro-tet
+    (the EG operator takes one macro-cell in both packages), manufactured
+    solves at two levels each; the SIP and EG-P0 Stokes operators'
+    symmetry and the EG div adjoint at the finer level. DG runs in float64
+    and in float32 (the packages' default): the order is gated on the
+    float64 solves, because the float32 CG at level 5 stops at an
+    algebraic error of the size of the discretization error; each float32
+    error is gated within DG_F32_FACTOR of the float64 one at its level.
+    Gates: the error drops >= DG_DROP_MIN / EG_DROP_MIN x; symmetry (SIP
+    in both types) and adjoint within A10_SYM_RTOL."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.functions.eg import EGFunction
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_unit_cube
+    from hyteg_tpu_torch.operators.eg_stokes import (EGP0StokesFunction,
+                                                     EGP0StokesOperator)
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    storage = CellStorage(mesh_unit_cube(MESH_N))
+    gen = torch.Generator(device=device).manual_seed(320)
+    out = {"dg": [], "dg_f32": [], "eg": []}
+    for key, dtype in (("dg", torch.float64), ("dg_f32", torch.float32)):
+        for lv in DG_LEVELS:
+            r, (sp, op) = dg_poisson(storage, lv, device, dtype)
+            out[key].append(r)
+            emit("dg_poisson", card=card, **r)
+        wv = sp.valid_weight_t[..., None]
+        v, w = (torch.randn(sp.block_shape, generator=gen, device=device,
+                            dtype=dtype) * wv for _ in range(2))
+        s1, s2 = sp.dot(w, op.apply(v)).item(), sp.dot(v, op.apply(w)).item()
+        out[f"{key}_symmetry_rel"] = abs(s1 - s2) / abs(s1)
+        check(out[f"{key}_symmetry_rel"] <= A10_SYM_RTOL,
+              f"SIP {dtype} symmetry {out[f'{key}_symmetry_rel']} > "
+              f"{A10_SYM_RTOL}")
+        del sp, op, v, w
+        torch.cuda.empty_cache()
+    drop = out["dg"][0]["l2_error"] / out["dg"][1]["l2_error"]
+    out["dg_error_drop"] = drop
+    check(drop >= DG_DROP_MIN, f"DG error drop {drop} < {DG_DROP_MIN}")
+    out["dg_f32_error_drop"] = (out["dg_f32"][0]["l2_error"]
+                                / out["dg_f32"][1]["l2_error"])
+    out["dg_f32_over_f64"] = [r32["l2_error"] / r64["l2_error"]
+                              for r32, r64 in zip(out["dg_f32"], out["dg"])]
+    for lv, q in zip(DG_LEVELS, out["dg_f32_over_f64"]):
+        check(q <= DG_F32_FACTOR, f"DG level {lv}: the float32 error is "
+              f"{q} x the float64 one > {DG_F32_FACTOR}")
+    for lv in EG_LEVELS:
+        r, esp = eg_poisson(lv, device)
+        out["eg"].append(r)
+        emit("eg_poisson", card=card, **r)
+    drop = out["eg"][0]["l2_error"] / out["eg"][1]["l2_error"]
+    out["eg_error_drop"] = drop
+    check(drop >= EG_DROP_MIN, f"EG error drop {drop} < {EG_DROP_MIN}")
+    st = EGP0StokesOperator(esp, form="epsilon")
+
+    def rand():
+        vel = tuple(esp.p1._restore_rows_(esp.p1.exchange_rep(
+            torch.randn(esp.p1.block_shape, generator=gen, device=device)
+            * esp.p1.vertex_mask_t), None, FLAG_INNER,
+            esp.p1.resolve_sd(None)) for _ in range(3))
+        return EGFunction(vel, p0(), esp)
+
+    def p0():
+        return torch.randn(esp.p0.block_shape, generator=gen,
+                           device=device) * esp.p0.valid_weight_t
+
+    u, v, q = rand(), rand(), p0()
+    a, c = EGP0StokesFunction(u, q), EGP0StokesFunction(v, p0())
+    s1, s2 = st.dot(st.apply(a), c).item(), st.dot(a, st.apply(c)).item()
+    out["eg_stokes_symmetry_rel"] = abs(s1 - s2) / abs(s1)
+    lhs = torch.sum(st.apply_div(u) * q).item()
+    rhs = esp.dot(u, st.apply_divT(q)).item()
+    out["eg_div_adjoint_rel"] = abs(lhs - rhs) / abs(lhs)
+    for k in ("eg_stokes_symmetry_rel", "eg_div_adjoint_rel"):
+        check(out[k] <= A10_SYM_RTOL, f"{k} {out[k]} > {A10_SYM_RTOL}")
+    out["eg_stokes_apply_ms"] = median_ms(lambda: st.apply(a), 3, warmup=1)
+    return out
+
+
+def run_a10(storage, device, card: str, f32_residuals: list) -> dict:
+    """The A10 phases: bf16_kernels (B2-bf16, B3-bf16 vs plain at P1
+    levels 2-7, the refusals), mixed_precision, solvers_extra, n1e1,
+    dg_eg. The kernel counts are set to 0 just before the mixed-precision
+    and solvers paths and read just after. Returns the launches for the
+    kernels line, the bf16 kernels' timings, bounds and errors."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+
+    t0 = time.perf_counter()
+    checks = []
+    for i, lv in enumerate(BF16_CHECK_LEVELS):
+        checks.append(bf16_kernel_check(storage, lv, device, seed=400 + i))
+        emit("bf16_kernels_vs_plain", card=card, **checks[-1])
+    emit("bf16_refusals", **bf16_refusals(storage, device))
+    errs = {"p1_const_apply_bf16": max(v for c in checks for k, v in c.items()
+                                       if k.startswith("b2_bf16_")
+                                       and k.endswith("_max_abs_err")),
+            "p1_diagonal_local_bf16": max(
+                v for c in checks for k, v in c.items()
+                if k.startswith("b3_bf16_") and k.endswith("_max_abs_err"))}
+    ulp = {k: max(v for c in checks for kk, v in c.items()
+                  if kk.startswith(tag) and kk.endswith("_ulp_excess"))
+           for k, tag in (("p1_const_apply_bf16", "b2_bf16_"),
+                          ("p1_diagonal_local_bf16", "b3_bf16_"))}
+    torch.cuda.empty_cache()
+
+    # the mixed-precision path: every count starts at 0 here
+    for w in (b2.p1_const_apply, b3.p1_diagonal_local):
+        w.launches, w.launches_bf16 = 0, 0
+    t1 = time.perf_counter()
+    mp, (s32, x0, b) = mixed_precision(storage, device, card, f32_residuals)
+    launches = {k: mp["launches"][k] for k in ("p1_const_apply_bf16",
+                                               "p1_diagonal_local_bf16")}
+    f32 = {k: mp["launches"][k] for k in ("p1_const_apply",
+                                          "p1_diagonal_local")}
+    emit("mixed_precision", card=card, phase_s=time.perf_counter() - t1, **mp)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the mixed-precision path")
+
+    # B2-bf16 and B3-bf16 timed at level 7 on the bf16 stack's own tables
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+
+    sp16 = P1Space(storage, MP_LEVEL, device=device, dtype=torch.bfloat16,
+                   pitch=PITCH)
+    op16 = P1ElementwiseOperator(sp16, forms.laplace_form)
+    x16 = x0.to(torch.bfloat16)
+    A, E, elm = op16.stencil, op16.stencil_face, op16.elmats
+    ms = {"p1_const_apply_bf16": median_ms(
+        lambda: b2.p1_const_apply(x16, A, E, MP_LEVEL, 3, PITCH), 10, batch=10),
+        "p1_const_apply_bf16_plain": median_ms(
+            lambda: b2.p1_const_apply_torch(x16, A, MP_LEVEL, 3, PITCH, E=E),
+            5),
+        "p1_diagonal_local_bf16": median_ms(
+            lambda: b3.p1_diagonal_local(elm, MP_LEVEL, 3, PITCH), 10,
+            batch=10),
+        "p1_diagonal_local_bf16_plain": median_ms(
+            lambda: b3.p1_diagonal_local_torch(elm, MP_LEVEL, 3, PITCH), 5)}
+    y16 = b3.p1_diagonal_local(elm, MP_LEVEL, 3, PITCH)
+    C = sp16.C_loc
+    from hyteg_tpu_torch.indexing import micro
+
+    bounds = {"p1_const_apply_bf16": bound(*b2_work(sp16, x16, A, E)),
+              "p1_diagonal_local_bf16": bound(*b3_work(sp16, elm, y16))}
+    xv = x16.view(1, C, sp16.N, sp16.N, sp16.pitch)
+    kern = conv3d_stencil(A.float().sum(-1), micro.stencil_directions(3)).to(
+        torch.bfloat16)
+    lib = {"p1_const_apply_bf16": median_ms(
+        lambda: F.conv3d(xv, kern, padding=1, groups=C), 10, batch=10)}
+    emit("bf16_kernel_timings", card=card, level=MP_LEVEL, ms=ms,
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bytes={k: v[2] for k, v in bounds.items()},
+         library_ms=lib, ulp_excess=ulp,
+         share_of_bound={k: bounds[k][0] / ms[k] for k in bounds})
+    del sp16, op16, x16, A, E, elm, y16, xv, kern
+    torch.cuda.empty_cache()
+
+    # colored GS and FAS on the f32 stack (B2, B3): counts from 0 again
+    for w in (b2.p1_const_apply, b3.p1_diagonal_local):
+        w.launches, w.launches_bf16 = 0, 0
+    t1 = time.perf_counter()
+    xtra = solvers_extra(s32, device, card)
+    check(b2.p1_const_apply.launches > 0,
+          "p1_const_apply was not launched on the solvers path")
+    for k, n in xtra["launches"].items():
+        f32[k] = f32.get(k, 0) + n
+    emit("solvers_extra", card=card, phase_s=time.perf_counter() - t1, **xtra)
+    del s32, x0, b
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    res = n1e1_phase(device, card)
+    emit("n1e1", card=card, phase_s=time.perf_counter() - t1, **res)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    res = dg_eg_phase(device, card)
+    emit("dg_eg", card=card, phase_s=time.perf_counter() - t1, **res)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "f32_launches": f32, "ms": ms,
+            "bounds": bounds, "library_ms": lib, "errs": errs,
+            "ulp_excess": ulp, "phase_s": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -4268,6 +5012,13 @@ def main() -> int:
     emit("spmd_checks", phase_s=sharded["phase_s"],
          launches=sharded["launches"])
 
+    # -- A10: B2-bf16 / B3-bf16 and mixed precision, colored GS and FAS,
+    # N1E1 with Hiptmair, DG1 and EG (B2, B3 in f32 and bf16) ---------------
+    a10 = run_a10(storage, device, card,
+                  results[SLICE_LEVELS[-1]]["residuals"])
+    emit("a10_checks", phase_s=a10["phase_s"], launches=a10["launches"],
+         f32_launches=a10["f32_launches"])
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -4385,6 +5136,21 @@ def main() -> int:
             "launches_by_path", {"earlier_paths": launches[name]})
         by_path["spmd"] = n
         launches[name] += n
+    # and the A10 path's: B2 / B3 in f32, and their bf16 forms' own rows
+    for name, n in a10["f32_launches"].items():
+        by_path = extra.setdefault(name, {}).setdefault(
+            "launches_by_path", {"earlier_paths": launches[name]})
+        by_path["a10"] = n
+        launches[name] += n
+    t.update(a10["ms"])
+    bounds.update(a10["bounds"])
+    lib_ms.update(a10["library_ms"])
+    errs.update(a10["errs"])
+    launches.update(a10["launches"])
+    for name in a10["launches"]:
+        timed[name] = name
+        extra[name] = {"storage": "bf16", "level": MP_LEVEL,
+                       "ulp_excess": a10["ulp_excess"][name]}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

@@ -53,8 +53,17 @@
 // per SM): with the 14 weights in registers it took 64 and ran slower.
 // It takes 0.4016-0.4068 ms at level 11 on the same card (59-60% of the
 // bound).
+//
+// bf16 (3D): the same kernel on bf16 storage (BF16Src, BF16CellStore in
+// bf16.cuh) and bf16 weights A, E; every load widens to f32, the weight
+// fold and the 15-tap sums stay f32, and each result is rounded to bf16
+// once on its store (B1's bf16 rule). It replaces the Pallas kernel run on
+// a bf16 source, which rounds the weights to the source's type
+// (hyteg_tpu/kernels/p1_const_stencil.py:721-722).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "p1_const_stencil.cuh"
 
 namespace {
@@ -62,12 +71,12 @@ namespace {
 constexpr int kPlaneThreads = hyteg::kPlaneWarps * 32;
 
 // 3D: thread block (cell c, plane x); const_apply_plane writes the plane.
+// T: the storage type of src, A, E and dst (float or __nv_bfloat16).
+template <typename T>
 __global__ void __launch_bounds__(kPlaneThreads)
-p1_const_apply_kernel(const float* __restrict__ src,
-                      const float* __restrict__ A,
-                      const float* __restrict__ E,
-                      float* __restrict__ dst, int N, int pitch,
-                      hyteg::ConstTables t) {
+p1_const_apply_kernel(const T* __restrict__ src, const T* __restrict__ A,
+                      const T* __restrict__ E, T* __restrict__ dst, int N,
+                      int pitch, hyteg::ConstTables t) {
   using namespace hyteg;
   constexpr int nA = kConstDirs * kConstShells;
   constexpr int nE = kConstGroups * kConstShells * kConstDirs;
@@ -77,16 +86,32 @@ p1_const_apply_kernel(const float* __restrict__ src,
   // one load per thread, all in flight at once; the fold then reads
   // shared memory only
   for (int i = threadIdx.x; i < nA + nE; i += blockDim.x) {
-    if (i < nA) a_s[i] = A[c * nA + i];
-    else e_s[i - nA] = E[c * nE + i - nA];
+    if (i < nA) a_s[i] = widen(A[c * nA + i]);
+    else e_s[i - nA] = widen(E[c * nE + i - nA]);
   }
   __syncthreads();
   const_fold_rows(a_s, e_s, t, rows, threadIdx.x, blockDim.x);
   __syncthreads();
   const long long cell = (long long)N * N * pitch;
-  const_apply_plane(src + c * cell, CellStore{dst + c * cell}, blockIdx.y, N,
-                    pitch, t, rows, threadIdx.x >> 5, threadIdx.x & 31,
+  const_apply_plane(Storage<T>::src(src + c * cell),
+                    Storage<T>::store(dst + c * cell), blockIdx.y, N, pitch,
+                    t, rows, threadIdx.x >> 5, threadIdx.x & 31,
                     blockDim.x >> 5);
+}
+
+template <typename T>
+int launch_3d(const T* src, const T* A, const T* E, T* dst, int C, int N,
+              int pitch, const int* dirs, const int* gmask, void* stream) {
+  hyteg::ConstTables t;
+  for (int s = 0; s < hyteg::kConstDirs; ++s) {
+    t.dx[s] = dirs[3 * s];
+    t.dl[s] = dirs[3 * s + 1] * pitch + dirs[3 * s + 2];
+  }
+  for (int g = 0; g < hyteg::kConstGroups; ++g) t.gmask[g] = gmask[g];
+  const dim3 grid((unsigned)C, (unsigned)N);
+  p1_const_apply_kernel<T><<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
+      src, A, E, dst, N, pitch, t);
+  return (int)cudaGetLastError();
 }
 
 // 2D: thread block (face c, band of kBandRows2DP1 rows x), the faces'
@@ -125,16 +150,18 @@ extern "C" int hyteg_p1_const_apply(const float* src, const float* A,
                                     const float* E, float* dst, int C, int N,
                                     int pitch, const int* dirs,
                                     const int* gmask, void* stream) {
-  hyteg::ConstTables t;
-  for (int s = 0; s < hyteg::kConstDirs; ++s) {
-    t.dx[s] = dirs[3 * s];
-    t.dl[s] = dirs[3 * s + 1] * pitch + dirs[3 * s + 2];
-  }
-  for (int g = 0; g < hyteg::kConstGroups; ++g) t.gmask[g] = gmask[g];
-  const dim3 grid((unsigned)C, (unsigned)N);
-  p1_const_apply_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
-      src, A, E, dst, N, pitch, t);
-  return (int)cudaGetLastError();
+  return launch_3d(src, A, E, dst, C, N, pitch, dirs, gmask, stream);
+}
+
+// The bf16 form: src, A, E and dst all bf16 (same shapes).
+extern "C" int hyteg_p1_const_apply_bf16(const void* src, const void* A,
+                                         const void* E, void* dst, int C,
+                                         int N, int pitch, const int* dirs,
+                                         const int* gmask, void* stream) {
+  using B = __nv_bfloat16;
+  return launch_3d(static_cast<const B*>(src), static_cast<const B*>(A),
+                   static_cast<const B*>(E), static_cast<B*>(dst), C, N,
+                   pitch, dirs, gmask, stream);
 }
 
 // The 2D form. dirs: host (7, 2) int32 stencil directions, which must

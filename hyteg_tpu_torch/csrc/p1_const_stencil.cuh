@@ -1,5 +1,13 @@
 // Per-point arithmetic of the constant-stencil P1 apply (kernel B2).
 //
+// The 3D walk and its point functions take the source as a template
+// parameter Src, read as src[i] -> float (and src + k): a plain const
+// float* for f32 storage, or an object that widens bf16 storage to f32 on
+// each load (the kernel's BF16Src; the host tests' own). The store is a
+// template parameter as well (CellStore, or a bf16 store that rounds to
+// nearest even). Weights and every sum stay f32 whatever the storage, so
+// a bf16 result is rounded once, on its store.
+//
 // Kept apart from the kernel in p1_const_stencil.cu so that the math, and
 // the 3D kernel's walk over one plane of a cell (const_apply_plane), are
 // plain functions that the host C++ compiler also builds: the kernels only
@@ -92,7 +100,8 @@ HYTEG_DEVICE void const_fold_rows(const float* A, const float* E,
 // its class (const_fold_rows), the reads bounds-checked on x and on the
 // flat lane axis and zero-filled beyond the block (the flat.shift_read
 // semantics). The kernel's path for slots on a coordinate face.
-HYTEG_DEVICE float const_apply_point(const float* src, int x, int y, int z,
+template <class Src>
+HYTEG_DEVICE float const_apply_point(const Src& src, int x, int y, int z,
                                      int N, int pitch, const ConstTables& t,
                                      const float* rows) {
   const int L = N * pitch;
@@ -115,7 +124,8 @@ HYTEG_DEVICE float const_apply_point(const float* src, int x, int y, int z,
 // 15 neighbours lie in the block, on the slot's own lane row or the next
 // ones, so no read is tested. The same terms in the same order as
 // const_apply_point.
-HYTEG_DEVICE float const_apply_interior(const float* p, const float* w,
+template <class Src>
+HYTEG_DEVICE float const_apply_interior(const Src& p, const float* w,
                                         const ConstTables& t, int L) {
   float acc = 0.f;
 #pragma unroll
@@ -140,8 +150,8 @@ HYTEG_DEVICE float const_apply_interior(const float* p, const float* w,
 //  - Rows y > n - x lie past the tet: one zero run over all threads.
 // rows: the 16 folded rows (const_fold_rows) in shared memory. All
 // offsets are 32-bit: a cell holds N * L <= 2^31 slots.
-template <class Out>
-HYTEG_DEVICE void const_apply_plane(const float* src, const Out& out, int x,
+template <class Src, class Out>
+HYTEG_DEVICE void const_apply_plane(const Src& src, const Out& out, int x,
                                     int N, int pitch, const ConstTables& t,
                                     const float* rows, int warp, int lane,
                                     int nwarps) {

@@ -34,8 +34,17 @@
 // 0.1440 ms; the harmonic and geometric means spend 0.5 ms more than the
 // arithmetic one on their 15 transforms and 24 divisions or exponentials
 // per slot.
+//
+// bf16 (no coefficient): the same walk on bf16 element matrices and a
+// bf16 block (BF16CellStore in bf16.cuh); the entries widen to f32, the
+// 24 weights and 16 class values are folded in f32, and each slot's value
+// is rounded to bf16 once on its store. It replaces the Pallas kernel run
+// on bf16 element matrices, which writes in their type
+// (hyteg_tpu/kernels/p1_stencil.py:303).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "p1_diag.cuh"
 
 namespace {
@@ -75,6 +84,39 @@ p1_diag_kernel(const float* __restrict__ elmats,
   }
 }
 
+// The bf16 form, without a coefficient: thread block (cell c, plane x).
+__global__ void __launch_bounds__(kPlaneThreads, 4)
+p1_diag_bf16_kernel(const __nv_bfloat16* __restrict__ elmats,
+                    __nv_bfloat16* __restrict__ dst, int N, int pitch,
+                    int lumped) {
+  using namespace hyteg;
+  __shared__ float e_s[kElm];
+  __shared__ float w[kClasses * kVerts];
+  __shared__ float cls[kDiagRows];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < kElm; i += blockDim.x)
+    e_s[i] = widen(elmats[c * kElm + i]);
+  __syncthreads();
+  diag_fold_weights(e_s, lumped, w, threadIdx.x, blockDim.x);
+  __syncthreads();
+  diag_fold_classes(w, cls, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const long long cell = (long long)N * N * pitch;
+  diag_plane(BF16CellStore{dst + c * cell}, blockIdx.y, N, pitch, cls,
+             threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
+}
+
+bool tables_ok(const int* offs, const int* margins) {
+  using namespace hyteg;
+  for (int t = 0; t < kClasses; ++t) {
+    if (margins[t] != kDiagMargin[t]) return false;
+    for (int a = 0; a < kVerts; ++a)
+      for (int d = 0; d < 3; ++d)
+        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d]) return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 // offs: host (6, 4, 3) int32 class vertex offsets and margins: host (6,)
@@ -87,13 +129,7 @@ extern "C" int hyteg_p1_diag(const float* elmats, const float* coeff,
                              int mode, const int* offs, const int* margins,
                              void* stream) {
   using namespace hyteg;
-  for (int t = 0; t < kClasses; ++t) {
-    if (margins[t] != kDiagMargin[t]) return (int)cudaErrorInvalidValue;
-    for (int a = 0; a < kVerts; ++a)
-      for (int d = 0; d < 3; ++d)
-        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d])
-          return (int)cudaErrorInvalidValue;
-  }
+  if (!tables_ok(offs, margins)) return (int)cudaErrorInvalidValue;
   if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)C, (unsigned)N);
   cudaStream_t s = (cudaStream_t)stream;
@@ -109,5 +145,18 @@ extern "C" int hyteg_p1_diag(const float* elmats, const float* coeff,
   else
     p1_diag_kernel<2><<<grid, kPlaneThreads, 0, s>>>(elmats, coeff, dst, N,
                                                      pitch, lumped);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 form: elmats (C, 6, 4, 4) and dst bf16, no coefficient; the
+// tables as hyteg_p1_diag's. Returns cudaGetLastError() after the launch.
+extern "C" int hyteg_p1_diag_bf16(const void* elmats, void* dst, int C, int N,
+                                  int pitch, int lumped, const int* offs,
+                                  const int* margins, void* stream) {
+  if (!tables_ok(offs, margins)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)C, (unsigned)N);
+  p1_diag_bf16_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(elmats),
+      static_cast<__nv_bfloat16*>(dst), N, pitch, lumped);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,9 @@
 //   elmats of one cell: (6, 4, 4) f32 element matrices, one per micro-tet
 //   congruence class t; dst and coeff blocks: (N, L), L = N * pitch,
 //   lane = y * pitch + z.
+// The walks store through a template Out: f32 (CellStore) or, without a
+// coefficient, bf16 storage that rounds the f32 class value once
+// (p1_diag.cu's BF16CellStore); the weights are f32 either way.
 #pragma once
 
 #include <utility>

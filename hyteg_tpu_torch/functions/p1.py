@@ -236,7 +236,7 @@ class P1Space:
         """(C, N, lanes) -> (C, N, N, pitch) view (3D; identity in 2D)."""
         if self.dim == 2:
             return u
-        return u.reshape(u.shape[:-1] + (self.N, self.pitch))
+        return flat.to_grid(u, self.N, self.pitch)
 
     def from_grid(self, g):
         if self.dim == 2:

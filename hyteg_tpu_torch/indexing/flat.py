@@ -125,3 +125,10 @@ def repitch(u: torch.Tensor, N: int, p_old: int, p_new: int) -> torch.Tensor:
         assert p_new >= N
         g = g[..., :p_new]
     return g.reshape(u.shape[:-1] + (N * p_new,))
+
+
+def to_grid(u: torch.Tensor, N: int, pitch: int) -> torch.Tensor:
+    """(C, N, N*pitch) -> (C, N, N, pitch) view (no copy for a contiguous
+    block; callers slice ``[..., :N]`` for the exact grid)."""
+    return u.reshape(u.shape[:-1] + (N, pitch))
+

@@ -182,3 +182,24 @@ def box_slabs_to_reference(parts: list, num_shards: int) -> np.ndarray:
     a = np.concatenate([block_to_numpy(p) for p in parts], axis=0)
     Xp = -(-a.shape[0] // num_shards) * num_shards
     return np.pad(a, ((0, Xp - a.shape[0]), (0, 0)))
+
+
+def volume_block_from_reference(block: np.ndarray, *, device,
+                                dtype=torch.float32) -> torch.Tensor:
+    """A VolumeDoF block (C, T, n, ..., n[, ndofs]): a P0 field, a DG1
+    field (ndofs = dim + 1), an EG enrichment or an EG-P0 pressure ->
+    tensor on ``device``. Both packages use the same SoA layout. N1E1 and
+    edge-DoF blocks live on the P1 level-(L+1) node grid and carry over
+    with ``block_from_reference``."""
+    return torch.tensor(np.asarray(block), dtype=dtype, device=device)
+
+
+def eg_from_reference(vel, enr, space, *, device, dtype=torch.float32):
+    """A JAX ``EGFunction``'s arrays (``vel``: dim P1 blocks, ``enr``: the
+    P0 enrichment block) -> the port's ``EGFunction`` on ``space``."""
+    from .functions.eg import EGFunction
+
+    return EGFunction(tuple(block_from_reference(v, device=device,
+                                                 dtype=dtype) for v in vel),
+                      volume_block_from_reference(enr, device=device,
+                                                  dtype=dtype), space)

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources ``hyteg_tpu_torch/csrc/*.cu`` (plus their ``*.cuh``) are
-compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library with
-a plain C interface, on first use, into ``hyteg_tpu_torch/_build/``. The
+compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc -c`` per source,
+all started together, and linked into one shared library with a plain C
+interface, on first use, into ``hyteg_tpu_torch/_build/``. The
 library's name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads at once. It is loaded with
 ctypes; every pointer and the stream pass as ``c_void_p`` (ctypes would
@@ -27,8 +28,9 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (all return int = cudaGetLastError())
@@ -45,6 +47,10 @@ SIGNATURES = {
     "hyteg_p2_const_apply_2d": [_P, _P, _P, _I, _I, _P, _P],
     # elmats, coeff, dst, C, N, pitch, lumped, mode, offs, margins, stream
     "hyteg_p1_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # src, A, E, dst (all bf16), C, N, pitch, dirs, gmask, stream
+    "hyteg_p1_const_apply_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # elmats, dst (bf16), C, N, pitch, lumped, offs, margins, stream
+    "hyteg_p1_diag_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # u, w, y, X, Y, Z, bf16, stream
     "hyteg_box_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
     # src, dst, n, stream
@@ -98,22 +104,37 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float, str]:
     """Compile the library if it is missing. Returns (path, seconds spent
-    compiling (0.0 when it was there), nvcc's output: registers, shared
-    memory and spills per kernel)."""
+    compiling and linking (0.0 when it was there), nvcc's output:
+    registers, shared memory and spills per kernel)."""
     so = library_path()
     if so.exists():
         return so, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    objs.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for src in _sources() if src.suffix == ".cu"]
+    logs = [(src, proc.communicate()[0], proc.returncode)
+            for src, proc in jobs]
+    failed = [f"{src.name} ({rc}):\n{log}" for src, log, rc in logs if rc]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp),
+             *[str(objs / f"{src.stem}.o") for src, _ in jobs]],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
+    shutil.rmtree(objs, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    return so, seconds, proc.stdout + proc.stderr
+    return so, seconds, "".join(log for _, log, _ in logs)
 
 
 @functools.lru_cache(maxsize=1)

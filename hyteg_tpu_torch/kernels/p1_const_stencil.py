@@ -14,8 +14,13 @@ In 2D (macro-faces, blocks (C, N, N) with lane = z) the same scheme has 7
 directions and the edge groups {x = 0}, {z = 0} and both.
 
 ``p1_const_apply`` launches the CUDA kernel ``csrc/p1_const_stencil.cu``
-(its 3D or 2D form) for a CUDA tensor and runs the plain version
-``p1_const_apply_torch`` for a CPU tensor.
+(its 3D or 2D form; in 3D also on bf16 storage) for a CUDA tensor and runs
+the plain version ``p1_const_apply_torch`` for a CPU tensor.
+
+bf16: the source is bf16 and the weights are rounded to its type (as the
+JAX package's Pallas kernel rounds them); the loads widen to f32, every
+sum runs in f32, and the result is rounded to bf16 once. The JAX
+package's plain ``p1_const_apply_xla`` instead accumulates in bf16.
 """
 
 from __future__ import annotations
@@ -275,9 +280,17 @@ def p1_const_apply_torch(src, A, level: int, dim: int, pitch: int, E=None):
 
     Reads are plain flat shifts (ends zero-filled, lane aliasing allowed):
     the full-scheme weights are pointwise exact, so every out-of-tet read
-    carries a zero coefficient (see face_tables_full)."""
+    carries a zero coefficient (see face_tables_full).
+
+    A bf16 source: A and E rounded to bf16, the apply computed in f32 on
+    the widened values, the result rounded to bf16 once (kernel B2's bf16
+    rule)."""
     if E is None:
         raise ValueError("pass E = face_weights_full(elmats, dim)")
+    if src.dtype == torch.bfloat16:
+        wide = lambda t: t.to(torch.bfloat16).to(torch.float32)
+        return p1_const_apply_torch(wide(src), wide(A), level, dim, pitch,
+                                    E=wide(E)).to(torch.bfloat16)
     dirs, _, _ = stencil_tables(dim)
     reads = [
         flat.shift_read(src, tuple(int(x) for x in dirs[i]), pitch, dim)
@@ -319,18 +332,29 @@ def p1_const_apply(src, A, E, level: int, dim: int, pitch: int):
     face_weights_full (n_G 7 or 3). A CPU tensor runs the plain version;
     a CUDA tensor launches kernel B2 (csrc/p1_const_stencil.cu) and counts
     the launch in ``p1_const_apply.launches`` (3D) or
-    ``p1_const_apply.launches_2d``."""
+    ``p1_const_apply.launches_2d``. In 3D the storage may be f32 or bf16
+    (a bf16 launch also counts in ``p1_const_apply.launches_bf16``); the
+    2D kernel takes f32 only. With a bf16 source, f32 weights are rounded
+    to bf16 as the Pallas kernel rounds them, on either device; the source
+    is never cast, and any other type raises."""
     if src.device.type == "cpu":
         return p1_const_apply_torch(src, A, level, dim, pitch, E=E)
     N = (1 << level) + 1
     C = src.shape[0]
     dirs, gmask = _kernel_tables(dim)
-    _check_cuda_input("src", src, (C, N, N * pitch if dim == 3 else N))
-    _check_cuda_input("A", A, (C, dirs.shape[0], 2))
-    _check_cuda_input("E", E, (C, gmask.shape[0], 2, dirs.shape[0]))
+    dt = src.dtype if dim == 3 and src.dtype == torch.bfloat16 else torch.float32
+    _check_cuda_input("src", src, (C, N, N * pitch if dim == 3 else N), dt)
+    if dt == torch.bfloat16:
+        A, E = (w.to(dt) if w.dtype == torch.float32 else w for w in (A, E))
+    _check_cuda_input("A", A, (C, dirs.shape[0], 2), dt)
+    _check_cuda_input("E", E, (C, gmask.shape[0], 2, dirs.shape[0]), dt)
     dst = torch.empty_like(src)
     lib = build.library()
-    if dim == 3:
+    if dt == torch.bfloat16:
+        rc = lib.hyteg_p1_const_apply_bf16(
+            src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
+            pitch, dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
+    elif dim == 3:
         rc = lib.hyteg_p1_const_apply(
             src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
             pitch, dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
@@ -340,10 +364,13 @@ def p1_const_apply(src, A, E, level: int, dim: int, pitch: int):
             dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
     build.check_launch(rc, "p1_const_apply")
     build.count_launch(p1_const_apply, dim, level)
+    if dt == torch.bfloat16:
+        p1_const_apply.launches_bf16 += 1
     return dst
 
 
 p1_const_apply.launches = 0
+p1_const_apply.launches_bf16 = 0
 p1_const_apply.launches_2d = 0
 p1_const_apply.launches_by_level = {}
 p1_const_apply.launches_by_level_2d = {}

@@ -131,7 +131,15 @@ def p1_diagonal_local_torch(elmats, level: int, dim: int, pitch: int,
                             lumped: bool = False, coeff=None,
                             coeff_avg: str = "arithmetic"):
     """Plain-torch per-cell partial diagonal (scatter form):
-    dst[base + off_a] += elMat[t, a, a] (or sum_b elMat[t, a, b])."""
+    dst[base + off_a] += elMat[t, a, a] (or sum_b elMat[t, a, b]).
+
+    bf16 element matrices: the sums run in f32 on the widened entries and
+    the result is rounded to bf16 once (kernel B3's bf16 rule)."""
+    if elmats.dtype == torch.bfloat16:
+        co = None if coeff is None else coeff.to(torch.float32)
+        return p1_diagonal_local_torch(
+            elmats.to(torch.float32), level, dim, pitch, lumped, co,
+            coeff_avg).to(torch.bfloat16)
     N = (1 << level) + 1
     pitch = N if dim == 2 else pitch
     L = N * pitch if dim == 3 else N
@@ -164,7 +172,10 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
     version; a CUDA tensor launches kernel B3 (csrc/p1_diag.cu, or
     csrc/p1_tri.cu in 2D) and counts the launch in
     ``p1_diagonal_local.launches`` (3D) or
-    ``p1_diagonal_local.launches_2d``."""
+    ``p1_diagonal_local.launches_2d``. In 3D without a coefficient the
+    element matrices may be bf16 (the block is then bf16, and the launch
+    also counts in ``p1_diagonal_local.launches_bf16``); anything else in
+    bf16 raises, and no type is cast."""
     if elmats.device.type == "cpu":
         return p1_diagonal_local_torch(elmats, level, dim, pitch, lumped,
                                        coeff, coeff_avg)
@@ -174,6 +185,19 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
     C = elmats.shape[0]
     block = (C, N, N * pitch if dim == 3 else N)
     offs = micro.offsets(dim)
+    if elmats.dtype == torch.bfloat16 and dim == 3 and coeff is None:
+        _check_cuda_input("elmats", elmats,
+                          (C,) + offs.shape[:2] + (offs.shape[1],),
+                          torch.bfloat16)
+        dst = torch.empty(block, dtype=torch.bfloat16, device=elmats.device)
+        offs, margins = _kernel_tables(dim)
+        rc = build.library().hyteg_p1_diag_bf16(
+            elmats.data_ptr(), dst.data_ptr(), C, N, pitch, int(lumped),
+            offs.ctypes.data, margins.ctypes.data, build.current_stream())
+        build.check_launch(rc, "p1_diagonal_local")
+        build.count_launch(p1_diagonal_local, dim, level)
+        p1_diagonal_local.launches_bf16 += 1
+        return dst
     _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
     if coeff is not None:
         _check_cuda_input("coeff", coeff, block)
@@ -193,6 +217,7 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
 
 
 p1_diagonal_local.launches = 0
+p1_diagonal_local.launches_bf16 = 0
 p1_diagonal_local.launches_2d = 0
 p1_diagonal_local.launches_by_level = {}
 p1_diagonal_local.launches_by_level_2d = {}

@@ -24,9 +24,11 @@ from ..kernels.p1_const_stencil import (face_weights_full, p1_const_apply,
 from ..kernels.p1_stencil import p1_apply_local, p1_diagonal_local
 
 
-def compute_elmats(space: P1Space, form, cell_vertices: torch.Tensor) -> torch.Tensor:
+def compute_elmats(space: P1Space, form, cell_vertices: torch.Tensor,
+                   dtype=None) -> torch.Tensor:
     """(C, T, nv, nv) element matrices — one micro-element per congruence
-    class (base-independent for affine cells). A 2D mesh keeps its
+    class (base-independent for affine cells), in ``dtype`` (default the
+    space's), computed in the vertices' type. A 2D mesh keeps its
     vertices as (x, y, 0): the forms take (x, y)."""
     verts = cell_vertices[..., :space.dim]
     v0 = verts[:, :1, :]
@@ -34,7 +36,7 @@ def compute_elmats(space: P1Space, form, cell_vertices: torch.Tensor) -> torch.T
     offs = torch.as_tensor(micro.offsets(space.dim), dtype=cell_vertices.dtype,
                            device=cell_vertices.device) / space.n
     micro_verts = v0[:, None] + torch.einsum("tvd,cde->ctve", offs, J)
-    return form(micro_verts).to(space.dtype)
+    return form(micro_verts).to(dtype or space.dtype)
 
 
 class P1ElementwiseOperator(nn.Module):
@@ -45,6 +47,12 @@ class P1ElementwiseOperator(nn.Module):
     ((C, 2, 3, 3) in 2D), e.g. carried over from the JAX package with
     interop.elmats_from_reference.
     The per-cell tables are registered buffers.
+
+    On a bf16 space the element matrices are computed in f32 (from f32
+    vertices, as the JAX package does) and the stencil weights A, E
+    summed from them in f32; each table is then rounded to bf16 once.
+    The JAX package rounds the element matrices to bf16 first and sums
+    the stencil weights in bf16.
     """
 
     def __init__(self, space: P1Space, form, shard: int = 0, elmats=None,
@@ -56,16 +64,20 @@ class P1ElementwiseOperator(nn.Module):
         #: averaging of nodal coefficient fields over element vertices
         #: (reference: src/hyteg/forms/CoefficientAveraging.hpp)
         self.coeff_avg = coeff_avg
+        # the tables are built in f32 at least, then rounded once
+        wide = torch.float32 if space.dtype == torch.bfloat16 else space.dtype
         if elmats is None:
-            elmats = compute_elmats(
-                space, form, space.resolve_sd(None, shard).cell_vertices)
-        elmats = torch.as_tensor(elmats, dtype=space.dtype,
-                                 device=space.device).contiguous()
-        self.register_buffer("elmats", elmats)
-        self.register_buffer("stencil",
-                             stencil_weights(elmats, space.dim).contiguous())
-        self.register_buffer("stencil_face",
-                             face_weights_full(elmats, space.dim).contiguous())
+            cv = space.resolve_sd(None, shard).cell_vertices
+            if wide != space.dtype:  # the host's f64 vertices, not bf16 ones
+                cv = space._tensor(space.cell_vertices(shard), wide)
+            elmats = compute_elmats(space, form, cv, dtype=wide)
+        elmats = torch.as_tensor(elmats, device=space.device).to(wide)
+        self.register_buffer("elmats",
+                             elmats.to(space.dtype).contiguous())
+        self.register_buffer("stencil", stencil_weights(
+            elmats, space.dim).to(space.dtype).contiguous())
+        self.register_buffer("stencil_face", face_weights_full(
+            elmats, space.dim).to(space.dtype).contiguous())
         self._sub_tables: dict = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

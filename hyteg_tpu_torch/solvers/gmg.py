@@ -63,19 +63,19 @@ class GeometricMultigridSolver:
         self.cycle_type = cycle_type
         self.inc = smooth_increment_on_coarser
 
-    @staticmethod
-    def _repeat_smooth(smooth, x, b, count: int):
-        for _ in range(count):
-            x = smooth(x, b)
-        return x
+    def _smoothers(self, level: int, pre: bool) -> list:
+        """The smoothing callables of ``level``'s pre (or post) half."""
+        count = (self.pre if pre else self.post) + self.inc * (
+            self.max_level - level)
+        return [self.levels[level].smooth] * count
 
     def cycle(self, x, b, level: int | None = None):
         level = self.max_level if level is None else level
         if level == self.min_level:
             return self.coarse_solve(b, x)
         L = self.levels[level]
-        extra = self.inc * (self.max_level - level)
-        x = self._repeat_smooth(L.smooth, x, b, self.pre + extra)
+        for sm in self._smoothers(level, True):
+            x = sm(x, b)
         r = L.residual(x, b) if L.residual is not None else b - L.apply(x)
         r_c = L.restrict(r)
         x_c = self.levels[level - 1].zeros()
@@ -83,12 +83,34 @@ class GeometricMultigridSolver:
         if self.cycle_type == CycleType.W and level - 1 > self.min_level:
             x_c = self.cycle(x_c, r_c, level - 1)
         x = L.prolongate_add(x_c, x)
-        return self._repeat_smooth(L.smooth, x, b, self.post + extra)
+        for sm in self._smoothers(level, False):
+            x = sm(x, b)
+        return x
 
     def solve(self, x, b, num_cycles: int):
         for _ in range(num_cycles):
             x = self.cycle(x, b)
         return x
+
+
+class FlexibleMultigridSolver(GeometricMultigridSolver):
+    """Per-level smoother lists (reference: FlexibleMultigridSolver.hpp):
+    ``pre_lists``/``post_lists`` map level -> list of (x, b) -> x smoothing
+    callables applied in order, overriding the uniform pre/post counts; a
+    level missing from a map smooths with ``[L.smooth] * 3``."""
+
+    def __init__(self, levels, coarse_solve, min_level, max_level,
+                 pre_lists: dict | None = None,
+                 post_lists: dict | None = None,
+                 cycle_type: CycleType = CycleType.V):
+        super().__init__(levels, coarse_solve, min_level, max_level,
+                         pre_smooth=0, post_smooth=0, cycle_type=cycle_type)
+        self.pre_lists = pre_lists or {}
+        self.post_lists = post_lists or {}
+
+    def _smoothers(self, level: int, pre: bool) -> list:
+        lists = self.pre_lists if pre else self.post_lists
+        return lists.get(level, [self.levels[level].smooth] * 3)
 
 
 class FullMultigridSolver:

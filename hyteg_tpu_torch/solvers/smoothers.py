@@ -60,9 +60,11 @@ def p1_stencil_eig_fourier(stencil, dim: int, samples: int = 64) -> float:
     P1 stencil operator: the max over cells of the interior stencil's
     periodic symbol  sum_d W_d cos(d.theta) / W_0  (eigenvector
     interlacing majorizes the Dirichlet spectrum per cell; interfaces
-    average adjacent cells' symbols and stay below the max)."""
+    average adjacent cells' symbols and stay below the max). Computed in
+    float64 on the host from the stencil's own values (bf16 ones for a
+    bf16 operator), as the JAX package does."""
     if isinstance(stencil, torch.Tensor):
-        stencil = stencil.detach().cpu().numpy()
+        stencil = stencil.detach().cpu().to(torch.float64).numpy()
     W = np.asarray(stencil, dtype=np.float64).sum(-1)  # (C, n_s)
     dirs = np.asarray(micro.stencil_directions(dim), dtype=np.float64)
     center = int(np.where(~dirs.any(axis=1))[0][0])

@@ -100,7 +100,23 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.terraneo.transport_std",
               "hyteg_tpu_torch.terraneo.simulation",
               "hyteg_tpu_torch.apps",
-              "hyteg_tpu_torch.apps.terraneo_convection"):
+              "hyteg_tpu_torch.apps.terraneo_convection",
+              "hyteg_tpu_torch.indexing.flat",
+              "hyteg_tpu_torch.solvers.gmg",
+              "hyteg_tpu_torch.solvers.colored_gs",
+              "hyteg_tpu_torch.solvers.fas",
+              "hyteg_tpu_torch.solvers.refinement",
+              "hyteg_tpu_torch.solvers.hiptmair",
+              "hyteg_tpu_torch.functions.volume",
+              "hyteg_tpu_torch.functions.dg",
+              "hyteg_tpu_torch.functions.eg",
+              "hyteg_tpu_torch.functions.n1e1",
+              "hyteg_tpu_torch.functions.edgedof",
+              "hyteg_tpu_torch.operators.dg_ops",
+              "hyteg_tpu_torch.operators.eg_ops",
+              "hyteg_tpu_torch.operators.eg_stokes",
+              "hyteg_tpu_torch.operators.n1e1_ops",
+              "hyteg_tpu_torch.operators.n1e1_transfer"):
         assert m in MODULES
 
 
