@@ -94,7 +94,8 @@ read just after:
   level-9 box solve over four row slabs against box_gmg_1e9's residuals,
   and B1 on a 3-row edge strip against its plain version
   (``spmd_box``); one convection step (one Stokes V-cycle) on the shell
-  at P2 level 4, 4 shards against 1 (``terraneo_spmd``); particle migration by one
+  at P2 level 4, 4 shards against 1, both under torch's deterministic
+  algorithms (``terraneo_spmd``); particle migration by one
   all_to_all (``migration``); and, only with 4 or more cards, the
   P1 V-cycle over NCCL, one process per card (``spmd_nccl``; on one card
   a line says it did not run);
@@ -127,6 +128,20 @@ read just after:
   multigrid and FAS at level 7 (``solvers_extra``); Hiptmair-smoothed
   N1E1 cycles at element levels 4-6 (``n1e1``); DG1 SIP and EG Poisson
   solves and the operators' symmetry (``dg_eg``).
+- the bf16 P2 and 2D GMGs (B5, B5-2D, B2-2D, B3-2D in bf16): an f32
+  iterative refinement around one bf16 V(3,3) cycle a step of
+  make_p2_gmg(dtype=bfloat16) on the P2 path's level-6 stack and rhs
+  (``mixed_precision_p2``), of make_p1_gmg(dtype=bfloat16) on the 2D
+  level-11 problem (``mixed_precision_2d``) and of make_p2_gmg on the 2D
+  P2 level-10 rhs (``mixed_precision_p2_2d``), each on the f32 stack its
+  phase built and gated against that stack's own plateau and the
+  bf16-only loop; in 2D, where the scheme stops converging above P1
+  level 8 / P2 level 6, the full-width runs report their histories and
+  the gates hold at those levels (``*_gated``, MP_GATE_2D); B5-bf16 at every P2 level 1-6, B5-2D-bf16 at every 2D P2 level
+  1-10 (``bf16_p2_kernels_vs_plain``), B2-2D-bf16 and B3-2D-bf16 at every
+  2D P1 level 2-11 (``bf16_2d_kernels_vs_plain``), each within one bf16
+  ulp and timed at its path's level; ``bf16_refusals`` covers the 2D forms
+  and B5.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -141,8 +156,10 @@ without CUDA. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import sys
 import time
@@ -155,6 +172,9 @@ from hyteg_tpu_torch.core.benchtime import card as smi_card
 from hyteg_tpu_torch.core.benchtime import median_graph_ms, median_ms
 
 START = time.perf_counter()
+# cuBLAS's deterministic workspace, read when its first handle is made:
+# terraneo_spmd runs under torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 MESH_N = 2            # mesh_unit_cube(2): 48 macro-tets
 SLICE_LEVELS = (6, 7)
@@ -377,6 +397,16 @@ MP_LEVEL = 7
 MP_OUTER = 10            # f32 outer steps, one bf16 V(3,3) cycle each
 MP_PLATEAU_FACTOR = 2.0  # refined residual <= 2 x the f32 GMG's plateau
 MP_BF16_RATIO = 0.1      # and < 0.1 x the bf16-only loop's
+# The 2D mixed-precision paths (rect, 32 faces) reach their f32 plateau in
+# MP_OUTER steps only up to these levels (on an H100, NVIDIA H100 80GB
+# HBM3, 700 W: 1.58x at P1 level 8, 1.46x at P2 level 6; 4.2x / 4.0x one
+# level up; no convergence at P1 level 10-11, divergence at P2 level
+# 9-10; ROADMAP C-ref15): the bf16 rounding of
+# the correction and of the residual grows with the condition number,
+# which at 8192 intervals a side is ~10^3 x that of the 3D paths. The
+# gates hold there; the full-width runs (P1 level 11, P2 level 10) report
+# their histories, with the bf16 types and a finite bf16 cycle gated.
+MP_GATE_2D = {"p1": 8, "p2": 6}
 XTRA_CYCLES = 4
 XTRA_GS_SWEEPS = 2       # symmetric sweeps: one reaches rate 0.20 by cycle 5
 FAS_REL = 0.05           # FAS vs the linear V-cycle, per cycle
@@ -434,7 +464,24 @@ REPLACES = {
     "p1_diagonal_local_bf16": ("hyteg_tpu_torch/csrc/p1_diag.cu",
                                "hyteg_tpu/kernels/p1_stencil.py:303 (bf16 "
                                "element matrices)"),
+    "p2_const_apply_bf16": ("hyteg_tpu_torch/csrc/p2_const_stencil.cu",
+                            "hyteg_tpu/kernels/p2_const_stencil.py:432 "
+                            "(bf16 source)"),
+    "p2_const_apply_2d_bf16": ("hyteg_tpu_torch/csrc/p2_const_stencil.cu",
+                               "hyteg_tpu/kernels/p2_const_stencil.py:432 "
+                               "(dim 2, bf16 source)"),
+    "p1_const_apply_2d_bf16": ("hyteg_tpu_torch/csrc/p1_const_stencil.cu",
+                               "hyteg_tpu/kernels/p1_const_stencil.py:776 "
+                               "(dim 2, bf16 source)"),
+    "p1_diagonal_local_2d_bf16": ("hyteg_tpu_torch/csrc/p1_tri.cu",
+                                  "hyteg_tpu/kernels/p1_stencil.py:303 (dim "
+                                  "2, bf16 element matrices)"),
 }
+# the short names of this slice's bf16 rows (B5, B5-2D, B2-2D, B3-2D)
+BF16_LABELS = {"p2_const_apply_bf16": "b5_bf16",
+               "p2_const_apply_2d_bf16": "b5_2d_bf16",
+               "p1_const_apply_2d_bf16": "b2_2d_bf16",
+               "p1_diagonal_local_2d_bf16": "b3_2d_bf16"}
 # the one PyTorch call timed beside each kernel (library_ms), or why none
 LIBRARY_CALLS = {
     "p1_const_apply": "F.conv3d grouped per cell, interior stencil (equal to "
@@ -465,6 +512,12 @@ LIBRARY_CALLS = {
                            "stencil (equal to B2-bf16 on interior points "
                            "only)",
     "p1_diagonal_local_bf16": None,  # no library call builds an FE diagonal
+    "p2_const_apply_bf16": None,  # weights vary with node parity: no conv form
+    "p2_const_apply_2d_bf16": None,  # the same
+    "p1_const_apply_2d_bf16": "F.conv2d grouped per face in bf16, interior "
+                              "7-point stencil (equal to B2-2D-bf16 on "
+                              "interior points only)",
+    "p1_diagonal_local_2d_bf16": None,  # no library call builds an FE diagonal
 }
 
 
@@ -1207,7 +1260,8 @@ def b5_work(sp, x, W, level: int) -> tuple[int, float]:
     row, K0 = b5._row_index(level, sp.dim, sp.pitch, torch.float32, x.device)
     hist = torch.bincount(row[K0 > 0], minlength=W.shape[1]).double()
     return (nbytes(x) + simplex_read_bytes(sp, b5._kernel_dirs(sp.dim),
-                                           x.shape[0]) + nbytes(W),
+                                           x.shape[0], x.element_size())
+            + nbytes(W),
             2 * ((W != 0).sum(-1).double() @ hist).sum().item())
 
 
@@ -2158,8 +2212,29 @@ def run_2d(device, card: str) -> dict:
             prof["kernels"]["p1_const_apply_2d"]["ms"], by_level,
             {lv: v[1] for lv, v in b2_levels.items()}))
     block_elements = x.numel()
-    del stack, sp, op, A, E, elm, x, b, xv, kern, prof
+    del A, E, elm, xv, kern, prof
     torch.cuda.empty_cache()
+    # -- mixed_precision_2d: the bf16 2D P1 stack (B2-2D-bf16, B3-2D-bf16)
+    # under an f32 refinement, on this phase's f32 stack and problem (its
+    # histories reported), then gated at MP_GATE_2D["p1"] ----------------
+    mixed = {}
+    for path, run in (
+            ("mixed_precision_2d", lambda: mixed_precision_on(
+                stack, manufactured(stack)[0], b, res["residuals"],
+                t["vcycle_2d"], device, "p1", gated=False)),
+            ("mixed_precision_2d_gated", lambda: mixed_precision_2d_gate(
+                rect, device, "p1"))):
+        zero_counts()
+        t1 = time.perf_counter()
+        mixed[path] = run()
+        emit(path, card=card, phase_s=time.perf_counter() - t1,
+             mesh="mesh_rectangle(nx=4, ny=4)", **mixed[path])
+        for name in ("p1_const_apply_2d_bf16", "p1_diagonal_local_2d_bf16"):
+            check(mixed[path]["launches"].get(name, 0) > 0,
+                  f"{name} was not launched on the {path} path")
+        if path == "mixed_precision_2d":
+            del stack, sp, op, x, b
+            torch.cuda.empty_cache()
 
     # -- coeff_2d: the P1 coefficient operator (B4-2D; B3-2D with k) -------
     b4c = []
@@ -2268,8 +2343,26 @@ def run_2d(device, card: str) -> dict:
     t["p2_apply_raw_2d"] = median_ms(lambda: op.apply_raw(x), 10, batch=10)
     t["p2_vcycle_2d"] = p2res["ms_per_vcycle"]
     work["p2_const_apply_2d"] = b5_work(sp, x, W, P2_LEVEL_2D)
-    del stack, sp, op, W, x, b
-    torch.cuda.empty_cache()
+    del op, W
+    # -- mixed_precision_p2_2d: the bf16 2D P2 stack (B5-2D-bf16) under an
+    # f32 refinement, on this phase's f32 stack and rhs (its histories
+    # reported), then gated at MP_GATE_2D["p2"] ------------------------------
+    for path, run in (
+            ("mixed_precision_p2_2d", lambda: mixed_precision_on(
+                stack, torch.zeros_like(b), b, p2res["residuals"],
+                p2res["ms_per_vcycle"], device, "p2", gated=False)),
+            ("mixed_precision_p2_2d_gated", lambda: mixed_precision_2d_gate(
+                rect, device, "p2"))):
+        zero_counts()
+        t1 = time.perf_counter()
+        mixed[path] = run()
+        emit(path, card=card, phase_s=time.perf_counter() - t1,
+             mesh="mesh_rectangle(nx=4, ny=4)", **mixed[path])
+        check(mixed[path]["launches"].get("p2_const_apply_2d_bf16", 0) > 0,
+              f"p2_const_apply_2d_bf16 was not launched on the {path} path")
+        if path == "mixed_precision_p2_2d":
+            del stack, sp, x, b
+            torch.cuda.empty_cache()
     man = {}
     for lv in P2_MANUFACTURED_2D:
         man[lv] = p2_manufactured(rect, lv, device,
@@ -2282,7 +2375,7 @@ def run_2d(device, card: str) -> dict:
           f"level {lo} to {hi}, < {P2_ERR_DROP_MIN}x")
     return {"errs": errs, "launches": launches, "ms": t, "work": work,
             "library_ms": lib, "block_elements": block_elements,
-            "b4_coeff": b4_coeff, "b3_coeff": b3_coeff}
+            "b4_coeff": b4_coeff, "b3_coeff": b3_coeff, "mixed": mixed}
 
 
 def rim_deviation(sp, comps, radii: tuple) -> dict:
@@ -3574,6 +3667,21 @@ def spmd_energy_floor(sim, T0: list, x: list, T: list) -> float:
     return (Tp[0] - T[0]).abs().max().item()
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) inside the block, the
+    previous setting after it. On CUDA, index_add_ then adds in a fixed
+    order instead of with atomics, so a run's sums over replicas, its
+    transfers and its stencil tables have the same bits in every run."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 def spmd_convection(device, card: str) -> dict:
     """One sharded convection step on the shell (TERRANEO_SHELL, with
     SPMD_CONV_STOKES_CYCLES Stokes V-cycles), 4 shards against 1 of the
@@ -3582,7 +3690,14 @@ def spmd_convection(device, card: str) -> dict:
     within SPMD_CONV_REL of its one-shard max, T within SPMD_CONV_REL of
     max|T| plus the one-shard step's own f32 floor (spmd_energy_floor);
     T finite in TERRANEO_T_RANGE. The one-shard run comes first, outside
-    the counts."""
+    the counts.
+
+    Both runs and the floor run under deterministic_algorithms. With
+    atomic sums the per-node T of runs of the same code on an H100 read
+    4.2e-5 to 6.0e-5 of max|T| apart, and the floor moved with them: each
+    reading was a draw of the sums' order. With fixed-order sums it reads
+    9.5e-7 in every run. The one-shard step runs twice, and its T and u
+    must have the same bits both times."""
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
     from hyteg_tpu_torch.kernels import p2_const_stencil as b5
@@ -3592,48 +3707,59 @@ def spmd_convection(device, card: str) -> dict:
     counted = (b2.p1_const_apply, b3.p1_diagonal_local, b5.p2_const_apply)
     names = ["T"] + [f"u_{c}" for c in "xyz"[:TERRANEO_SHELL["dim"]]]
     out, launches, want, node_rel = {}, {}, {}, {}
-    for S in (1, SPMD_SHARDS):
-        if S == SPMD_SHARDS:
-            for w in counted:  # the sharded path: counts start here
-                w.launches = 0
-        t0 = time.perf_counter()
-        sim = ShardedConvectionSimulation(
-            ConvectionParameters(**TERRANEO_SHELL), num_shards=S,
-            stokes_cycles=SPMD_CONV_STOKES_CYCLES,
-            device=device, partitioner="sfc")
-        T0, x = sim.initial_state()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        T, x = sim.step(T0, x)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        if S == SPMD_SHARDS:
-            launches = {w.__name__: w.launches for w in counted}
-        lo = min(t.min().item() for t in T)
-        hi = max(t.max().item() for t in T)
-        out[S] = {"setup_s": t1 - t0, "step_s": t2 - t1,
-                  "observables": sim.observables(T, x), "T_min": lo,
-                  "T_max": hi}
-        check(all(math.isfinite(v) for v in out[S]["observables"]),
-              f"terraneo_spmd {S} shards: non-finite state")
-        check(TERRANEO_T_RANGE[0] <= lo and hi <= TERRANEO_T_RANGE[1],
-              f"terraneo_spmd {S} shards: T in [{lo}, {hi}]")
-        fields = {"T": T}
-        for c, name in enumerate(names[1:]):
-            fields[name] = [xx.vel[c] for xx in x]
-        for name, blocks in fields.items():
+    with deterministic_algorithms():
+        for S in (1, SPMD_SHARDS):
+            if S == SPMD_SHARDS:
+                for w in counted:  # the sharded path: counts start here
+                    w.launches = 0
+            t0 = time.perf_counter()
+            sim = ShardedConvectionSimulation(
+                ConvectionParameters(**TERRANEO_SHELL), num_shards=S,
+                stokes_cycles=SPMD_CONV_STOKES_CYCLES,
+                device=device, partitioner="sfc")
+            T0, x = sim.initial_state()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            T, x = sim.step(T0, x)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if S == SPMD_SHARDS:
+                launches = {w.__name__: w.launches for w in counted}
+            lo = min(t.min().item() for t in T)
+            hi = max(t.max().item() for t in T)
+            out[S] = {"setup_s": t1 - t0, "step_s": t2 - t1,
+                      "observables": sim.observables(T, x), "T_min": lo,
+                      "T_max": hi}
+            check(all(math.isfinite(v) for v in out[S]["observables"]),
+                  f"terraneo_spmd {S} shards: non-finite state")
+            check(TERRANEO_T_RANGE[0] <= lo and hi <= TERRANEO_T_RANGE[1],
+                  f"terraneo_spmd {S} shards: T in [{lo}, {hi}]")
+            fields = {"T": T}
+            for c, name in enumerate(names[1:]):
+                fields[name] = [xx.vel[c] for xx in x]
+            for name, blocks in fields.items():
+                if S == 1:
+                    nodes = sim.T_sp.num_global_dofs()
+                    want[name] = spmd_by_gid(sim.T_sp, blocks)
+                    if name == "T":
+                        t_max = want[name].abs().max().item()
+                else:
+                    node_rel[name] = (
+                        spmd_gid_err(sim.T_sp, blocks, want[name])
+                        / want[name].abs().max().item())
             if S == 1:
-                nodes = sim.T_sp.num_global_dofs()
-                want[name] = spmd_by_gid(sim.T_sp, blocks)
-                if name == "T":
-                    t_max = want[name].abs().max().item()
-            else:
-                node_rel[name] = (spmd_gid_err(sim.T_sp, blocks, want[name])
-                                  / want[name].abs().max().item())
-        if S == 1:  # last: it changes the one-shard operators
-            floor = spmd_energy_floor(sim, T0, x, T)
-        del sim, T0, T, x, fields
-        torch.cuda.empty_cache()
+                # the same step again: the same bits, or the comparison
+                # below would read one draw of the rounding
+                T_re, x_re = sim.step(*sim.initial_state())
+                same = all(torch.equal(a, b) for a, b in zip(T_re, T)) and \
+                    all(torch.equal(a.vel, b.vel) for a, b in zip(x_re, x))
+                check(same, "terraneo_spmd: the one-shard step's rerun "
+                      "differs")
+                del T_re, x_re
+                # last: it changes the one-shard operators
+                floor = spmd_energy_floor(sim, T0, x, T)
+            del sim, T0, T, x, fields
+            torch.cuda.empty_cache()
     del want
     rel = [abs(a - b) / abs(b) for a, b in zip(
         out[SPMD_SHARDS]["observables"], out[1]["observables"])]
@@ -3813,11 +3939,15 @@ def run_spmd(device, card: str, p1_ref: dict, stokes_ref: dict,
 # ---------------------------------------------------------------------------
 
 
-def bf16_kernel_check(storage, level: int, device, seed: int) -> dict:
-    """B2-bf16 and B3-bf16 against their plain versions at one level (pitch
-    129), Laplace and mass: each element within one bf16 ulp of the f32
-    result of the same bf16 values (bf16_ulp_excess <= 1, B1's rule), and
-    of the plain bf16 version; 0 outside the tet and on padding lanes."""
+def bf16_kernel_check(storage, level: int, device, seed: int,
+                      timed: bool = False) -> dict:
+    """B2-bf16 and B3-bf16 (3D, pitch 129; or their 2D forms on 2D
+    storage) against their plain versions at one level, Laplace and mass:
+    each element within one bf16 ulp of the f32 result of the same bf16
+    values (bf16_ulp_excess <= 1, B1's rule), and of the plain bf16
+    version; 0 outside the simplex and on padding lanes. ``timed``: B2's
+    and B3's ms at this level beside their bounds (the f32 rows' bytes
+    with the block's bytes halved), Laplace."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
@@ -3826,6 +3956,7 @@ def bf16_kernel_check(storage, level: int, device, seed: int) -> dict:
 
     sp = P1Space(storage, level, device=device, dtype=torch.bfloat16,
                  pitch=PITCH)
+    dim, pitch = sp.dim, sp.pitch
     gen = torch.Generator(device=device).manual_seed(seed)
     outside = ~sp.vertex_mask_t.bool()
     out = {"level": level, "block": list(sp.block_shape)}
@@ -3835,10 +3966,10 @@ def bf16_kernel_check(storage, level: int, device, seed: int) -> dict:
         A, E, elm = op.stencil, op.stencil_face, op.elmats
         x = (torch.randn(sp.block_shape, generator=gen, device=device)
              * sp.vertex_mask_t).to(torch.bfloat16)
-        y = b2.p1_const_apply(x, A, E, level, 3, PITCH)
-        exact = b2.p1_const_apply_torch(x.float(), A.float(), level, 3, PITCH,
-                                        E=E.float())
-        plain = b2.p1_const_apply_torch(x, A, level, 3, PITCH, E=E)
+        y = b2.p1_const_apply(x, A, E, level, dim, pitch)
+        exact = b2.p1_const_apply_torch(x.float(), A.float(), level, dim,
+                                        pitch, E=E.float())
+        plain = b2.p1_const_apply_torch(x, A, level, dim, pitch, E=E)
         scale = exact.abs().max().item()
         ex = bf16_ulp_excess(y, exact, scale)
         ex_plain = bf16_ulp_excess(y, plain, scale)
@@ -3848,12 +3979,41 @@ def bf16_kernel_check(storage, level: int, device, seed: int) -> dict:
               f"B2-bf16 {name} level {level}: nonzero outside the tet")
         out[f"b2_bf16_{name}_ulp_excess"] = ex
         out[f"b2_bf16_{name}_max_abs_err"] = max_abs_diff(y, plain)
+        if timed and name == "laplace":
+            out["b2_bf16_ms"] = median_ms(
+                lambda: b2.p1_const_apply(x, A, E, level, dim, pitch), 10,
+                batch=10)
+            out["b2_bf16_plain_ms"] = median_ms(
+                lambda: b2.p1_const_apply_torch(x, A, level, dim, pitch, E=E),
+                3, warmup=1)
+            out["b2_bf16_bound"] = bound(*b2_work(sp, x, A, E))
+            d = b3.p1_diagonal_local(elm, level, dim, pitch)
+            out["b3_bf16_ms"] = median_ms(
+                lambda: b3.p1_diagonal_local(elm, level, dim, pitch), 10,
+                batch=10)
+            out["b3_bf16_plain_ms"] = median_ms(
+                lambda: b3.p1_diagonal_local_torch(elm, level, dim, pitch), 3,
+                warmup=1)
+            out["b3_bf16_bound"] = bound(*b3_work(sp, elm, d))
+            if dim == 2:  # the grouped conv2d of the f32 row, in bf16
+                from hyteg_tpu_torch.indexing import micro
+
+                C = sp.C_loc
+                xv = x.view(1, C, sp.N, sp.N)
+                kern = conv2d_stencil(A.float().sum(-1),
+                                      micro.stencil_directions(2)).to(
+                    torch.bfloat16)
+                out["b2_bf16_library_ms"] = median_ms(
+                    lambda: F.conv2d(xv, kern, padding=1, groups=C), 10,
+                    batch=10)
+                del xv, kern
+            del d
         del x, y, exact, plain
         for lumped in ((False, True) if name == "mass" else (False,)):
-            d = b3.p1_diagonal_local(elm, level, 3, PITCH, lumped)
-            exact = b3.p1_diagonal_local_torch(elm.float(), level, 3, PITCH,
+            d = b3.p1_diagonal_local(elm, level, dim, pitch, lumped)
+            exact = b3.p1_diagonal_local_torch(elm.float(), level, dim, pitch,
                                                lumped)
-            plain = b3.p1_diagonal_local_torch(elm, level, 3, PITCH, lumped)
+            plain = b3.p1_diagonal_local_torch(elm, level, dim, pitch, lumped)
             scale = exact.abs().max().item()
             ex = bf16_ulp_excess(d, exact, scale)
             ex_plain = bf16_ulp_excess(d, plain, scale)
@@ -3867,33 +4027,100 @@ def bf16_kernel_check(storage, level: int, device, seed: int) -> dict:
     return out
 
 
+def bf16_p2_kernel_check(storage, level: int, device, seed: int,
+                         timed: bool = False) -> dict:
+    """B5-bf16 (3D, pitch 129; or B5-2D-bf16 on 2D storage) against its
+    plain version at one P2 level on a bf16 operator's W, Laplace and mass:
+    each element within one bf16 ulp of the f32 result of the same bf16
+    values and of the plain bf16 version (bf16_ulp_excess <= 1); 0 outside
+    the simplex and on padding lanes. ``timed``: its ms beside its bound
+    (the f32 row's bytes with the block's bytes halved), Laplace."""
+    from hyteg_tpu_torch.functions.p2 import P2Space
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
+
+    sp = P2Space(storage, level, device=device, dtype=torch.bfloat16,
+                 pitch=PITCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    outside = ~sp.vertex_mask_t.bool()
+    out = {"level": level, "block": list(sp.block_shape)}
+    for kind in ("laplace", "mass"):
+        W = P2ElementwiseOperator(sp, kind).stencil_folded
+        x = (torch.randn(sp.block_shape, generator=gen, device=device)
+             * sp.vertex_mask_t).to(torch.bfloat16)
+        args = (W, level, sp.pitch, sp.dim)
+        y = b5.p2_const_apply(x, *args)
+        exact = b5.p2_const_apply_torch(x.float(), W.float(), level, sp.pitch,
+                                        sp.dim)
+        plain = b5.p2_const_apply_torch(x, *args)
+        scale = exact.abs().max().item()
+        ex = bf16_ulp_excess(y, exact, scale)
+        ex_plain = bf16_ulp_excess(y, plain, scale)
+        tag = f"B5{'-2D' if sp.dim == 2 else ''}-bf16 {kind} level {level}"
+        check(y.dtype == torch.bfloat16 and ex <= 1.0 and ex_plain <= 1.0,
+              f"{tag}: {ex} / {ex_plain} ulp excess")
+        check(not y[:, outside].any().item(),
+              f"{tag}: nonzero outside the simplex / padding")
+        out[f"b5_bf16_{kind}_ulp_excess"] = ex
+        out[f"b5_bf16_{kind}_max_abs_err"] = max_abs_diff(y, plain)
+        if timed and kind == "laplace":
+            out["b5_bf16_ms"] = median_ms(lambda: b5.p2_const_apply(x, *args),
+                                          10, batch=10)
+            out["b5_bf16_plain_ms"] = median_ms(
+                lambda: b5.p2_const_apply_torch(x, *args), 3, warmup=1)
+            out["b5_bf16_bound"] = bound(*b5_work(sp, x, W, level))
+        del W, x, y, exact, plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def bf16_refusals(storage, device) -> dict:
     """The wrappers raise on what no kernel takes, and never cast the
-    source: B3 in bf16 with a coefficient, B4 in bf16. B2 with a bf16
-    source rounds f32 weights to bf16 as the Pallas kernel does (and as
-    the plain version does on the CPU): the same result as bf16 weights."""
+    source: B3 and B3-2D in bf16 with a coefficient, B4 and B4-2D in bf16.
+    B2, B2-2D, B5 and B5-2D with a bf16 source round f32 weights to bf16
+    as the Pallas kernels do (and as the plain versions do on the CPU):
+    the same result as bf16 weights."""
     from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.functions.p2 import P2Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_rectangle
     from hyteg_tpu_torch.operators import forms
     from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+    from hyteg_tpu_torch.operators.p2_elementwise import P2ElementwiseOperator
+    from hyteg_tpu_torch.primitives.storage import CellStorage
 
-    sp = P1Space(storage, 3, device=device, dtype=torch.bfloat16, pitch=9)
-    op = P1ElementwiseOperator(sp, forms.laplace_form)
+    bf16 = torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(330)
-    x = torch.randn(sp.block_shape, generator=gen, device=device).to(
-        torch.bfloat16)
-    out = {"b2_bf16_f32_weights_rounded": torch.equal(
-        b2.p1_const_apply(x, op.stencil.float(), op.stencil_face.float(),
-                          3, 3, 9),
-        b2.p1_const_apply(x, op.stencil, op.stencil_face, 3, 3, 9))}
-    check(out["b2_bf16_f32_weights_rounded"],
-          "B2-bf16 with f32 weights differs from bf16 weights")
-    calls = {
-        "b3_bf16_with_coefficient": lambda: b3.p1_diagonal_local(
-            op.elmats, 3, 3, 9, False, x),
-        "b4_bf16": lambda: b3.p1_apply_local(x, op.elmats, 3, 3, 9),
-    }
+    out, calls = {}, {}
+    for dim, st in ((3, storage), (2, CellStorage(mesh_rectangle(**RECT_2D)))):
+        tag = "" if dim == 3 else "_2d"
+        sp = P1Space(st, 3, device=device, dtype=bf16, pitch=9)
+        op = P1ElementwiseOperator(sp, forms.laplace_form)
+        x = torch.randn(sp.block_shape, generator=gen, device=device).to(bf16)
+        out[f"b2{tag}_bf16_f32_weights_rounded"] = torch.equal(
+            b2.p1_const_apply(x, op.stencil.float(), op.stencil_face.float(),
+                              3, dim, sp.pitch),
+            b2.p1_const_apply(x, op.stencil, op.stencil_face, 3, dim,
+                              sp.pitch))
+        sp2 = P2Space(st, 2, device=device, dtype=bf16, pitch=9)
+        W = P2ElementwiseOperator(sp2, "laplace").stencil_folded
+        x2 = torch.randn(sp2.block_shape, generator=gen, device=device).to(bf16)
+        out[f"b5{tag}_bf16_f32_weights_rounded"] = torch.equal(
+            b5.p2_const_apply(x2, W.float(), 2, sp2.pitch, dim),
+            b5.p2_const_apply(x2, W, 2, sp2.pitch, dim))
+        for k in (f"b2{tag}", f"b5{tag}"):
+            check(out[f"{k}_bf16_f32_weights_rounded"],
+                  f"{k}-bf16 with f32 weights differs from bf16 weights")
+        calls.update({
+            f"b3{tag}_bf16_with_coefficient": lambda op=op, x=x, sp=sp,
+            dim=dim: b3.p1_diagonal_local(op.elmats, 3, dim, sp.pitch, False,
+                                          x),
+            f"b4{tag}_bf16": lambda op=op, x=x, sp=sp, dim=dim:
+            b3.p1_apply_local(x, op.elmats, 3, dim, sp.pitch),
+            f"b5{tag}_bf16_with_f64_weights": lambda W=W, x2=x2, sp2=sp2,
+            dim=dim: b5.p2_const_apply(x2, W.double(), 2, sp2.pitch, dim)})
     for name, call in calls.items():
         try:
             call()
@@ -3904,19 +4131,95 @@ def bf16_refusals(storage, device) -> dict:
     return out
 
 
+def refine_around_bf16(s32, s16, x0, b, f32_residuals: list, kernels: dict,
+                       per_cycle: dict, f32_cycle_ms: float | None = None,
+                       gated: bool = True) -> dict:
+    """The run and gates of a mixed-precision phase: an f32 outer
+    iterative_refinement (the f32 stack's residual, its operator's f32
+    apply) around one bf16 V(3,3) cycle of ``s16`` per step, MP_OUTER
+    steps from x0; the same number of bf16-only outer steps; timings and
+    one profiled bf16 cycle. Gates: the bf16 stack's blocks and inverse
+    diagonals are bf16; the refined residual within MP_PLATEAU_FACTOR of
+    the f32 stack's own plateau (the mean of its phase's last three
+    residuals, ``f32_residuals``, read in this run) and below MP_BF16_RATIO
+    x the bf16-only one. ``kernels``: profile group -> kernel name
+    fragments; ``per_cycle``: name -> (wrapper, count attribute) of the
+    bf16 launches counted over one cycle; ``f32_cycle_ms``: the f32 cycle's
+    time from its own phase (None: timed here). ``gated`` False (the 2D
+    paths at full width, where the scheme does not converge: MP_GATE_2D):
+    the residual histories are reported, and only the bf16 types and one
+    finite bf16 cycle are gated."""
+    from hyteg_tpu_torch.core.types import FLAG_INNER
+    from hyteg_tpu_torch.solvers.refinement import iterative_refinement
+
+    bf16 = torch.bfloat16
+    top = max(s32.spaces)
+    sp, sd, sp16 = s32.space(), s32.sd(), s16.space()
+    check(sp16.dtype == bf16 and all(
+        d.dtype == bf16 for d in s16.inv_diags.values()),
+        "the bf16 stack is not bf16")
+    op = s32.operators[top]
+    apply_hi = lambda v: op.apply_inner(v, sd, FLAG_INNER)
+    inner = lambda r: s16.gmg.cycle(sp16.zeros(), r)
+    r0 = s32.residual_norm(x0, b).item()
+    plateau = sum(f32_residuals[-3:]) / 3  # the flat end of the f32 solve
+    x, rel = x0, []
+    for _ in range(MP_OUTER):
+        x = iterative_refinement(apply_hi, inner, b, x, 1)
+        rel.append(s32.residual_norm(x, b).item() / r0)
+    b16, x16, rel16 = b.to(bf16), x0.to(bf16), []
+    for _ in range(MP_OUTER):
+        x16 = x16 + inner(s16.residual(x16, b16))
+        check(x16.dtype == bf16, "the bf16-only iterate left bf16")
+        rel16.append(s32.residual_norm(x16.float(), b).item() / r0)
+    del x16
+    if gated:
+        check(all(math.isfinite(r) for r in rel + rel16),
+              "mixed precision: non-finite residuals")
+        check(rel[-1] * r0 <= MP_PLATEAU_FACTOR * plateau,
+              f"refined residual {rel[-1] * r0} > {MP_PLATEAU_FACTOR} x the "
+              f"f32 plateau {plateau}")
+        check(rel[-1] < MP_BF16_RATIO * rel16[-1],
+              f"refined rel {rel[-1]} >= {MP_BF16_RATIO} x bf16-only "
+              f"{rel16[-1]}")
+    x1 = s16.residual(sp16.zeros(), b16)
+    y1 = s16.gmg.cycle(sp16.zeros(), x1)
+    check(y1.dtype == bf16 and bool(torch.isfinite(y1).all()),
+          "the bf16 V-cycle is not bf16 and finite")
+    del y1
+    cyc16 = lambda: s16.gmg.cycle(sp16.zeros(), x1)
+    ms16 = median_ms(cyc16, 5, warmup=2)
+    ms32 = (median_ms(lambda: s32.gmg.cycle(x0, b), 5, warmup=2)
+            if f32_cycle_ms is None else f32_cycle_ms)
+    ms_step = median_ms(lambda: iterative_refinement(apply_hi, inner, b, x0, 1),
+                        5, warmup=1)
+    n0 = {k: getattr(w, a) for k, (w, a) in per_cycle.items()}
+    cyc16()
+    launches = {k: getattr(w, a) - n0[k] for k, (w, a) in per_cycle.items()}
+    prof = cycle_profile(cyc16, ms16, kernels)
+    return {"level": top, "global_dofs": sp.num_global_dofs(),
+            "block": list(sp.block_shape), "outer_steps": MP_OUTER,
+            "gated": gated,
+            "refined_rel_residuals": rel, "bf16_only_rel_residuals": rel16,
+            "f32_plateau_abs": plateau, "r0": r0,
+            "refined_over_plateau": rel[-1] * r0 / plateau,
+            "refined_over_bf16_only": rel[-1] / rel16[-1],
+            "bf16_vcycle_ms": ms16, "f32_vcycle_ms": ms32,
+            "refinement_step_ms": ms_step, "bf16_over_f32_cycle": ms16 / ms32,
+            "bf16_launches_per_vcycle": launches,
+            "bf16_profile": {k: prof[k] for k in (
+                "device_ms", "idle_share", "kernels", "device_kernels")}}
+
+
 def mixed_precision(storage, device, card: str, f32_residuals: list) -> dict:
     """An f32 outer iterative_refinement (B2 f32 residual) around one bf16
     V(3,3) cycle of make_p1_gmg(dtype=bf16) per step (B2-bf16, B3-bf16 at
     set-up, bf16 transfers and Chebyshev) at P1 level 7 on the 48-cell
-    cube; the same number of bf16-only outer steps; timings. Gates: the
-    refined residual within MP_PLATEAU_FACTOR of the f32 GMG's own plateau
-    (read in this run) and below MP_BF16_RATIO x the bf16-only residual.
-    The plateau: the mean of the
-    main path's last three level-7 residuals, where they are flat."""
-    from hyteg_tpu_torch.core.types import FLAG_INNER
+    cube; the same number of bf16-only outer steps; timings
+    (refine_around_bf16's gates). The plateau: the mean of the main path's
+    last three level-7 residuals, where they are flat."""
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
-    from hyteg_tpu_torch.solvers.refinement import iterative_refinement
     from hyteg_tpu_torch.solvers.templates import make_p1_gmg
 
     kw = dict(min_level=MIN_LEVEL, max_level=MP_LEVEL, smoother="chebyshev",
@@ -3926,65 +4229,121 @@ def mixed_precision(storage, device, card: str, f32_residuals: list) -> dict:
     s16 = make_p1_gmg(storage, dtype=torch.bfloat16, **kw)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    check(s16.space().dtype == torch.bfloat16
-          and s16.inv_diags[MP_LEVEL].dtype == torch.bfloat16,
-          "the bf16 stack is not bf16")
     x0, b, _ = manufactured(s32)
-    sp, sd = s32.space(), s32.sd()
-    op = s32.operators[MP_LEVEL]
-    apply_hi = lambda v: op.apply_inner(v, sd, FLAG_INNER)
-    sp16 = s16.space()
-    inner = lambda r: s16.gmg.cycle(sp16.zeros(), r)
-    r0 = s32.residual_norm(x0, b).item()
-    plateau = sum(f32_residuals[-3:]) / 3  # the flat end of the f32 solve
-    x, rel = x0, []
-    for _ in range(MP_OUTER):
-        x = iterative_refinement(apply_hi, inner, b, x, 1)
-        rel.append(s32.residual_norm(x, b).item() / r0)
-    b16, x16, rel16 = b.to(torch.bfloat16), x0.to(torch.bfloat16), []
-    for _ in range(MP_OUTER):
-        x16 = x16 + inner(s16.residual(x16, b16))
-        rel16.append(s32.residual_norm(x16.float(), b).item() / r0)
+    out = refine_around_bf16(
+        s32, s16, x0, b, f32_residuals,
+        {"b2_bf16": ("p1_const_apply_kernel",), "b3": ("p1_diag",)},
+        {"b2_bf16": (b2.p1_const_apply, "launches_bf16")})
     launches = {"p1_const_apply_bf16": b2.p1_const_apply.launches_bf16,
                 "p1_diagonal_local_bf16": b3.p1_diagonal_local.launches_bf16,
                 "p1_const_apply": b2.p1_const_apply.launches
                 - b2.p1_const_apply.launches_bf16,
                 "p1_diagonal_local": b3.p1_diagonal_local.launches
                 - b3.p1_diagonal_local.launches_bf16}
-    check(all(math.isfinite(r) for r in rel + rel16),
-          "mixed precision: non-finite residuals")
-    check(rel[-1] * r0 <= MP_PLATEAU_FACTOR * plateau,
-          f"refined residual {rel[-1] * r0} > {MP_PLATEAU_FACTOR} x the f32 "
-          f"plateau {plateau}")
-    check(rel[-1] < MP_BF16_RATIO * rel16[-1],
-          f"refined rel {rel[-1]} >= {MP_BF16_RATIO} x bf16-only {rel16[-1]}")
-    x1 = s16.residual(sp16.zeros(), b16)
-    cyc16 = lambda: s16.gmg.cycle(sp16.zeros(), x1)
-    ms16 = median_ms(cyc16, 5, warmup=2)
-    ms32 = median_ms(lambda: s32.gmg.cycle(x0, b), 5, warmup=2)
-    ms_step = median_ms(lambda: iterative_refinement(apply_hi, inner, b, x0, 1),
-                        5, warmup=1)
-    n0 = b2.p1_const_apply.launches_bf16
-    cyc16()
-    per_cycle = b2.p1_const_apply.launches_bf16 - n0
-    prof = cycle_profile(cyc16, ms16, {"b2_bf16": ("p1_const_apply_kernel",),
-                                       "b3": ("p1_diag",)})
-    prof32 = cycle_profile(lambda: s32.gmg.cycle(x0, b), ms32,
+    prof32 = cycle_profile(lambda: s32.gmg.cycle(x0, b), out["f32_vcycle_ms"],
                            {"b2": ("p1_const_apply_kernel",)})
-    return {"level": MP_LEVEL, "global_dofs": sp.num_global_dofs(),
-            "block": list(sp.block_shape), "outer_steps": MP_OUTER,
-            "refined_rel_residuals": rel, "bf16_only_rel_residuals": rel16,
-            "f32_plateau_abs": plateau, "r0": r0,
-            "refined_over_plateau": rel[-1] * r0 / plateau,
-            "refined_over_bf16_only": rel[-1] / rel16[-1],
-            "setup_s_both_stacks": setup_s, "bf16_vcycle_ms": ms16,
-            "f32_vcycle_ms": ms32, "refinement_step_ms": ms_step,
-            "bf16_over_f32_cycle": ms16 / ms32, "launches": launches,
-            "b2_bf16_launches_per_vcycle": per_cycle,
-            "bf16_profile": {k: prof[k] for k in (
-                "device_ms", "idle_share", "kernels", "device_kernels")},
+    return {**out, "setup_s_both_stacks": setup_s, "launches": launches,
+            "b2_bf16_launches_per_vcycle":
+            out["bf16_launches_per_vcycle"]["b2_bf16"],
             "f32_profile": {k: prof32[k] for k in (
                 "device_ms", "idle_share", "kernels")}}, (s32, x0, b)
+
+
+def mixed_precision_on(s32, x0, b, f32_residuals: list, f32_cycle_ms,
+                       device, kind: str, gated: bool = True) -> dict:
+    """A mixed-precision phase on an f32 stack an earlier phase built and
+    solved (reused, not built again): the bf16 stack of the same kind
+    (``kind`` "p2": make_p2_gmg(dtype=bf16), its eigenvalue bounds by its
+    own bf16 power iteration; "p1": make_p1_gmg(dtype=bf16), on the f32
+    stack's storage, 3D or 2D) and levels, then refine_around_bf16 from x0
+    on b. Counts the bf16 launches of B5 / B5-2D or B2-2D and B3-2D over
+    the phase (the caller sets them to 0 first); the f32 launches of the
+    refinement's residual too. Reports set-up s and peak GB."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+    from hyteg_tpu_torch.solvers.templates import make_p1_gmg, make_p2_gmg
+
+    lo, hi = min(s32.spaces), max(s32.spaces)
+    dim = s32.space().dim
+    sfx = "" if dim == 3 else "_2d"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if kind == "p2":
+        s16 = make_p2_gmg(s32.storage, min_level=lo, max_level=hi,
+                          coarse_iters=P2_COARSE_ITERS, device=device,
+                          dtype=torch.bfloat16)
+        per_cycle = {"p2_const_apply" + sfx + "_bf16": (
+            b5.p2_const_apply, "launches" + sfx + "_bf16")}
+        kernels = {"b5_bf16": ("p2_const_apply_bf16_kernel",
+                               "p2_const_apply_2d_bf16_kernel")}
+    else:
+        s16 = make_p1_gmg(s32.storage, min_level=lo, max_level=hi,
+                          smoother="chebyshev", coarse_iters=COARSE_ITERS,
+                          device=device, dtype=torch.bfloat16)
+        per_cycle = {"p1_const_apply" + sfx + "_bf16": (
+            b2.p1_const_apply, "launches" + sfx + "_bf16")}
+        kernels = {"b2_bf16": ("p1_const_apply_kernel",
+                               "p1_const_apply_2d_bf16_kernel"),
+                   "b3_bf16": ("p1_diag",)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out = refine_around_bf16(s32, s16, x0, b, f32_residuals, kernels,
+                             per_cycle, f32_cycle_ms, gated)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["setup_s_bf16_stack"] = setup_s
+    out["eigs_bf16"] = s16.eigs
+    counts = {"p2_const_apply" + sfx + "_bf16":
+              getattr(b5.p2_const_apply, "launches" + sfx + "_bf16"),
+              "p1_const_apply" + sfx + "_bf16":
+              getattr(b2.p1_const_apply, "launches" + sfx + "_bf16"),
+              "p1_diagonal_local" + sfx + "_bf16":
+              getattr(b3.p1_diagonal_local, "launches" + sfx + "_bf16")}
+    f32 = {"p2_const_apply" + sfx: getattr(b5.p2_const_apply, "launches" + sfx)
+           - counts["p2_const_apply" + sfx + "_bf16"],
+           "p1_const_apply" + sfx: getattr(b2.p1_const_apply, "launches" + sfx)
+           - counts["p1_const_apply" + sfx + "_bf16"],
+           "p1_diagonal_local" + sfx:
+           getattr(b3.p1_diagonal_local, "launches" + sfx)
+           - counts["p1_diagonal_local" + sfx + "_bf16"]}
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    out["f32_launches"] = {k: v for k, v in f32.items() if v}
+    del s16
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixed_precision_2d_gate(rect, device, kind: str) -> dict:
+    """The gated 2D mixed-precision run at MP_GATE_2D[kind], the largest
+    level of the rect stack where the scheme reaches the f32 plateau in
+    MP_OUTER steps: the f32 stack (2D P1: the manufactured problem from
+    its Dirichlet start; 2D P2: a seeded consistent rhs from 0) solved by
+    P2_CYCLES_2D V-cycles to its plateau, then mixed_precision_on."""
+    level = MP_GATE_2D[kind]
+    if kind == "p1":
+        res, s32, (_, b) = solve(rect, level, device, gate_rate=False)
+        x0 = manufactured(s32)[0]
+    else:
+        res, s32, (_, b) = p2_gmg(rect, device, level=level,
+                                  cycles=P2_CYCLES_2D, floor_rel=1.0)
+        x0 = torch.zeros_like(b)
+    out = mixed_precision_on(s32, x0, b, res["residuals"], None, device, kind)
+    del s32, x0, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_counts() -> None:
+    """Every launch count of the kernels with a bf16 form to 0 (B2, B3,
+    B5; f32 and bf16, 3D and 2D), before a mixed-precision path."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.kernels import p2_const_stencil as b5
+
+    for w in (b2.p1_const_apply, b3.p1_diagonal_local, b5.p2_const_apply):
+        for a in ("launches", "launches_bf16", "launches_2d",
+                  "launches_2d_bf16"):
+            setattr(w, a, 0)
 
 
 def colored_gs_smoother(stack, level: int, sweeps: int = 1):
@@ -4390,6 +4749,56 @@ def dg_eg_phase(device, card: str) -> dict:
     return out
 
 
+def run_bf16_gmg_kernels(storage, device, card: str) -> dict:
+    """bf16_p2_kernels_vs_plain: B5-bf16 at every P2 level of the 3D P2
+    stack (1-6, pitch 129) and B5-2D-bf16 at every P2 level 1-10 of the
+    rect; bf16_2d_kernels_vs_plain: B2-2D-bf16 and B3-2D-bf16 (plain and,
+    on the mass, lumped) at every P1 level 2-11 of the rect; Laplace and
+    mass, each element within one bf16 ulp, each kernel timed at its
+    path's level. Returns the kernels line's rows: ms, plain ms, bounds,
+    library ms, errors, ulp excess."""
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_rectangle
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    t0 = time.perf_counter()
+    rect = CellStorage(mesh_rectangle(**RECT_2D))
+    p2 = {3: [], 2: []}
+    for dim, st, top in ((3, storage, P2_LEVEL), (2, rect, P2_LEVEL_2D)):
+        for lv in range(1, top + 1):
+            p2[dim].append(bf16_p2_kernel_check(st, lv, device, 600 + lv,
+                                                timed=lv == top))
+            emit("bf16_p2_kernels_vs_plain", card=card, dim=dim, **p2[dim][-1])
+    p1 = []
+    for lv in range(MIN_LEVEL, LEVEL_2D + 1):
+        p1.append(bf16_kernel_check(rect, lv, device, 640 + lv,
+                                    timed=lv == LEVEL_2D))
+        emit("bf16_2d_kernels_vs_plain", card=card, **p1[-1])
+    rows = {}
+    for name, checks, tag in (("p2_const_apply_bf16", p2[3], "b5"),
+                              ("p2_const_apply_2d_bf16", p2[2], "b5"),
+                              ("p1_const_apply_2d_bf16", p1, "b2"),
+                              ("p1_diagonal_local_2d_bf16", p1, "b3")):
+        top = checks[-1]
+        rows[name] = {
+            "ms": top[f"{tag}_bf16_ms"], "plain_ms": top[f"{tag}_bf16_plain_ms"],
+            "bound": top[f"{tag}_bf16_bound"],
+            "library_ms": top.get(f"{tag}_bf16_library_ms"),
+            "level": top["level"],
+            "max_abs_err": max(v for c in checks for k, v in c.items()
+                               if k.startswith(f"{tag}_bf16_")
+                               and k.endswith("_max_abs_err")),
+            "ulp_excess": max(v for c in checks for k, v in c.items()
+                              if k.startswith(f"{tag}_bf16_")
+                              and k.endswith("_ulp_excess"))}
+    emit("bf16_gmg_kernel_timings", card=card, phase_s=time.perf_counter() - t0,
+         **{k: {kk: v[kk] for kk in ("level", "ms", "plain_ms", "library_ms",
+                                      "ulp_excess")}
+            | {"bound_ms": v["bound"][0],
+               "share_of_bound": v["bound"][0] / v["ms"]}
+            for k, v in rows.items()})
+    return rows
+
+
 def run_a10(storage, device, card: str, f32_residuals: list) -> dict:
     """The A10 phases: bf16_kernels (B2-bf16, B3-bf16 vs plain at P1
     levels 2-7, the refusals), mixed_precision, solvers_extra, n1e1,
@@ -4730,7 +5139,21 @@ def main() -> int:
                                         warmup=1)
     emit("p2_coeff", card=card, level=P2_LEVEL, unit_coeff_vs_b5_rel=rel1,
          **sym, apply_raw_coeff_ms=t["p2_apply_raw_coeff"])
-    del stack, sp, op, W, x, b, ones, k
+    del op, W, ones, k
+    torch.cuda.empty_cache()
+    # -- mixed_precision_p2: the bf16 P2 stack (B5-bf16) under an f32
+    # refinement, on this path's f32 stack and rhs ---------------------------
+    zero_counts()
+    t1 = time.perf_counter()
+    mixed = {"mixed_precision_p2": mixed_precision_on(
+        stack, torch.zeros_like(b), b, p2res["residuals"],
+        p2res["ms_per_vcycle"], device, "p2")}
+    emit("mixed_precision_p2", card=card, phase_s=time.perf_counter() - t1,
+         mesh=f"mesh_unit_cube({MESH_N})", **mixed["mixed_precision_p2"])
+    check(mixed["mixed_precision_p2"]["launches"].get(
+        "p2_const_apply_bf16", 0) > 0,
+          "p2_const_apply_bf16 was not launched on the P2 mixed-precision path")
+    del stack, sp, x, b
     torch.cuda.empty_cache()
     man = {}
     for lv in P2_MANUFACTURED:
@@ -4746,6 +5169,7 @@ def main() -> int:
 
     # -- the 2D arm (B2-2D, B3-2D, B4-2D, B5-2D) -----------------------------
     arm2d = run_2d(device, card)
+    mixed.update(arm2d["mixed"])
     b4_coeff["2d"] = arm2d["b4_coeff"]
     emit("b4_coeff", card=card, **b4_coeff)
 
@@ -5019,6 +5443,12 @@ def main() -> int:
     emit("a10_checks", phase_s=a10["phase_s"], launches=a10["launches"],
          f32_launches=a10["f32_launches"])
 
+    # -- the bf16 P2 and 2D GMGs' kernels (B5, B5-2D, B2-2D, B3-2D in bf16)
+    # against their plain versions at every level of their stacks; their
+    # paths ran above (mixed_precision_p2, _2d, _p2_2d) --------------------
+    bf16_rows = run_bf16_gmg_kernels(storage, device, card)
+    torch.cuda.empty_cache()
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -5151,6 +5581,28 @@ def main() -> int:
         timed[name] = name
         extra[name] = {"storage": "bf16", "level": MP_LEVEL,
                        "ulp_excess": a10["ulp_excess"][name]}
+    # and the bf16 GMGs' paths: the bf16 kernels' own rows (launched on the
+    # three mixed-precision paths), the f32 residual's launches by path
+    for path, mp in mixed.items():
+        for name, n in mp["f32_launches"].items():
+            by_path = extra.setdefault(name, {}).setdefault(
+                "launches_by_path", {"earlier_paths": launches[name]})
+            by_path[path] = n
+            launches[name] += n
+    for name, row in bf16_rows.items():
+        t[name], t[name + "_plain"] = row["ms"], row["plain_ms"]
+        bounds[name], lib_ms[name] = row["bound"], row["library_ms"]
+        errs[name], timed[name] = row["max_abs_err"], name
+        launches[name] = sum(mp["launches"].get(name, 0)
+                             for mp in mixed.values())
+        if "_2d" in name:
+            p1_size[name] = "face_level11_block"
+        extra[name] = {"label": BF16_LABELS[name], "storage": "bf16",
+                       "level": row["level"], "ulp_excess": row["ulp_excess"],
+                       "launches_by_path": {
+                           path: mp["launches"][name]
+                           for path, mp in mixed.items()
+                           if name in mp["launches"]}}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

@@ -1,7 +1,7 @@
-// bf16 storage for the kernels that take it (B2 and B3 in 3D): a source
-// that widens each load to f32 and a store that rounds each f32 result to
-// bf16 (round to nearest even) once. Device-only: host tests of the walks
-// pass their own source and store of the same shape.
+// bf16 storage for the kernels that take it (B2, B3 and B5, each in 3D
+// and 2D): a source that widens each load to f32 and a store that rounds
+// each f32 result to bf16 (round to nearest even) once. Device-only: host
+// tests of the walks pass their own source and store of the same shape.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +20,14 @@ struct BF16Src {
   __device__ __forceinline__ BF16Src operator+(long long k) const {
     return {p + k};
   }
+  // p[0], p[1] widened, as one 4-byte load: p at a 4-byte boundary
+  __device__ __forceinline__ float2 load2() const {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  // 0 where p is at a 4-byte boundary (a pair load may start), else 1
+  __device__ __forceinline__ int pair_parity() const {
+    return (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 1);
+  }
 };
 
 // The store of plane.cuh's walks (CellStore's interface) on a bf16 block:
@@ -34,6 +42,11 @@ struct BF16CellStore {
   __device__ __forceinline__ int to_aligned(int i) const {
     const unsigned half = (unsigned)(reinterpret_cast<uintptr_t>(dst + i) >> 1);
     return (int)((0u - half) & 3u);
+  }
+  // a and b into slots i and i + 1 as one 4-byte store, i at a 4-byte
+  // boundary (to_aligned(i) even)
+  __device__ __forceinline__ void pair(int i, float a, float b) const {
+    *reinterpret_cast<__nv_bfloat162*>(dst + i) = __floats2bfloat162_rn(a, b);
   }
   __device__ __forceinline__ void quad(int i, float a, float b, float c,
                                        float d) const {

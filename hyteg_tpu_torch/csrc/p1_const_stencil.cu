@@ -54,12 +54,19 @@
 // It takes 0.4016-0.4068 ms at level 11 on the same card (59-60% of the
 // bound).
 //
-// bf16 (3D): the same kernel on bf16 storage (BF16Src, BF16CellStore in
-// bf16.cuh) and bf16 weights A, E; every load widens to f32, the weight
-// fold and the 15-tap sums stay f32, and each result is rounded to bf16
-// once on its store (B1's bf16 rule). It replaces the Pallas kernel run on
-// a bf16 source, which rounds the weights to the source's type
-// (hyteg_tpu/kernels/p1_const_stencil.py:721-722).
+// bf16 (3D and 2D): the same walks on bf16 storage (BF16Src,
+// BF16CellStore in bf16.cuh) and bf16 weights A, E (3D: the template
+// instance of the kernel; 2D: a kernel of its own); every load widens to
+// f32, the weight fold and the 15-tap (7-tap) sums stay f32, and each
+// result is rounded to bf16 once on its store (B1's bf16 rule). It
+// replaces the Pallas kernel run on a bf16 source, which rounds the
+// weights to the source's type (hyteg_tpu/kernels/p1_const_stencil.py:
+// 721-722). The 2D band walk reads single elements at element offsets
+// (no wide load assumes 4-byte slots), and its zero runs past the
+// triangle become 8-byte quads of four bf16 slots from the first 8-byte
+// boundary of the row (BF16CellStore::to_aligned), single stores before
+// it and after the last whole quad. Bound: bytes, the f32 kernel's count
+// with the block's bytes halved.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -142,6 +149,56 @@ p1_const_apply_2d_kernel(const float* __restrict__ src,
                       threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
 }
 
+// The 2D bf16 form: the weights widened into the fold, the band walk on
+// bf16 storage. A kernel of its own, not a template of the f32 one: the
+// f32 kernel instantiated from a template on the storage type ran 3-5%
+// slower (0.416-0.425 ms against 0.400-0.409 at level 11 on an H100,
+// NVIDIA H100 80GB HBM3, 700 W).
+__global__ void __launch_bounds__(kPlaneThreads, 8)
+p1_const_apply_2d_bf16_kernel(const __nv_bfloat16* __restrict__ src,
+                              const __nv_bfloat16* __restrict__ A,
+                              const __nv_bfloat16* __restrict__ E,
+                              __nv_bfloat16* __restrict__ dst, int N,
+                              hyteg::ConstTables2D t) {
+  using namespace hyteg;
+  constexpr int nA = kConst2Dirs * kConstShells;
+  constexpr int nE = kConst2Groups * kConstShells * kConst2Dirs;
+  __shared__ float a_s[nA], e_s[nE];
+  __shared__ float rows[kConst2Rows * kConst2Dirs];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < nA + nE; i += blockDim.x) {
+    if (i < nA) a_s[i] = widen(A[c * nA + i]);
+    else e_s[i - nA] = widen(E[c * nE + i - nA]);
+  }
+  __syncthreads();
+  const_fold_rows(a_s, e_s, t, rows, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const long long face = (long long)N * N;
+  const_apply_band_2d(BF16Src{src + c * face}, BF16CellStore{dst + c * face},
+                      blockIdx.y * kBandRows2DP1, N, rows,
+                      threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
+}
+
+// The 2D launch: the directions checked against the compile-time list,
+// the tables and grid set up, then ``kernel``.
+template <typename T>
+int launch_2d(void (*kernel)(const T*, const T*, const T*, T*, int,
+                             hyteg::ConstTables2D),
+              const T* src, const T* A, const T* E, T* dst, int C, int N,
+              const int* dirs, const int* gmask, void* stream) {
+  for (int s = 0; s < hyteg::kConst2Dirs; ++s)
+    if (dirs[2 * s] != hyteg::const2_dx(s) ||
+        dirs[2 * s + 1] != hyteg::const2_dz(s))
+      return (int)cudaErrorInvalidValue;
+  hyteg::ConstTables2D t;
+  for (int g = 0; g < hyteg::kConst2Groups; ++g) t.gmask[g] = gmask[g];
+  const int bands = (N + hyteg::kBandRows2DP1 - 1) / hyteg::kBandRows2DP1;
+  const dim3 grid((unsigned)C, (unsigned)bands);
+  kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(src, A, E, dst, N,
+                                                           t);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dirs: host (15, 3) int32 stencil directions; gmask: host (7,) int32 face
@@ -172,15 +229,17 @@ extern "C" int hyteg_p1_const_apply_2d(const float* src, const float* A,
                                        const float* E, float* dst, int C,
                                        int N, const int* dirs,
                                        const int* gmask, void* stream) {
-  for (int s = 0; s < hyteg::kConst2Dirs; ++s)
-    if (dirs[2 * s] != hyteg::const2_dx(s) ||
-        dirs[2 * s + 1] != hyteg::const2_dz(s))
-      return (int)cudaErrorInvalidValue;
-  hyteg::ConstTables2D t;
-  for (int g = 0; g < hyteg::kConst2Groups; ++g) t.gmask[g] = gmask[g];
-  const int bands = (N + hyteg::kBandRows2DP1 - 1) / hyteg::kBandRows2DP1;
-  const dim3 grid((unsigned)C, (unsigned)bands);
-  p1_const_apply_2d_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
-      src, A, E, dst, N, t);
-  return (int)cudaGetLastError();
+  return launch_2d(p1_const_apply_2d_kernel, src, A, E, dst, C, N, dirs,
+                   gmask, stream);
+}
+
+// The 2D bf16 form: src, A, E and dst all bf16 (same shapes).
+extern "C" int hyteg_p1_const_apply_2d_bf16(const void* src, const void* A,
+                                            const void* E, void* dst, int C,
+                                            int N, const int* dirs,
+                                            const int* gmask, void* stream) {
+  using B = __nv_bfloat16;
+  return launch_2d(p1_const_apply_2d_bf16_kernel, static_cast<const B*>(src),
+                   static_cast<const B*>(A), static_cast<const B*>(E),
+                   static_cast<B*>(dst), C, N, dirs, gmask, stream);
 }

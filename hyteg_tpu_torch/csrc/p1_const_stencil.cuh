@@ -1,7 +1,7 @@
 // Per-point arithmetic of the constant-stencil P1 apply (kernel B2).
 //
-// The 3D walk and its point functions take the source as a template
-// parameter Src, read as src[i] -> float (and src + k): a plain const
+// The walks (3D and 2D) and their point functions take the source as a
+// template parameter Src, read as src[i] -> float (and src + k): a plain const
 // float* for f32 storage, or an object that widens bf16 storage to f32 on
 // each load (the kernel's BF16Src; the host tests' own). The store is a
 // template parameter as well (CellStore, or a bf16 store that rounds to
@@ -192,7 +192,8 @@ HYTEG_DEVICE void const_apply_plane(const Src& src, const Out& out, int x,
 // [x == 0], [z == 0]; shell S == n), the reads bounds-checked on x and z
 // and zero-filled beyond the block (flat.shift_read's 2D semantics). The
 // 2D kernel's path for slots on an edge (row x = 0, column z = 0).
-HYTEG_DEVICE float const_apply_point_2d(const float* src, int x, int z, int N,
+template <class Src>
+HYTEG_DEVICE float const_apply_point_2d(Src src, int x, int z, int N,
                                         const float* rows) {
   const int f = (x == 0) | ((z == 0) << 1);
   const float* c = rows + (f * 2 + (x + z == N - 1)) * kConst2Dirs;
@@ -234,8 +235,8 @@ constexpr int kChunks2DP1 = 2;
 //    run (zero_run: 16-byte stores, no loads).
 // Rows x +- 1 are re-read by the warps of the band next to each other
 // and hit L1; offsets are 32-bit (a face holds N * N <= 2^31 slots).
-template <class Out>
-HYTEG_DEVICE void const_apply_band_2d(const float* src, const Out& out,
+template <class Src, class Out>
+HYTEG_DEVICE void const_apply_band_2d(Src src, const Out& out,
                                       int x0, int N, const float* rows,
                                       int warp, int lane, int nwarps) {
   const volatile float* vrows = rows;
@@ -253,7 +254,7 @@ HYTEG_DEVICE void const_apply_band_2d(const float* src, const Out& out,
         const int z = z0 + lane + 32 * u;
         acc[u] = 0.f;
         if (z <= r - 1) {
-          const float* p = src + row + z;
+          const auto p = src + (row + z);
           const volatile float* w = vrows + (z == r - 1) * kConst2Dirs;
 #pragma unroll
           for (int s = 0; s < kConst2Dirs; ++s)

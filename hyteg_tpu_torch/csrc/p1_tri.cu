@@ -46,8 +46,21 @@
 // a 64-bit division and 6 base tests per slot, the mean a run-time
 // branch) took 1.42-1.43 ms in the arithmetic mean at level 11 on an
 // H100 (NVIDIA H100 80GB HBM3, 700 W).
+//
+// B3-2D in bf16 (no coefficient, plain or lumped): the same band walk on
+// bf16 element matrices and a bf16 block (BF16CellStore in bf16.cuh); the
+// entries widen to f32, the weight and class folds stay f32, and each
+// class value is rounded to bf16 once on its store. It replaces the
+// Pallas kernel run on bf16 element matrices, which writes in their type
+// (hyteg_tpu/kernels/p1_stencil.py:303). Its stores are 8-byte quads of
+// four bf16 slots from each row's first 8-byte boundary on
+// (BF16CellStore::to_aligned; rows of the odd width N alternate their
+// alignment), single stores before and after. Bound: writing the block,
+// 2 B per slot.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "p1_tri.cuh"
 
 namespace {
@@ -96,6 +109,30 @@ p1_diag_2d_kernel(const float* __restrict__ elmats,
     BlockTeam team;
     tri_diag_band_coeff<MODE>(team, coeff + c * face, out, x0, N, w, gs);
   }
+}
+
+// B3-2D in bf16, no coefficient: thread block (face c, band of rows x0 =
+// blockIdx.y * kApplyR2); the element matrices widen into shared memory,
+// then the 6 weights and the 8 class values fold in f32 and
+// tri_diag_band stores them rounded once.
+__global__ void __launch_bounds__(hyteg::kApplyThreads, 8)
+p1_diag_2d_bf16_kernel(const __nv_bfloat16* __restrict__ elmats,
+                       __nv_bfloat16* __restrict__ dst, int N, int lumped) {
+  using namespace hyteg;
+  __shared__ float e_s[kElm];
+  __shared__ float w[kTriClasses * kTriVerts];
+  __shared__ float cls[kTriDiagRows];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < kElm; i += blockDim.x)
+    e_s[i] = widen(elmats[c * kElm + i]);
+  __syncthreads();
+  tri_diag_fold_weights(e_s, lumped, w, threadIdx.x, blockDim.x);
+  __syncthreads();
+  tri_fold_classes(w, cls, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const long long face = (long long)N * N;
+  tri_diag_band(BF16CellStore{dst + c * face}, blockIdx.y * kApplyR2, N, cls,
+                threadIdx.x >> 5, threadIdx.x & 31);
 }
 
 template <int MODE>
@@ -192,6 +229,21 @@ extern "C" int hyteg_p1_diag_2d(const float* elmats, const float* coeff,
     launch_diag_2d<1>(elmats, coeff, dst, C, N, lumped, s);
   else
     launch_diag_2d<2>(elmats, coeff, dst, C, N, lumped, s);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 form of B3-2D: elmats (C, 2, 3, 3) and dst (C, N, N) bf16, no
+// coefficient; offs and margins as above.
+extern "C" int hyteg_p1_diag_2d_bf16(const void* elmats, void* dst, int C,
+                                     int N, int lumped, const int* offs,
+                                     const int* margins, void* stream) {
+  if (!tri_tables_match(offs, margins)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)C, (unsigned)((N + hyteg::kApplyR2 - 1) /
+                                          hyteg::kApplyR2));
+  p1_diag_2d_bf16_kernel<<<grid, hyteg::kApplyThreads, 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(elmats),
+      static_cast<__nv_bfloat16*>(dst), N, lumped);
   return (int)cudaGetLastError();
 }
 

@@ -57,8 +57,25 @@
 // their own rows, each read tested on the faces. Slots past the triangle
 // are a store-only zero run. It takes 0.461-0.465 ms at level 10 (52% of
 // the bound) on the same card, 64 registers, 4 blocks per SM.
+//
+// bf16 (both forms): the same walks, in kernels of their own, on bf16
+// storage and bf16 weights W (BF16Src, BF16CellStore in bf16.cuh); every
+// load widens to f32, the
+// staged rows and every sum stay f32, and each result is rounded to bf16
+// once on its store (B1's bf16 rule). It replaces the Pallas kernel run
+// on a bf16 source, which rounds the tables to the source's type
+// (hyteg_tpu/kernels/p2_const_stencil.py:409-410). Offsets are counted
+// in elements, never bytes: the 3D grid's odd pitch (129) makes bf16 rows
+// alternate their 4-byte alignment, which no access assumes; B5-2D's pair
+// windows read pairs of elements, one 4-byte load in bf16 (an 8-byte one
+// in f32), each starting where p2_pair_parity says the row allows; pair
+// stores are 4 bytes and quads (the zero runs) 8, both at boundaries
+// BF16CellStore::to_aligned finds. Bound: bytes, the f32 kernel's count
+// with the block's bytes halved.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "p2_const_stencil.cuh"
 
 namespace {
@@ -84,6 +101,30 @@ p2_const_apply_kernel(const float* __restrict__ src,
                        threadIdx.x & 31, blockDim.x >> 5);
 }
 
+// The 3D bf16 form: the same walk on bf16 storage, the staged rows
+// widened, face nodes reading their bf16 rows of W where it lies. A
+// kernel of its own, not a template of the f32 one: the f32 kernel
+// instantiated from a template on the storage type ran 9% slower
+// (0.586-0.598 ms against 0.537-0.545 at P2 level 6 on an H100, NVIDIA
+// H100 80GB HBM3, 700 W).
+__global__ void __launch_bounds__(kPlaneThreads)
+p2_const_apply_bf16_kernel(const __nv_bfloat16* __restrict__ src,
+                           const __nv_bfloat16* __restrict__ W,
+                           __nv_bfloat16* __restrict__ dst, int M,
+                           int pitch) {
+  using namespace hyteg;
+  constexpr int nR = 24 * kP2Dirs;
+  __shared__ float wr[nR];
+  const int c = blockIdx.x;
+  const __nv_bfloat16* Wc = W + c * kP2Rows * kP2Dirs;
+  for (int i = threadIdx.x; i < nR; i += blockDim.x) wr[i] = widen(Wc[i]);
+  __syncthreads();
+  const long long cell = (long long)M * M * pitch;
+  p2_const_apply_plane(BF16Src{src + c * cell}, BF16Src{Wc}, wr,
+                       BF16CellStore{dst + c * cell}, blockIdx.y, M, pitch,
+                       threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
+}
+
 // 2D: thread block (band of kBandRows2D rows x, face c); the face's 48
 // folded rows are staged in shared memory, then p2_const_apply_band_2d
 // writes the band.
@@ -103,6 +144,45 @@ p2_const_apply_2d_kernel(const float* __restrict__ src,
                          threadIdx.x & 31);
 }
 
+// The 2D bf16 form (a kernel of its own, as the 3D one): the rows staged
+// widened, the band walk on bf16 storage.
+__global__ void __launch_bounds__(kPlaneThreads)
+p2_const_apply_2d_bf16_kernel(const __nv_bfloat16* __restrict__ src,
+                              const __nv_bfloat16* __restrict__ W,
+                              __nv_bfloat16* __restrict__ dst, int M) {
+  using namespace hyteg;
+  constexpr int nW = kP2Rows2D * kP2Dirs2D;
+  __shared__ float w[nW];
+  const int c = blockIdx.y;
+  for (int i = threadIdx.x; i < nW; i += blockDim.x)
+    w[i] = widen(W[c * nW + i]);
+  __syncthreads();
+  const long long face = (long long)M * M;
+  p2_const_apply_band_2d(BF16Src{src + c * face}, w,
+                         BF16CellStore{dst + c * face},
+                         blockIdx.x * kBandRows2D, M, threadIdx.x >> 5,
+                         threadIdx.x & 31);
+}
+
+bool dirs_match_3d(const int* dirs) {
+  for (int s = 0; s < hyteg::kP2Dirs; ++s)
+    for (int d = 0; d < 3; ++d)
+      if (dirs[3 * s + d] != hyteg::kP2DirList[s][d]) return false;
+  return true;
+}
+
+bool dirs_match_2d(const int* dirs) {
+  for (int s = 0; s < hyteg::kP2Dirs2D; ++s)
+    for (int d = 0; d < 2; ++d)
+      if (dirs[2 * s + d] != hyteg::kP2DirList2D[s][d]) return false;
+  return true;
+}
+
+dim3 grid_2d(int C, int M) {
+  return dim3((unsigned)((M + hyteg::kBandRows2D - 1) / hyteg::kBandRows2D),
+              (unsigned)C);
+}
+
 }  // namespace
 
 // dirs: host (65, 3) int32 stencil directions, which must equal the
@@ -111,13 +191,24 @@ p2_const_apply_2d_kernel(const float* __restrict__ src,
 extern "C" int hyteg_p2_const_apply(const float* src, const float* W,
                                     float* dst, int C, int M, int pitch,
                                     const int* dirs, void* stream) {
-  for (int s = 0; s < hyteg::kP2Dirs; ++s)
-    for (int d = 0; d < 3; ++d)
-      if (dirs[3 * s + d] != hyteg::kP2DirList[s][d])
-        return (int)cudaErrorInvalidValue;
+  if (!dirs_match_3d(dirs)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)C, (unsigned)M);
   p2_const_apply_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
       src, W, dst, M, pitch);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 form: src, W and dst all bf16 (same shapes).
+extern "C" int hyteg_p2_const_apply_bf16(const void* src, const void* W,
+                                         void* dst, int C, int M, int pitch,
+                                         const int* dirs, void* stream) {
+  using B = __nv_bfloat16;
+  if (!dirs_match_3d(dirs)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)C, (unsigned)M);
+  p2_const_apply_bf16_kernel<<<grid, kPlaneThreads, 0,
+                               (cudaStream_t)stream>>>(
+      static_cast<const B*>(src), static_cast<const B*>(W),
+      static_cast<B*>(dst), M, pitch);
   return (int)cudaGetLastError();
 }
 
@@ -128,13 +219,21 @@ extern "C" int hyteg_p2_const_apply(const float* src, const float* W,
 extern "C" int hyteg_p2_const_apply_2d(const float* src, const float* W,
                                        float* dst, int C, int M,
                                        const int* dirs, void* stream) {
-  for (int s = 0; s < hyteg::kP2Dirs2D; ++s)
-    for (int d = 0; d < 2; ++d)
-      if (dirs[2 * s + d] != hyteg::kP2DirList2D[s][d])
-        return (int)cudaErrorInvalidValue;
-  const int bands = (M + hyteg::kBandRows2D - 1) / hyteg::kBandRows2D;
-  const dim3 grid((unsigned)bands, (unsigned)C);
-  p2_const_apply_2d_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
-      src, W, dst, M);
+  if (!dirs_match_2d(dirs)) return (int)cudaErrorInvalidValue;
+  p2_const_apply_2d_kernel<<<grid_2d(C, M), kPlaneThreads, 0,
+                             (cudaStream_t)stream>>>(src, W, dst, M);
+  return (int)cudaGetLastError();
+}
+
+// The 2D bf16 form: src, W and dst all bf16 (same shapes).
+extern "C" int hyteg_p2_const_apply_2d_bf16(const void* src, const void* W,
+                                            void* dst, int C, int M,
+                                            const int* dirs, void* stream) {
+  using B = __nv_bfloat16;
+  if (!dirs_match_2d(dirs)) return (int)cudaErrorInvalidValue;
+  p2_const_apply_2d_bf16_kernel<<<grid_2d(C, M), kPlaneThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      static_cast<const B*>(src), static_cast<const B*>(W),
+      static_cast<B*>(dst), M);
   return (int)cudaGetLastError();
 }

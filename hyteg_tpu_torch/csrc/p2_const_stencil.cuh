@@ -1,6 +1,13 @@
 // Per-point arithmetic of the parity-resolved P2 constant stencil (kernel
 // B5), kept apart from the kernel in p2_const_stencil.cu like
-// p1_const_stencil.cuh. Layout follows
+// p1_const_stencil.cuh. The walks take the source as a template parameter
+// Src, read as src[i] -> float (and src + k): a plain const float* for
+// f32 storage, or an object that widens bf16 storage on each load (the
+// kernel's BF16Src; the host tests' own), which also offers the 2D pair
+// loads (load2, pair_parity). The 3D face nodes read their weight rows
+// through a parameter of the same kind (f32 or bf16 W). Weights staged in
+// shared memory and every sum stay f32, so a bf16 result is rounded once,
+// on its store. Layout follows
 // hyteg_tpu_torch/kernels/p2_const_stencil.py:
 //   src and dst of one cell: (M, L) f32 node blocks, L = M * pitch,
 //   lane = y * pitch + z, M = 2n + 1;
@@ -103,8 +110,8 @@ struct P2Tap {
 
 // w is read at each use (volatile): hoisted out of the row loop, the 92
 // weights of a parity pair would pin 92 registers for the kernel's life.
-template <int PAR, int... I>
-HYTEG_DEVICE float p2_interior_taps(const float* p, int L, int pitch,
+template <int PAR, class Src, int... I>
+HYTEG_DEVICE float p2_interior_taps(Src p, int L, int pitch,
                                     const volatile float* w,
                                     std::integer_sequence<int, I...>) {
   float acc = 0.f;
@@ -118,9 +125,9 @@ HYTEG_DEVICE float p2_interior_taps(const float* p, int L, int pitch,
 // One tap of a face node at (x, lane), skipped where its weight is 0, the
 // read taken as 0 beyond the block on the x axis and on the flat lane axis
 // (flat.shift_read's rule).
-template <int PAR, int I>
-HYTEG_DEVICE void p2_face_tap(float& acc, const float* src, int x, int lane,
-                              int M, int L, int pitch, const float* w) {
+template <int PAR, int I, class Src, class Wt>
+HYTEG_DEVICE void p2_face_tap(float& acc, Src src, int x, int lane,
+                              int M, int L, int pitch, Wt w) {
   using T = P2Tap<PAR, I>;
   const float ws = w[T::s];
   const int xx = x + T::dx, ll = lane + T::dy * pitch + T::dz;
@@ -128,9 +135,9 @@ HYTEG_DEVICE void p2_face_tap(float& acc, const float* src, int x, int lane,
     acc += ws * src[xx * L + ll];
 }
 
-template <int PAR, int... I>
-HYTEG_DEVICE float p2_face_taps(const float* src, int x, int lane, int M,
-                                int L, int pitch, const float* w,
+template <int PAR, class Src, class Wt, int... I>
+HYTEG_DEVICE float p2_face_taps(Src src, int x, int lane, int M,
+                                int L, int pitch, Wt w,
                                 std::integer_sequence<int, I...>) {
   float acc = 0.f;
   (p2_face_tap<PAR, I>(acc, src, x, lane, M, L, pitch, w), ...);
@@ -143,10 +150,11 @@ HYTEG_DEVICE float p2_face_taps(const float* src, int x, int lane, int M,
 // (the face corrections E add none), each read tested. Lanes of one
 // parity run one unrolled list; the parity is a runtime switch, uniform
 // across a warp wherever the walk keeps it so.
-HYTEG_DEVICE float p2_face_point(const float* src, int x, int y, int z, int M,
-                                 int pitch, const float* Wc) {
+template <class Src, class Wt>
+HYTEG_DEVICE float p2_face_point(Src src, int x, int y, int z, int M,
+                                 int pitch, Wt Wc) {
   const int L = M * pitch, lane = y * pitch + z;
-  const float* w = Wc + p2_row(x, y, z, M) * kP2Dirs;
+  const auto w = Wc + p2_row(x, y, z, M) * kP2Dirs;
 #define HYTEG_P2_FACE(P)                                          \
   case P:                                                         \
     return p2_face_taps<P>(src, x, lane, M, L, pitch, w,          \
@@ -165,8 +173,8 @@ HYTEG_DEVICE float p2_face_point(const float* src, int x, int y, int z, int M,
 // offset row, shared by nlanes threads (this one is lane): each thread
 // takes the pair 2 lane, 2 lane + 1 of a stride of 2 nlanes, one node
 // after the other, so that at each step the lanes hold one parity.
-template <class Out>
-HYTEG_DEVICE void p2_face_row(const float* src, const float* Wc,
+template <class Src, class Wt, class Out>
+HYTEG_DEVICE void p2_face_row(Src src, Wt Wc,
                               const Out& out, int x, int y, int row, int r,
                               int M, int pitch, int lane, int nlanes) {
   for (int z = 2 * lane; z < r; z += 2 * nlanes) {
@@ -183,8 +191,8 @@ HYTEG_DEVICE void p2_face_row(const float* src, const float* Wc,
 // (an odd coordinate moves by at most 1, an even one, then >= 2, by at
 // most 2, and S <= M - 1 with y, z >= 1 bounds x + 2), so no read is
 // tested.
-template <int PAR>
-HYTEG_DEVICE float p2_interior_node(const float* p, int L, int pitch,
+template <int PAR, class Src>
+HYTEG_DEVICE float p2_interior_node(Src p, int L, int pitch,
                                     const volatile float* w) {
   return p2_interior_taps<PAR>(p, L, pitch, w,
                                std::make_integer_sequence<int, kP2NTaps[PAR]>{});
@@ -196,8 +204,8 @@ HYTEG_DEVICE float p2_interior_node(const float* p, int L, int pitch,
 // z0 = 1, 65, ..., so the pair's two parity lists are the same for the
 // whole warp; a node's shell key k = min(2, r - 1 - z) picks its row in
 // wr (the staged rows par * 3 + k).
-template <int PX, int PY, class Out>
-HYTEG_DEVICE void p2_interior_row(const float* src, const float* wr,
+template <int PX, int PY, class Src, class Out>
+HYTEG_DEVICE void p2_interior_row(Src src, const float* wr,
                                   const Out& out, int row, int r, int L,
                                   int pitch, int lane) {
   constexpr int pa = 4 * PX + 2 * PY + 1, pb = pa - 1;
@@ -231,8 +239,8 @@ HYTEG_DEVICE void p2_interior_row(const float* src, const float* wr,
 //    (x & 1, y & 1); their face nodes z = 0 go through p2_face_point as
 //    one list over all threads.
 //  - Rows y > M - 1 - x lie past the tet: one zero run over all threads.
-template <class Out>
-HYTEG_DEVICE void p2_const_apply_plane(const float* src, const float* Wc,
+template <class Src, class Wt, class Out>
+HYTEG_DEVICE void p2_const_apply_plane(Src src, Wt Wc,
                                        const float* wr, const Out& out, int x,
                                        int M, int pitch, int warp, int lane,
                                        int nwarps) {
@@ -322,8 +330,8 @@ HYTEG_DEVICE P2Weights2D<PAR> p2_weights_2d(const float* row) {
 
 // Parity PAR's taps, untested, at the node p points at (row stride M),
 // in ascending s.
-template <int PAR, int... I>
-HYTEG_DEVICE float p2_taps_2d(const float* p, int M, const P2Weights2D<PAR>& w,
+template <int PAR, class Src, int... I>
+HYTEG_DEVICE float p2_taps_2d(Src p, int M, const P2Weights2D<PAR>& w,
                               std::integer_sequence<int, I...>) {
   float acc = 0.f;
   ((acc += w.v[I] * p[P2Tap2D<PAR, I>::dx * M + P2Tap2D<PAR, I>::dz]), ...);
@@ -341,8 +349,8 @@ HYTEG_DEVICE float p2_taps_2d(const float* p, int M, const P2Weights2D<PAR>& w,
 //    (parities 0, 1), and then z >= 1 gives x <= M - 2, which is odd
 //    (M is odd): x <= M - 3. A move by +2 on z occurs only at even z
 //    (parities 0, 2): likewise z <= M - 3.
-template <int PAR>
-HYTEG_DEVICE float p2_interior_node_2d(const float* p, int M,
+template <int PAR, class Src>
+HYTEG_DEVICE float p2_interior_node_2d(Src p, int M,
                                        const P2Weights2D<PAR>& w) {
   return p2_taps_2d<PAR>(p, M, w,
                          std::make_integer_sequence<int, kP2NTaps2D[PAR]>{});
@@ -350,8 +358,8 @@ HYTEG_DEVICE float p2_interior_node_2d(const float* p, int M,
 
 // One tap of a face node at (x, z), skipped where its weight is 0, the
 // read taken as 0 beyond the block (flat.shift_read's rule).
-template <int PAR, int I>
-HYTEG_DEVICE void p2_face_tap_2d(float& acc, const float* src, int x, int z,
+template <int PAR, int I, class Src>
+HYTEG_DEVICE void p2_face_tap_2d(float& acc, Src src, int x, int z,
                                  int M, const float* w) {
   using T = P2Tap2D<PAR, I>;
   const float ws = w[T::s];
@@ -360,8 +368,8 @@ HYTEG_DEVICE void p2_face_tap_2d(float& acc, const float* src, int x, int z,
     acc += ws * src[xx * M + zz];
 }
 
-template <int PAR, int... I>
-HYTEG_DEVICE float p2_face_taps_2d(const float* src, int x, int z, int M,
+template <int PAR, class Src, int... I>
+HYTEG_DEVICE float p2_face_taps_2d(Src src, int x, int z, int M,
                                    const float* w,
                                    std::integer_sequence<int, I...>) {
   float acc = 0.f;
@@ -373,7 +381,8 @@ HYTEG_DEVICE float p2_face_taps_2d(const float* src, int x, int z, int M,
 // src, on its own row of the face's 48 (W): row (f * 4 + par) * 3 + k,
 // f = [x == 0] | [z == 0] << 1, k = min(2, M - 1 - x - z); the sum over
 // the parity's structural taps, each read tested.
-HYTEG_DEVICE float p2_face_point_2d(const float* src, int x, int z, int M,
+template <class Src>
+HYTEG_DEVICE float p2_face_point_2d(Src src, int x, int z, int M,
                                     const float* W) {
   const int f = (x == 0) | ((z == 0) << 1);
   const int par = ((x & 1) << 1) | (z & 1);
@@ -399,8 +408,10 @@ HYTEG_DEVICE float p2_face_point_2d(const float* src, int x, int z, int M,
 // window is read with 8-byte pair loads from the first element at an
 // 8-byte boundary at or before za + lo, so at most one element more on
 // each side. Whether za + lo is at such a boundary is a compile-time
-// case: A = the parity of the float address of (x, za), the same for
-// every lane and chunk of the row (M and z0 are odd, lanes step by 2).
+// case: A = the parity of the address of (x, za) in slots of the storage
+// type (p2_pair_parity), the same for every lane and chunk of the row (M
+// and z0 are odd, lanes step by 2). The windows count elements, so one
+// rule serves both types: a pair is 8 bytes in f32 and 4 in bf16.
 
 // lo (hi == false) or hi of the pair's window in row x + dx, PX = x & 1;
 // lo > hi when neither list has a tap with that dx.
@@ -442,6 +453,24 @@ HYTEG_DEVICE P2Pair p2_load_pair(const float* q) {
 #endif
 }
 
+// Two elements of a widening source from a pair boundary (bf16: one
+// 4-byte load), widened.
+template <class Src>
+HYTEG_DEVICE P2Pair p2_load_pair(Src q) {
+  HYTEG_PAIR_LOAD_HOOK(q.p);
+  const auto t = q.load2();
+  return {t.x, t.y};
+}
+
+// 0 where a pair load may start at q (f32: an 8-byte boundary), else 1.
+HYTEG_DEVICE int p2_pair_parity(const float* q) {
+  return (int)((reinterpret_cast<uintptr_t>(q) >> 2) & 1);
+}
+template <class Src>
+HYTEG_DEVICE int p2_pair_parity(Src q) {
+  return q.pair_parity();
+}
+
 // acc += the taps of list PAR with dx == DX, v holding row x + DX from
 // element (za + OFF) on.
 template <int PAR, int DX, int OFF, int I>
@@ -459,8 +488,8 @@ HYTEG_DEVICE void p2_window_taps(float& acc, const float* v,
 }
 
 // The pair's taps in row x + DX from its window.
-template <int PX, int A, int DX>
-HYTEG_DEVICE void p2_pair_dx_2d(const float* p, int M,
+template <int PX, int A, int DX, class Src>
+HYTEG_DEVICE void p2_pair_dx_2d(Src p, int M,
                                 const P2Weights2D<2 * PX + 1>& wa,
                                 const P2Weights2D<2 * PX>& wb, float& acc_a,
                                 float& acc_b) {
@@ -468,7 +497,7 @@ HYTEG_DEVICE void p2_pair_dx_2d(const float* p, int M,
   if constexpr (Win::lo <= Win::hi) {
     constexpr int pa = 2 * PX + 1, pb = 2 * PX;
     float v[2 * Win::n];
-    const float* q = p + DX * M + Win::start;
+    const auto q = p + (DX * M + Win::start);
 #pragma unroll
     for (int k = 0; k < Win::n; ++k) {
       const P2Pair t = p2_load_pair(q + 2 * k);
@@ -485,8 +514,8 @@ HYTEG_DEVICE void p2_pair_dx_2d(const float* p, int M,
 // dst at the pair za, za + 1 (both off the faces, shell key 2), p
 // pointing at za: rows x - 2 .. x + 2 each through its window, the taps
 // of each node in ascending s (the lists are ordered by dx first).
-template <int PX, int A>
-HYTEG_DEVICE P2Pair p2_pair_2d(const float* p, int M,
+template <int PX, int A, class Src>
+HYTEG_DEVICE P2Pair p2_pair_2d(Src p, int M,
                                const P2Weights2D<2 * PX + 1>& wa,
                                const P2Weights2D<2 * PX>& wb) {
   float acc_a = 0.f, acc_b = 0.f;
@@ -499,18 +528,19 @@ HYTEG_DEVICE P2Pair p2_pair_2d(const float* p, int M,
 }
 
 // The nodes z = 1 .. r - 1 of row x >= 1 (r = M - x), PX = x & 1, A the
-// parity of the float address of src's (x, 1), the row starting at
+// pair parity of src's (x, 1) (p2_pair_parity), the row starting at
 // offset row: lane l of the warp takes the node pair za = z0 + 2 l (odd
 // z) and zb = za + 1 (even z), z0 = 1, 65, ..., so the warp needs the two
 // parity lists pa = 2 PX + 1 and pb = 2 PX only. The shell-key-2 rows of
 // both (W off the faces, rows par * 3 + 2) are held in registers for the
 // whole row. A pair with both nodes at shell key 2 (zb <= r - 3) reads
 // its rows through pair windows (p2_pair_2d) and is stored with one
-// 8-byte store where (x, za) of dst is at an 8-byte boundary; the nodes
+// pair store (8 bytes in f32, 4 in bf16) where (x, za) of dst is at a
+// pair boundary (Out::to_aligned even); the nodes
 // at shell keys 1 and 0 (the last two) run p2_interior_node_2d on their
 // rows of W.
-template <int PX, int A, class Out>
-HYTEG_DEVICE void p2_interior_row_2d(const float* src, const float* W,
+template <int PX, int A, class Src, class Out>
+HYTEG_DEVICE void p2_interior_row_2d(Src src, const float* W,
                                      const Out& out, int row, int r, int M,
                                      int lane) {
   constexpr int pa = 2 * PX + 1, pb = 2 * PX;
@@ -554,8 +584,8 @@ HYTEG_DEVICE void p2_interior_row_2d(const float* src, const float* W,
 //    face node z = 0, p2_interior_row_2d the nodes z = 1 .. r - 1 (one of
 //    four compile-time cases by x & 1 and the row's alignment A), and the
 //    slots z = r .. M - 1 are a store-only zero run (zero_run).
-template <class Out>
-HYTEG_DEVICE void p2_const_apply_band_2d(const float* src, const float* W,
+template <class Src, class Out>
+HYTEG_DEVICE void p2_const_apply_band_2d(Src src, const float* W,
                                          const Out& out, int x0, int M,
                                          int warp, int lane) {
   for (int x = x0 + 2 * warp; x <= x0 + 2 * warp + 1 && x < M; ++x) {
@@ -568,7 +598,7 @@ HYTEG_DEVICE void p2_const_apply_band_2d(const float* src, const float* W,
       continue;
     }
     if (lane == 0) out(row, p2_face_point_2d(src, x, 0, M, W));
-    const int A = (int)((reinterpret_cast<uintptr_t>(src + row + 1) >> 2) & 1);
+    const int A = p2_pair_parity(src + (row + 1));
     switch (((x & 1) << 1) | A) {
       case 0: p2_interior_row_2d<0, 0>(src, W, out, row, r, M, lane); break;
       case 1: p2_interior_row_2d<0, 1>(src, W, out, row, r, M, lane); break;

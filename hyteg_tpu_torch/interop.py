@@ -19,22 +19,53 @@ import numpy as np
 import torch
 
 
+def host_array(a) -> np.ndarray:
+    """A reference array as numpy. bf16 (numpy has none: the JAX package
+    hands it over as ml_dtypes' bfloat16, which torch cannot read) comes as
+    its float32 values, which hold every bf16 value exactly; rounding them
+    back to bf16 gives the same bits."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def elmats_from_reference(elmats: np.ndarray, *, device,
                           dtype=torch.float32) -> torch.Tensor:
     """(C, 6, 4, 4) P1 or (C, 6, 10, 10) P2 element matrices (2D: (C, 2,
     3, 3) or (C, 2, 6, 6)) -> tensor for
     ``P1ElementwiseOperator(space, form, elmats=...)``,
     ``P2ElementwiseOperator(space, kind, elmats=...)``, or
-    ``make_p1_gmg`` / ``make_p2_gmg(..., elmats={level: ...})``."""
-    return torch.tensor(np.asarray(elmats), dtype=dtype, device=device)
+    ``make_p1_gmg`` / ``make_p2_gmg(..., elmats={level: ...})``. bf16
+    matrices (a bf16 operator's ``elmats``) cross as ``host_array`` says;
+    with ``dtype=torch.bfloat16`` they keep their bits."""
+    return torch.tensor(host_array(elmats), dtype=dtype, device=device)
 
 
 def block_from_reference(block: np.ndarray, *, device,
                          dtype=torch.float32) -> torch.Tensor:
     """A (C, N, N*pitch) P1 or (C, M, M*pitch) P2 block ((C, N, N) or
     (C, M, M) in 2D; a state, or a nodal coefficient field) -> tensor on
-    ``device``."""
-    return torch.tensor(np.asarray(block), dtype=dtype, device=device)
+    ``device``; a bf16 block as ``host_array`` says."""
+    return torch.tensor(host_array(block), dtype=dtype, device=device)
+
+
+def eigs_from_reference(eigs: dict) -> dict:
+    """A level -> lambda_max(D^-1 A) bound dict (the JAX package's
+    power-iteration or Fourier bounds, any scalar type, bf16 included) ->
+    Python floats for ``make_p1_gmg`` / ``make_p2_gmg(..., eigs=...)``."""
+    return {int(l): float(host_array(v)) for l, v in eigs.items()}
+
+
+def p2_tables_from_reference(A, E, *, device,
+                             dtype=torch.float32) -> torch.Tensor:
+    """A JAX ``P2ElementwiseOperator``'s tables ``stencil`` (C, n_par,
+    n_s, 3) and ``stencil_face`` (C, n_g, n_par, n_s, 3) -> the folded rows
+    W (C, rows, n_s) that kernel B5 reads, folded in f32 from their values
+    (bf16 ones exactly) and rounded to ``dtype`` once."""
+    from .kernels.p2_const_stencil import p2_folded_weights
+
+    t = lambda a: torch.tensor(host_array(a), dtype=torch.float32,
+                               device=device)
+    return p2_folded_weights(t(A), t(E)).to(dtype)
 
 
 def block_to_numpy(block: torch.Tensor) -> np.ndarray:

@@ -51,6 +51,14 @@ SIGNATURES = {
     "hyteg_p1_const_apply_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # elmats, dst (bf16), C, N, pitch, lumped, offs, margins, stream
     "hyteg_p1_diag_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # src, A, E, dst (all bf16), C, N, dirs, gmask, stream (2D)
+    "hyteg_p1_const_apply_2d_bf16": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # elmats, dst (bf16), C, N, lumped, offs, margins, stream (2D)
+    "hyteg_p1_diag_2d_bf16": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # src, W, dst (all bf16), C, M, pitch, dirs, stream
+    "hyteg_p2_const_apply_bf16": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # src, W, dst (all bf16), C, M, dirs, stream (2D)
+    "hyteg_p2_const_apply_2d_bf16": [_P, _P, _P, _I, _I, _P, _P],
     # u, w, y, X, Y, Z, bf16, stream
     "hyteg_box_apply": [_P, _P, _P, _I, _I, _I, _I, _P],
     # src, dst, n, stream
@@ -166,6 +174,14 @@ def count_launch(wrapper, dim: int, level: int) -> None:
     setattr(wrapper, name, getattr(wrapper, name) + 1)
     by_level = getattr(wrapper, "launches_by_level" + suffix)
     by_level[level] = by_level.get(level, 0) + 1
+
+
+def count_bf16(wrapper, dim: int) -> None:
+    """Add one bf16 launch to a kernel wrapper's counts, beside
+    count_launch: ``wrapper.launches_bf16`` (3D) or
+    ``wrapper.launches_2d_bf16``."""
+    name = "launches_bf16" if dim == 3 else "launches_2d_bf16"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def current_stream() -> int:

@@ -14,13 +14,15 @@ In 2D (macro-faces, blocks (C, N, N) with lane = z) the same scheme has 7
 directions and the edge groups {x = 0}, {z = 0} and both.
 
 ``p1_const_apply`` launches the CUDA kernel ``csrc/p1_const_stencil.cu``
-(its 3D or 2D form; in 3D also on bf16 storage) for a CUDA tensor and runs
-the plain version ``p1_const_apply_torch`` for a CPU tensor.
+(its 3D or 2D form, each on f32 or bf16 storage) for a CUDA tensor and
+runs the plain version ``p1_const_apply_torch`` for a CPU tensor.
 
 bf16: the source is bf16 and the weights are rounded to its type (as the
 JAX package's Pallas kernel rounds them); the loads widen to f32, every
 sum runs in f32, and the result is rounded to bf16 once. The JAX
 package's plain ``p1_const_apply_xla`` instead accumulates in bf16.
+``bf16_weights`` is the dtype contract of every kernel with a bf16 form
+(B2, B5), the same on both devices.
 """
 
 from __future__ import annotations
@@ -312,6 +314,26 @@ def _kernel_tables(dim: int = 3):
             np.asarray(gmask, dtype=np.int32))
 
 
+def bf16_weights(src, *weights):
+    """The weights of a kernel with a bf16 form, by one contract on
+    every device: a bf16 source takes bf16 weights, or f32 weights rounded
+    to bf16 as the Pallas kernels round them
+    (hyteg_tpu/kernels/p1_const_stencil.py:721-722,
+    p2_const_stencil.py:409-410); any other weight type with a bf16
+    source, and bf16 weights with another source, raise. The source is
+    never cast."""
+    bf16 = torch.bfloat16
+    if src.dtype != bf16:
+        if any(w.dtype == bf16 for w in weights):
+            raise ValueError(f"bf16 weights need a bf16 source, got {src.dtype}")
+        return weights
+    for w in weights:
+        if w.dtype not in (bf16, torch.float32):
+            raise ValueError(f"a bf16 source takes bf16 or f32 weights, got "
+                             f"{w.dtype}")
+    return tuple(w.to(bf16) for w in weights)
+
+
 def _check_cuda_input(name, t, shape, dtype=torch.float32):
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -332,28 +354,30 @@ def p1_const_apply(src, A, E, level: int, dim: int, pitch: int):
     face_weights_full (n_G 7 or 3). A CPU tensor runs the plain version;
     a CUDA tensor launches kernel B2 (csrc/p1_const_stencil.cu) and counts
     the launch in ``p1_const_apply.launches`` (3D) or
-    ``p1_const_apply.launches_2d``. In 3D the storage may be f32 or bf16
-    (a bf16 launch also counts in ``p1_const_apply.launches_bf16``); the
-    2D kernel takes f32 only. With a bf16 source, f32 weights are rounded
-    to bf16 as the Pallas kernel rounds them, on either device; the source
-    is never cast, and any other type raises."""
+    ``p1_const_apply.launches_2d``. The storage may be f32 or bf16 in
+    either dimension (a bf16 launch also counts in
+    ``p1_const_apply.launches_bf16`` or ``launches_2d_bf16``); the weights
+    follow ``bf16_weights`` on either device."""
+    A, E = bf16_weights(src, A, E)
     if src.device.type == "cpu":
         return p1_const_apply_torch(src, A, level, dim, pitch, E=E)
     N = (1 << level) + 1
     C = src.shape[0]
     dirs, gmask = _kernel_tables(dim)
-    dt = src.dtype if dim == 3 and src.dtype == torch.bfloat16 else torch.float32
+    dt = torch.bfloat16 if src.dtype == torch.bfloat16 else torch.float32
     _check_cuda_input("src", src, (C, N, N * pitch if dim == 3 else N), dt)
-    if dt == torch.bfloat16:
-        A, E = (w.to(dt) if w.dtype == torch.float32 else w for w in (A, E))
     _check_cuda_input("A", A, (C, dirs.shape[0], 2), dt)
     _check_cuda_input("E", E, (C, gmask.shape[0], 2, dirs.shape[0]), dt)
     dst = torch.empty_like(src)
     lib = build.library()
-    if dt == torch.bfloat16:
+    if dt == torch.bfloat16 and dim == 3:
         rc = lib.hyteg_p1_const_apply_bf16(
             src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
             pitch, dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
+    elif dt == torch.bfloat16:
+        rc = lib.hyteg_p1_const_apply_2d_bf16(
+            src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
+            dirs.ctypes.data, gmask.ctypes.data, build.current_stream())
     elif dim == 3:
         rc = lib.hyteg_p1_const_apply(
             src.data_ptr(), A.data_ptr(), E.data_ptr(), dst.data_ptr(), C, N,
@@ -365,12 +389,13 @@ def p1_const_apply(src, A, E, level: int, dim: int, pitch: int):
     build.check_launch(rc, "p1_const_apply")
     build.count_launch(p1_const_apply, dim, level)
     if dt == torch.bfloat16:
-        p1_const_apply.launches_bf16 += 1
+        build.count_bf16(p1_const_apply, dim)
     return dst
 
 
 p1_const_apply.launches = 0
 p1_const_apply.launches_bf16 = 0
 p1_const_apply.launches_2d = 0
+p1_const_apply.launches_2d_bf16 = 0
 p1_const_apply.launches_by_level = {}
 p1_const_apply.launches_by_level_2d = {}

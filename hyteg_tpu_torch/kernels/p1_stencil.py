@@ -19,7 +19,9 @@ triangles (up, down) with 3 vertices each.
 ``csrc/p1_apply.cu`` and ``csrc/p1_diag.cu`` (3D) or ``csrc/p1_tri.cu``
 (2D) for a CUDA tensor and run the plain versions
 ``p1_apply_local_torch`` and ``p1_diagonal_local_torch`` for a CPU
-tensor.
+tensor. Their bf16 forms are those of B3 without a coefficient (3D and
+2D); B3 with a coefficient and B4 refuse bf16 on both devices
+(``_refuse_bf16``), so that what runs on the CPU also runs on the card.
 """
 
 from __future__ import annotations
@@ -83,6 +85,13 @@ def _kernel_tables(dim: int = 3):
             np.ascontiguousarray(micro.base_margin(dim), dtype=np.int32))
 
 
+def _refuse_bf16(what: str, *tensors) -> None:
+    """Raise on a bf16 tensor where no kernel form takes one (B4, and B3
+    with a coefficient), on every device."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise ValueError(f"{what} has no bf16 form")
+
+
 def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
                    coeff=None, coeff_avg: str = "arithmetic"):
     """Per-cell elementwise apply on the flat layout (partial sums on
@@ -92,7 +101,8 @@ def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
     4) or (C, 2, 3, 3). A CPU tensor runs the plain version; a CUDA tensor
     launches kernel B4 (csrc/p1_apply.cu, or csrc/p1_tri.cu in 2D) and
     counts the launch in ``p1_apply_local.launches`` (3D) or
-    ``p1_apply_local.launches_2d``."""
+    ``p1_apply_local.launches_2d``. bf16 raises on both devices."""
+    _refuse_bf16("p1_apply_local (kernel B4)", src, elmats, coeff)
     if src.device.type == "cpu":
         return p1_apply_local_torch(src, elmats, level, dim, pitch, coeff,
                                     coeff_avg)
@@ -172,10 +182,14 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
     version; a CUDA tensor launches kernel B3 (csrc/p1_diag.cu, or
     csrc/p1_tri.cu in 2D) and counts the launch in
     ``p1_diagonal_local.launches`` (3D) or
-    ``p1_diagonal_local.launches_2d``. In 3D without a coefficient the
-    element matrices may be bf16 (the block is then bf16, and the launch
-    also counts in ``p1_diagonal_local.launches_bf16``); anything else in
-    bf16 raises, and no type is cast."""
+    ``p1_diagonal_local.launches_2d``. Without a coefficient the element
+    matrices may be bf16 in either dimension (the block is then bf16, and
+    the launch also counts in ``p1_diagonal_local.launches_bf16`` or
+    ``launches_2d_bf16``); a bf16 coefficient, or bf16 element matrices
+    with a coefficient, raise on both devices, and no type is cast."""
+    if coeff is not None:
+        _refuse_bf16("p1_diagonal_local with a coefficient (kernel B3)",
+                     elmats, coeff)
     if elmats.device.type == "cpu":
         return p1_diagonal_local_torch(elmats, level, dim, pitch, lumped,
                                        coeff, coeff_avg)
@@ -185,18 +199,23 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
     C = elmats.shape[0]
     block = (C, N, N * pitch if dim == 3 else N)
     offs = micro.offsets(dim)
-    if elmats.dtype == torch.bfloat16 and dim == 3 and coeff is None:
+    if elmats.dtype == torch.bfloat16:
         _check_cuda_input("elmats", elmats,
                           (C,) + offs.shape[:2] + (offs.shape[1],),
                           torch.bfloat16)
         dst = torch.empty(block, dtype=torch.bfloat16, device=elmats.device)
         offs, margins = _kernel_tables(dim)
-        rc = build.library().hyteg_p1_diag_bf16(
-            elmats.data_ptr(), dst.data_ptr(), C, N, pitch, int(lumped),
-            offs.ctypes.data, margins.ctypes.data, build.current_stream())
+        if dim == 3:
+            rc = build.library().hyteg_p1_diag_bf16(
+                elmats.data_ptr(), dst.data_ptr(), C, N, pitch, int(lumped),
+                offs.ctypes.data, margins.ctypes.data, build.current_stream())
+        else:
+            rc = build.library().hyteg_p1_diag_2d_bf16(
+                elmats.data_ptr(), dst.data_ptr(), C, N, int(lumped),
+                offs.ctypes.data, margins.ctypes.data, build.current_stream())
         build.check_launch(rc, "p1_diagonal_local")
         build.count_launch(p1_diagonal_local, dim, level)
-        p1_diagonal_local.launches_bf16 += 1
+        build.count_bf16(p1_diagonal_local, dim)
         return dst
     _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
     if coeff is not None:
@@ -219,5 +238,6 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
 p1_diagonal_local.launches = 0
 p1_diagonal_local.launches_bf16 = 0
 p1_diagonal_local.launches_2d = 0
+p1_diagonal_local.launches_2d_bf16 = 0
 p1_diagonal_local.launches_by_level = {}
 p1_diagonal_local.launches_by_level_2d = {}

@@ -33,8 +33,15 @@ axis. The weights are pointwise exact up to rounding, so reads that leave
 the simplex (or alias across a 3D lane row) meet zero weights.
 
 ``p2_const_apply`` launches the CUDA kernel ``csrc/p2_const_stencil.cu``
-(3D) or its 2D form for a CUDA tensor and runs the plain version
-``p2_const_apply_torch`` for a CPU tensor.
+(3D) or its 2D form, each on f32 or bf16 storage, for a CUDA tensor and
+runs the plain version ``p2_const_apply_torch`` for a CPU tensor.
+
+bf16: the source is bf16 and W is rounded to its type (``bf16_weights``,
+the contract of B2's bf16 form); the loads widen to f32, every sum runs in
+f32, and the result is rounded to bf16 once. The JAX package's plain
+``p2_const_apply_xla`` and its Pallas kernel round the tables A and E to
+the source's type (``kernels/p2_const_stencil.py:409-410``); its bf16
+operator sums them in bf16 (ROADMAP C-ref14).
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import torch
 
 from ..indexing import flat, micro
 from . import build
-from .p1_const_stencil import _check_cuda_input
+from .p1_const_stencil import _check_cuda_input, bf16_weights
 
 N_SHELL = 3       # shell key k = min(2, 2n - S)
 
@@ -261,7 +268,15 @@ def p2_const_apply_torch(src, W, level: int, pitch: int, dim: int = 3):
     One direction at a time: gather the per-node weight of direction s
     from its row, multiply-add the shifted read. Three or four blocks are
     alive at once, not the n_s shifted reads of the JAX formulation, so it
-    fits beside a GMG stack at level 6."""
+    fits beside a GMG stack at level 6.
+
+    A bf16 source: W rounded to bf16, the apply computed in f32 on the
+    widened values, the result rounded to bf16 once (kernel B5's bf16
+    rule)."""
+    if src.dtype == torch.bfloat16:
+        wide = lambda t: t.to(torch.bfloat16).to(torch.float32)
+        return p2_const_apply_torch(wide(src), wide(W), level, pitch,
+                                    dim).to(torch.bfloat16)
     dirs, *_ = p2_stencil_tables(dim)
     row, K0 = _row_index(level, dim, pitch, src.dtype, src.device)
     dst = torch.zeros_like(src)
@@ -291,7 +306,11 @@ def p2_const_apply(src, W, level: int, pitch: int, dim: int = 3, out=None):
     written), e.g. one component of a stacked vector. A CPU tensor runs
     the plain version; a CUDA tensor launches kernel B5
     (csrc/p2_const_stencil.cu) and counts the launch in
-    ``p2_const_apply.launches`` (3D) or ``p2_const_apply.launches_2d``."""
+    ``p2_const_apply.launches`` (3D) or ``p2_const_apply.launches_2d``.
+    The storage may be f32 or bf16 in either dimension (a bf16 launch also
+    counts in ``p2_const_apply.launches_bf16`` or ``launches_2d_bf16``);
+    W follows ``bf16_weights`` on either device."""
+    (W,) = bf16_weights(src, W)
     if src.device.type == "cpu":
         y = p2_const_apply_torch(src, W, level, pitch, dim)
         return y if out is None else out.copy_(y)
@@ -299,31 +318,37 @@ def p2_const_apply(src, W, level: int, pitch: int, dim: int = 3, out=None):
     C = src.shape[0]
     dirs = _kernel_dirs(dim)
     lanes = M * pitch if dim == 3 else M
-    _check_cuda_input("src", src, (C, M, lanes))
-    _check_cuda_input("W", W, (C, n_rows(dim), dirs.shape[0]))
+    dt = torch.bfloat16 if src.dtype == torch.bfloat16 else torch.float32
+    _check_cuda_input("src", src, (C, M, lanes), dt)
+    _check_cuda_input("W", W, (C, n_rows(dim), dirs.shape[0]), dt)
     if out is None:
         dst = torch.empty_like(src)
     else:
-        _check_cuda_input("out", out, (C, M, lanes))
+        _check_cuda_input("out", out, (C, M, lanes), dt)
         lo, hi = src.data_ptr(), src.data_ptr() + src.nbytes
         if lo < out.data_ptr() + out.nbytes and out.data_ptr() < hi:
             raise ValueError("out must not overlap src")
         dst = out
     lib = build.library()
+    bf = "_bf16" if dt == torch.bfloat16 else ""
     if dim == 3:
-        rc = lib.hyteg_p2_const_apply(
+        rc = getattr(lib, "hyteg_p2_const_apply" + bf)(
             src.data_ptr(), W.data_ptr(), dst.data_ptr(), C, M, pitch,
             dirs.ctypes.data, build.current_stream())
     else:
-        rc = lib.hyteg_p2_const_apply_2d(
+        rc = getattr(lib, "hyteg_p2_const_apply_2d" + bf)(
             src.data_ptr(), W.data_ptr(), dst.data_ptr(), C, M,
             dirs.ctypes.data, build.current_stream())
     build.check_launch(rc, "p2_const_apply")
     build.count_launch(p2_const_apply, dim, level)
+    if bf:
+        build.count_bf16(p2_const_apply, dim)
     return dst
 
 
 p2_const_apply.launches = 0
+p2_const_apply.launches_bf16 = 0
 p2_const_apply.launches_2d = 0
+p2_const_apply.launches_2d_bf16 = 0
 p2_const_apply.launches_by_level = {}
 p2_const_apply.launches_by_level_2d = {}

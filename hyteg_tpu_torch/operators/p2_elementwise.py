@@ -91,10 +91,10 @@ def _coeff_mean(c3: torch.Tensor, t: int, n: int, dim: int) -> torch.Tensor:
 
 def compute_p2_elmats(space: P2Space, kind: str = "laplace",
                       cell_vertices=None, degree: int | None = None,
-                      form=None) -> torch.Tensor:
+                      form=None, dtype=None) -> torch.Tensor:
     """(C, T, 10, 10) P2 element matrices per micro-element class
-    ((C, 2, 6, 6) in 2D), on the space's device and dtype (assembled in
-    float64).
+    ((C, 2, 6, 6) in 2D), on the space's device in ``dtype`` (default the
+    space's), assembled in float64.
 
     kind: 'laplace' | 'mass', or pass ``form(verts) -> (..., nn, nn)``."""
     cv = space.cell_vertices(0) if cell_vertices is None else cell_vertices
@@ -114,7 +114,8 @@ def compute_p2_elmats(space: P2Space, kind: str = "laplace",
         elm = q.mass_elmat(micro_verts, q.p2_basis_at(space.dim, pts), w)
     else:
         raise ValueError(f"unknown kind {kind}")
-    return elm.to(dtype=space.dtype, device=space.device).contiguous()
+    return elm.to(dtype=dtype or space.dtype,
+                  device=space.device).contiguous()
 
 
 def p2_apply_local(src, elmats, level: int, dim: int,
@@ -153,7 +154,13 @@ def p2_apply_local(src, elmats, level: int, dim: int,
 def p2_diagonal_local(elmats, level: int, dim: int, block_shape,
                       pitch: int | None = None, coeff=None) -> torch.Tensor:
     """Per-cell partial diagonal dst[2b + O_A] += elMat[t, A, A] (times the
-    element's coefficient mean). Set-up only."""
+    element's coefficient mean). Set-up only. bf16 element matrices: the
+    sums run in f32 on the widened entries and the result is rounded to
+    bf16 once (the JAX package sums in bf16; ROADMAP C-ref14)."""
+    if elmats.dtype == torch.bfloat16:
+        co = None if coeff is None else coeff.to(torch.float32)
+        return p2_diagonal_local(elmats.to(torch.float32), level, dim,
+                                 block_shape, pitch, co).to(torch.bfloat16)
     n = 1 << level
     pitch = 2 * n + 1 if pitch is None else pitch
     node_offs = p2_node_offsets(dim)
@@ -178,22 +185,30 @@ class P2ElementwiseOperator(nn.Module):
     ((C, 2, 6, 6) in 2D), e.g. carried over from the JAX package with
     interop. The element
     matrices and the folded stencil rows W (kernels/p2_const_stencil.py),
-    which kernel B5 reads, are registered buffers."""
+    which kernel B5 reads, are registered buffers.
+
+    On a bf16 space the element matrices are assembled as for f32, and the
+    tables A, E and W summed from the f32 matrices in f32; each buffer is
+    then rounded to bf16 once, as the bf16 P1 operator's (ROADMAP C-ref12).
+    The JAX package rounds the element matrices to bf16 first and sums its
+    tables A and E in bf16 (ROADMAP C-ref14)."""
 
     def __init__(self, space: P2Space, kind: str = "laplace", shard: int = 0,
                  elmats=None, form=None):
         super().__init__()
         self.space = space
         self.shard = shard
+        # the tables are built in f32 at least, then rounded once
+        wide = torch.float32 if space.dtype == torch.bfloat16 else space.dtype
         if elmats is None:
             elmats = compute_p2_elmats(space, kind, form=form,
-                                       cell_vertices=space.cell_vertices(shard))
-        elmats = torch.as_tensor(elmats, dtype=space.dtype,
-                                 device=space.device).contiguous()
-        self.register_buffer("elmats", elmats)
+                                       cell_vertices=space.cell_vertices(shard),
+                                       dtype=wide)
+        elmats = torch.as_tensor(elmats, device=space.device).to(wide)
+        self.register_buffer("elmats", elmats.to(space.dtype).contiguous())
         self.register_buffer("stencil_folded", p2_folded_weights(
             p2_stencil_weights(elmats, space.dim),
-            p2_face_weights(elmats, space.dim)))
+            p2_face_weights(elmats, space.dim)).to(space.dtype).contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply_raw(x)
