@@ -140,8 +140,22 @@ read just after:
   the gates hold at those levels (``*_gated``, MP_GATE_2D); B5-bf16 at every P2 level 1-6, B5-2D-bf16 at every 2D P2 level
   1-10 (``bf16_p2_kernels_vs_plain``), B2-2D-bf16 and B3-2D-bf16 at every
   2D P1 level 2-11 (``bf16_2d_kernels_vs_plain``), each within one bf16
-  ulp and timed at its path's level; ``bf16_refusals`` covers the 2D forms
-  and B5.
+  ulp and timed at its path's level; ``bf16_refusals`` checks the dtype
+  contract of B2-B5 in 3D and 2D (f32 inputs beside a bf16 block give
+  the bits of bf16 ones; what no kernel takes raises).
+- the bf16 variable-coefficient path (B4, B4-2D, B3 and B3-2D with a
+  coefficient in bf16): each form against its plain version at every P1
+  level 2-7 (pitch 129) and 2-11 of the rect, B4 without a coefficient
+  and every form in the three means on k = 1 + x + 0.5 y and a seeded
+  random k, timed at the top level (``bf16_coeff_kernels``); an f32
+  iterative refinement (B4 f32 residual) around one bf16 V(3,3) cycle a
+  step of the coefficient hierarchy built by ``coeff_stack`` from
+  make_p1_gmg's pieces (B4-bf16 applies, Chebyshev on the inverse
+  diagonal with k, B3-bf16, its bounds from the f32 coefficient
+  hierarchy) at 3D level 7 (``mixed_precision_coeff``) and on the rect
+  at level 11 (``mixed_precision_coeff_2d``, reported) and level 8
+  (``mixed_precision_coeff_2d_gated``), the f32 coefficient cycle's rate
+  gated first.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -407,6 +421,9 @@ MP_BF16_RATIO = 0.1      # and < 0.1 x the bf16-only loop's
 # gates hold there; the full-width runs (P1 level 11, P2 level 10) report
 # their histories, with the bf16 types and a finite bf16 cycle gated.
 MP_GATE_2D = {"p1": 8, "p2": 6}
+# the f32 coefficient solve before its refinement: flat from cycle 4 (3D
+# level 7) or earlier (2D) on the card, so its last 3 of 6 are its plateau
+MP_COEFF_CYCLES = 6
 XTRA_CYCLES = 4
 XTRA_GS_SWEEPS = 2       # symmetric sweeps: one reaches rate 0.20 by cycle 5
 FAS_REL = 0.05           # FAS vs the linear V-cycle, per cycle
@@ -476,12 +493,31 @@ REPLACES = {
     "p1_diagonal_local_2d_bf16": ("hyteg_tpu_torch/csrc/p1_tri.cu",
                                   "hyteg_tpu/kernels/p1_stencil.py:303 (dim "
                                   "2, bf16 element matrices)"),
+    "p1_apply_local_bf16": ("hyteg_tpu_torch/csrc/p1_apply.cu",
+                            "hyteg_tpu/kernels/p1_stencil.py:222 (bf16 "
+                            "source)"),
+    "p1_apply_local_2d_bf16": ("hyteg_tpu_torch/csrc/p1_tri.cu",
+                               "hyteg_tpu/kernels/p1_stencil.py:222 (dim 2, "
+                               "bf16 source)"),
+    "p1_diagonal_local_coeff_bf16": ("hyteg_tpu_torch/csrc/p1_diag.cu",
+                                     "hyteg_tpu/kernels/p1_stencil.py:303 "
+                                     "(bf16 element matrices, with a "
+                                     "coefficient)"),
+    "p1_diagonal_local_2d_coeff_bf16": ("hyteg_tpu_torch/csrc/p1_tri.cu",
+                                        "hyteg_tpu/kernels/p1_stencil.py:303 "
+                                        "(dim 2, bf16 element matrices, with "
+                                        "a coefficient)"),
 }
-# the short names of this slice's bf16 rows (B5, B5-2D, B2-2D, B3-2D)
+# the short names of the bf16 GMGs' rows (B5, B5-2D, B2-2D, B3-2D) and of
+# the bf16 coefficient path's (B4, B4-2D, B3 and B3-2D with a coefficient)
 BF16_LABELS = {"p2_const_apply_bf16": "b5_bf16",
                "p2_const_apply_2d_bf16": "b5_2d_bf16",
                "p1_const_apply_2d_bf16": "b2_2d_bf16",
-               "p1_diagonal_local_2d_bf16": "b3_2d_bf16"}
+               "p1_diagonal_local_2d_bf16": "b3_2d_bf16",
+               "p1_apply_local_bf16": "b4_bf16",
+               "p1_apply_local_2d_bf16": "b4_2d_bf16",
+               "p1_diagonal_local_coeff_bf16": "b3_coeff_bf16",
+               "p1_diagonal_local_2d_coeff_bf16": "b3_2d_coeff_bf16"}
 # the one PyTorch call timed beside each kernel (library_ms), or why none
 LIBRARY_CALLS = {
     "p1_const_apply": "F.conv3d grouped per cell, interior stencil (equal to "
@@ -518,6 +554,10 @@ LIBRARY_CALLS = {
                               "7-point stencil (equal to B2-2D-bf16 on "
                               "interior points only)",
     "p1_diagonal_local_2d_bf16": None,  # no library call builds an FE diagonal
+    "p1_apply_local_bf16": None,  # per-element coefficient means: no conv form
+    "p1_apply_local_2d_bf16": None,  # the same
+    "p1_diagonal_local_coeff_bf16": None,  # no call builds an FE diagonal
+    "p1_diagonal_local_2d_coeff_bf16": None,  # the same
 }
 
 
@@ -1247,8 +1287,20 @@ def b4_work(sp, x, elm) -> tuple[int, int]:
     matrices; per element nv^2 multiply-adds, the nv-term mean and nv
     scalings."""
     nv, C = sp.dim + 1, x.shape[0]
-    return (nbytes(x) + 2 * simplex_read_bytes(sp, [(0,) * sp.dim], C)
+    return (nbytes(x) + 2 * simplex_read_bytes(sp, [(0,) * sp.dim], C,
+                                               x.element_size())
             + nbytes(elm), (2 * nv * nv + 2 * nv) * C * class_points(sp))
+
+
+def b3_coeff_work(sp, elm, y) -> tuple[int, int]:
+    """B3's bytes and f32 operations with a nodal coefficient, writing
+    block y of ``sp``: the element matrices read, the coefficient read on
+    the simplex, the block written; per (element, vertex) term nv adds of
+    the mean, its division and a multiply-add."""
+    nv, C = sp.dim + 1, y.shape[0]
+    return (nbytes(elm) + nbytes(y)
+            + simplex_read_bytes(sp, [(0,) * sp.dim], C, y.element_size()),
+            (nv + 3) * nv * C * class_points(sp))
 
 
 def b5_work(sp, x, W, level: int) -> tuple[int, float]:
@@ -4075,11 +4127,16 @@ def bf16_p2_kernel_check(storage, level: int, device, seed: int,
 
 
 def bf16_refusals(storage, device) -> dict:
-    """The wrappers raise on what no kernel takes, and never cast the
-    source: B3 and B3-2D in bf16 with a coefficient, B4 and B4-2D in bf16.
-    B2, B2-2D, B5 and B5-2D with a bf16 source round f32 weights to bf16
-    as the Pallas kernels do (and as the plain versions do on the CPU):
-    the same result as bf16 weights."""
+    """The dtype contract of the kernels with a bf16 form, on the card as
+    on the CPU (kernels/p1_const_stencil.py::bf16_weights): with a bf16
+    block, f32 weights, element matrices or coefficients are rounded to
+    bf16 as the Pallas kernels cast them, so B2, B2-2D, B5 and B5-2D with
+    f32 weights, B3 and B3-2D with bf16 element matrices and an f32
+    coefficient, and B4 and B4-2D on a bf16 source with f32 element
+    matrices and an f32 coefficient give, bit for bit, what bf16 inputs
+    give. What no kernel takes raises, and no source is cast: B5 with f64
+    weights, B4 with a bf16 coefficient beside an f32 source, B3 with a
+    bf16 coefficient beside f32 element matrices."""
     from hyteg_tpu_torch.functions.p1 import P1Space
     from hyteg_tpu_torch.functions.p2 import P2Space
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
@@ -4099,26 +4156,41 @@ def bf16_refusals(storage, device) -> dict:
         sp = P1Space(st, 3, device=device, dtype=bf16, pitch=9)
         op = P1ElementwiseOperator(sp, forms.laplace_form)
         x = torch.randn(sp.block_shape, generator=gen, device=device).to(bf16)
+        k = coeff_field(sp, device, gen, "random")  # f32
+        elm = op.elmats
         out[f"b2{tag}_bf16_f32_weights_rounded"] = torch.equal(
             b2.p1_const_apply(x, op.stencil.float(), op.stencil_face.float(),
                               3, dim, sp.pitch),
             b2.p1_const_apply(x, op.stencil, op.stencil_face, 3, dim,
                               sp.pitch))
+        out[f"b3{tag}_bf16_f32_coefficient_rounded"] = all(torch.equal(
+            b3.p1_diagonal_local(elm, 3, dim, sp.pitch, lumped, k, m),
+            b3.p1_diagonal_local(elm, 3, dim, sp.pitch, lumped, k.to(bf16),
+                                 m)) for lumped in (False, True)
+            for m in ("arithmetic", "harmonic"))
+        out[f"b4{tag}_bf16_f32_inputs_rounded"] = all(torch.equal(
+            b3.p1_apply_local(x, elm.float(), 3, dim, sp.pitch, kk, m),
+            b3.p1_apply_local(x, elm, 3, dim, sp.pitch,
+                              None if kk is None else kk.to(bf16), m))
+            for kk in (None, k) for m in ("arithmetic", "geometric"))
         sp2 = P2Space(st, 2, device=device, dtype=bf16, pitch=9)
         W = P2ElementwiseOperator(sp2, "laplace").stencil_folded
         x2 = torch.randn(sp2.block_shape, generator=gen, device=device).to(bf16)
         out[f"b5{tag}_bf16_f32_weights_rounded"] = torch.equal(
             b5.p2_const_apply(x2, W.float(), 2, sp2.pitch, dim),
             b5.p2_const_apply(x2, W, 2, sp2.pitch, dim))
-        for k in (f"b2{tag}", f"b5{tag}"):
-            check(out[f"{k}_bf16_f32_weights_rounded"],
-                  f"{k}-bf16 with f32 weights differs from bf16 weights")
+        for key in (f"b2{tag}_bf16_f32_weights_rounded",
+                    f"b3{tag}_bf16_f32_coefficient_rounded",
+                    f"b4{tag}_bf16_f32_inputs_rounded",
+                    f"b5{tag}_bf16_f32_weights_rounded"):
+            check(out[key], f"{key}: f32 inputs differ from bf16 inputs")
         calls.update({
-            f"b3{tag}_bf16_with_coefficient": lambda op=op, x=x, sp=sp,
-            dim=dim: b3.p1_diagonal_local(op.elmats, 3, dim, sp.pitch, False,
-                                          x),
-            f"b4{tag}_bf16": lambda op=op, x=x, sp=sp, dim=dim:
-            b3.p1_apply_local(x, op.elmats, 3, dim, sp.pitch),
+            f"b3{tag}_f32_elmats_bf16_coefficient": lambda elm=elm, k=k,
+            sp=sp, dim=dim: b3.p1_diagonal_local(elm.float(), 3, dim,
+                                                 sp.pitch, False, k.to(bf16)),
+            f"b4{tag}_f32_source_bf16_coefficient": lambda elm=elm, x=x, k=k,
+            sp=sp, dim=dim: b3.p1_apply_local(x.float(), elm.float(), 3, dim,
+                                              sp.pitch, k.to(bf16)),
             f"b5{tag}_bf16_with_f64_weights": lambda W=W, x2=x2, sp2=sp2,
             dim=dim: b5.p2_const_apply(x2, W.double(), 2, sp2.pitch, dim)})
     for name, call in calls.items():
@@ -4133,7 +4205,7 @@ def bf16_refusals(storage, device) -> dict:
 
 def refine_around_bf16(s32, s16, x0, b, f32_residuals: list, kernels: dict,
                        per_cycle: dict, f32_cycle_ms: float | None = None,
-                       gated: bool = True) -> dict:
+                       gated: bool = True, reps: int = 5) -> dict:
     """The run and gates of a mixed-precision phase: an f32 outer
     iterative_refinement (the f32 stack's residual, its operator's f32
     apply) around one bf16 V(3,3) cycle of ``s16`` per step, MP_OUTER
@@ -4148,7 +4220,9 @@ def refine_around_bf16(s32, s16, x0, b, f32_residuals: list, kernels: dict,
     time from its own phase (None: timed here). ``gated`` False (the 2D
     paths at full width, where the scheme does not converge: MP_GATE_2D):
     the residual histories are reported, and only the bf16 types and one
-    finite bf16 cycle are gated."""
+    finite bf16 cycle are gated. ``reps``: the timed runs of each cycle
+    and step (after 2 warm-up runs, 1 for the step). Stacks from coeff_stack run with their
+    coefficient (its f32 apply in the outer residual)."""
     from hyteg_tpu_torch.core.types import FLAG_INNER
     from hyteg_tpu_torch.solvers.refinement import iterative_refinement
 
@@ -4159,7 +4233,8 @@ def refine_around_bf16(s32, s16, x0, b, f32_residuals: list, kernels: dict,
         d.dtype == bf16 for d in s16.inv_diags.values()),
         "the bf16 stack is not bf16")
     op = s32.operators[top]
-    apply_hi = lambda v: op.apply_inner(v, sd, FLAG_INNER)
+    k32 = getattr(s32, "coeffs", {}).get(top)  # coeff_stack's, else None
+    apply_hi = lambda v: op.apply_inner(v, sd, FLAG_INNER, coeff=k32)
     inner = lambda r: s16.gmg.cycle(sp16.zeros(), r)
     r0 = s32.residual_norm(x0, b).item()
     plateau = sum(f32_residuals[-3:]) / 3  # the flat end of the f32 solve
@@ -4188,11 +4263,11 @@ def refine_around_bf16(s32, s16, x0, b, f32_residuals: list, kernels: dict,
           "the bf16 V-cycle is not bf16 and finite")
     del y1
     cyc16 = lambda: s16.gmg.cycle(sp16.zeros(), x1)
-    ms16 = median_ms(cyc16, 5, warmup=2)
-    ms32 = (median_ms(lambda: s32.gmg.cycle(x0, b), 5, warmup=2)
+    ms16 = median_ms(cyc16, reps, warmup=2)
+    ms32 = (median_ms(lambda: s32.gmg.cycle(x0, b), reps, warmup=2)
             if f32_cycle_ms is None else f32_cycle_ms)
     ms_step = median_ms(lambda: iterative_refinement(apply_hi, inner, b, x0, 1),
-                        5, warmup=1)
+                        reps, warmup=1)
     n0 = {k: getattr(w, a) for k, (w, a) in per_cycle.items()}
     cyc16()
     launches = {k: getattr(w, a) - n0[k] for k, (w, a) in per_cycle.items()}
@@ -4333,14 +4408,16 @@ def mixed_precision_2d_gate(rect, device, kind: str) -> dict:
     return out
 
 
-def zero_counts() -> None:
-    """Every launch count of the kernels with a bf16 form to 0 (B2, B3,
-    B5; f32 and bf16, 3D and 2D), before a mixed-precision path."""
+def zero_counts(wrappers=None) -> None:
+    """Every launch count (f32 and bf16, 3D and 2D) of ``wrappers`` to 0,
+    before a mixed-precision path; by default those of the constant-
+    coefficient kernels with a bf16 form (B2, B3, B5)."""
     from hyteg_tpu_torch.kernels import p1_const_stencil as b2
     from hyteg_tpu_torch.kernels import p1_stencil as b3
     from hyteg_tpu_torch.kernels import p2_const_stencil as b5
 
-    for w in (b2.p1_const_apply, b3.p1_diagonal_local, b5.p2_const_apply):
+    for w in wrappers or (b2.p1_const_apply, b3.p1_diagonal_local,
+                          b5.p2_const_apply):
         for a in ("launches", "launches_bf16", "launches_2d",
                   "launches_2d_bf16"):
             setattr(w, a, 0)
@@ -4797,6 +4874,315 @@ def run_bf16_gmg_kernels(storage, device, card: str) -> dict:
                "share_of_bound": v["bound"][0] / v["ms"]}
             for k, v in rows.items()})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The bf16 variable-coefficient P1 path (B4 and B3 with a coefficient in
+# bf16, 3D and 2D): an f32 refinement around one bf16 V(3,3) cycle of
+# -div(k grad u) = f
+# ---------------------------------------------------------------------------
+
+
+def linear_coeff(p):
+    """k = 1 + x + 0.5 y (the JAX package's tests/test_operator.py:189)."""
+    return 1.0 + p[..., 0] + 0.5 * p[..., 1]
+
+
+def coeff_stack(stack, k, eigs: dict | None = None,
+                coarse_iters: int = COARSE_ITERS, cheb_order: int = 4):
+    """A V-cycle for -div(k grad u) = f from a make_p1_gmg stack's public
+    pieces: its spaces, operators, shard data and levels' transfers
+    (restrict, prolongate_add), dots and zeros; each level's apply and
+    residual take k_l, ``k`` (a callable of coordinates) interpolated at
+    level l's nodes in f32 and, on a bf16 stack, rounded to bf16 once
+    (kernel B4 in the stack's type); Chebyshev of ``cheb_order`` on the
+    inverse diagonal with k_l (kernel B3 with a coefficient); the coarse
+    solve CG (``coarse_iters`` steps) on the coefficient apply; the
+    stack's pre / post counts. ``eigs`` (level -> lambda_max(D^-1 A_k)):
+    None runs 25 power iterations a level on this stack (a generator
+    seeded with the level), as an f32 stack does to give a bf16 one its
+    bounds. Returns a copy of the stack with this gmg, inv_diags and eigs,
+    its ``coeffs`` (level -> k_l), and ``residual`` taking k_l."""
+    import dataclasses
+
+    from hyteg_tpu_torch.core.types import DoFType
+    from hyteg_tpu_torch.solvers.gmg import GeometricMultigridSolver
+    from hyteg_tpu_torch.solvers.krylov import cg_solve_fixed
+    from hyteg_tpu_torch.solvers.smoothers import (chebyshev_smooth,
+                                                   estimate_spectral_radius)
+
+    lo, hi, flag, g = min(stack.spaces), max(stack.spaces), stack.flag, \
+        stack.gmg
+    lrange = range(lo, hi + 1)
+    sps, ops, sds = stack.spaces, stack.operators, stack.sds
+    coeffs = {l: sps[l].interpolate(k, sps[l].zeros(), DoFType.ALL, sds[l])
+              for l in lrange}
+    inv = {l: ops[l].inverse_diagonal(coeff=coeffs[l], sd=sds[l])
+           for l in lrange}
+    applies = {l: (lambda x, l=l: ops[l].apply_inner(x, sds[l], flag,
+                                                     coeff=coeffs[l]))
+               for l in lrange}
+    if eigs is None:
+        gen = torch.Generator(device=sps[lo].device)
+        eigs = {}
+        for l in lrange:
+            gen.manual_seed(l)
+            eigs[l] = float(estimate_spectral_radius(
+                applies[l], inv[l], g.levels[l].dot, sps[l].block_shape,
+                num_iter=25, generator=gen, dtype=sps[l].dtype))
+
+    def smooth(x, b, l):
+        xn = chebyshev_smooth(applies[l], inv[l], b, x, eigs[l],
+                              order=cheb_order)
+        return sps[l]._restore_rows_(xn, x, flag, sds[l])
+
+    def residual(x, b, level=None):
+        l = hi if level is None else level
+        r = ops[l].residual(x, b, coeff=coeffs[l], sd=sds[l])
+        return sps[l]._restore_rows_(r, None, flag, sds[l])
+
+    levels = {l: dataclasses.replace(
+        g.levels[l], apply=applies[l],
+        smooth=lambda x, b, l=l: smooth(x, b, l),
+        residual=lambda x, b, l=l: residual(x, b, l)) for l in lrange}
+    gmg = GeometricMultigridSolver(
+        levels, lambda b, x0: cg_solve_fixed(applies[lo], g.levels[lo].dot,
+                                             b, x0, coarse_iters),
+        lo, hi, g.pre, g.post)
+    out = dataclasses.replace(stack, gmg=gmg, inv_diags=inv, eigs=eigs)
+    out.coeffs, out.residual = coeffs, residual
+    return out
+
+
+def bf16_coeff_kernel_check(storage, level: int, device, seed: int,
+                            timed: bool = False) -> dict:
+    """B4-bf16 and B3-bf16 with a coefficient (3D, pitch 129; or their 2D
+    forms on 2D storage) against their plain versions at one level, on a
+    bf16 Laplace operator's element matrices (and the mass's, for the
+    lumped diagonal) and a seeded bf16 source: B4 without a coefficient and
+    in the three means, B3 (plain and lumped) in the three means, each on
+    the linear k and a seeded random k in [0.5, 1.5) rounded to bf16. Each
+    element within one bf16 ulp of the plain version (bf16_ulp_excess <= 1,
+    B1's rule), 0 outside the simplex and on padding lanes. ``timed``:
+    each kernel's ms in each mode on the linear k beside its bound (2-byte
+    entries), the plain version's ms (arithmetic)."""
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.kernels import p1_stencil as b34
+    from hyteg_tpu_torch.operators import forms
+    from hyteg_tpu_torch.operators.averaging import MODES
+    from hyteg_tpu_torch.operators.p1_elementwise import P1ElementwiseOperator
+
+    bf16 = torch.bfloat16
+    sp = P1Space(storage, level, device=device, dtype=bf16, pitch=PITCH)
+    dim, pitch = sp.dim, sp.pitch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    outside = ~sp.vertex_mask_t.bool()
+    lap = P1ElementwiseOperator(sp, forms.laplace_form).elmats
+    mass = P1ElementwiseOperator(sp, forms.mass_form).elmats
+    x = (torch.randn(sp.block_shape, generator=gen, device=device)
+         * sp.vertex_mask_t).to(bf16)
+    ks = {kind: coeff_field(sp, device, gen, kind).to(bf16)
+          for kind in ("linear", "random")}
+    out = {"level": level, "block": list(sp.block_shape)}
+    d = "-2D" if dim == 2 else ""
+
+    def gate(y, plain, what):
+        scale = plain.float().abs().max().item()
+        ex = bf16_ulp_excess(y, plain, scale)
+        check(y.dtype == bf16 and ex <= 1.0,
+              f"{what} level {level}: {ex} ulp excess")
+        check(not y[:, outside].any().item(),
+              f"{what} level {level}: nonzero outside the simplex")
+        return ex, max_abs_diff(y, plain)
+
+    cases = [(None, "arithmetic")] + [(kind, m) for kind in ks for m in MODES]
+    for kind, m in cases:
+        k = None if kind is None else ks[kind]
+        tag = "none" if k is None else f"{kind}_{m}"
+        y = b34.p1_apply_local(x, lap, level, dim, pitch, k, m)
+        plain = b34.p1_apply_local_torch(x, lap, level, dim, pitch, k, m)
+        ex, err = gate(y, plain, f"B4{d}-bf16 {tag}")
+        out[f"b4_bf16_{tag}_ulp_excess"] = ex
+        out[f"b4_bf16_{tag}_max_abs_err"] = err
+        del y, plain
+    for name, elm, lumped in (("laplace", lap, False), ("mass_lumped", mass,
+                                                       True)):
+        for kind, m in cases[1:]:
+            tag = f"{name}_{kind}_{m}"
+            y = b34.p1_diagonal_local(elm, level, dim, pitch, lumped,
+                                      ks[kind], m)
+            plain = b34.p1_diagonal_local_torch(elm, level, dim, pitch,
+                                                lumped, ks[kind], m)
+            ex, err = gate(y, plain, f"B3{d}-bf16 {tag}")
+            out[f"b3c_bf16_{tag}_ulp_excess"] = ex
+            out[f"b3c_bf16_{tag}_max_abs_err"] = err
+            del y, plain
+    if timed:
+        k = ks["linear"]
+        out["b4_bf16_ms_by_mode"] = {"none": median_ms(
+            lambda: b34.p1_apply_local(x, lap, level, dim, pitch), 10,
+            batch=10)} | {m: median_ms(
+                lambda m=m: b34.p1_apply_local(x, lap, level, dim, pitch, k,
+                                               m), 10, batch=10)
+                for m in MODES}
+        out["b4_bf16_ms"] = out["b4_bf16_ms_by_mode"]["arithmetic"]
+        out["b4_bf16_plain_ms"] = median_ms(
+            lambda: b34.p1_apply_local_torch(x, lap, level, dim, pitch, k), 3,
+            warmup=1)
+        out["b4_bf16_bound"] = bound(*b4_work(sp, x, lap))
+        out["b3c_bf16_ms_by_mode"] = {m: median_ms(
+            lambda m=m: b34.p1_diagonal_local(lap, level, dim, pitch, False,
+                                              k, m), 10, batch=10)
+            for m in MODES}
+        out["b3c_bf16_ms"] = out["b3c_bf16_ms_by_mode"]["arithmetic"]
+        out["b3c_bf16_plain_ms"] = median_ms(
+            lambda: b34.p1_diagonal_local_torch(lap, level, dim, pitch, False,
+                                                k), 3, warmup=1)
+        out["b3c_bf16_bound"] = bound(*b3_coeff_work(sp, lap, x))
+    del x, ks, lap, mass
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixed_precision_coeff(storage, device, level: int,
+                          gated: bool = True) -> dict:
+    """The bf16 variable-coefficient path on ``storage`` (3D or 2D) at P1
+    ``level``: make_p1_gmg's f32 and bf16 stacks (MIN_LEVEL up), made
+    coefficient stacks by coeff_stack on k = 1 + x + 0.5 y (the bf16 one
+    on the f32 one's eigenvalue bounds); the f32 coefficient V(3,3) solve
+    of the manufactured problem (MP_COEFF_CYCLES cycles: its plateau, and
+    its rate over cycles 1-4, gated at RATE_MAX when ``gated`` in 3D; in
+    2D the rates on A x = 0, homogeneous_rates, are gated), then
+    refine_around_bf16 (its gates when ``gated``). The counts of B3 and B4
+    start at 0 after the two base stacks are built, so they count the
+    coefficient set-up and the run. Reports set-up s, peak GB, the launches
+    by kernel and the bf16 launches per cycle."""
+    from hyteg_tpu_torch.kernels import p1_stencil as b34
+    from hyteg_tpu_torch.solvers.templates import make_p1_gmg
+
+    bf16 = torch.bfloat16
+    kw = dict(min_level=MIN_LEVEL, max_level=level, smoother="chebyshev",
+              coarse_iters=COARSE_ITERS, device=device)
+    sfx = "" if storage.dim == 3 else "_2d"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base32 = make_p1_gmg(storage, **kw)
+    base16 = make_p1_gmg(storage, dtype=bf16, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    zero_counts((b34.p1_apply_local, b34.p1_diagonal_local))
+    s32 = coeff_stack(base32, linear_coeff)
+    s16 = coeff_stack(base16, linear_coeff, eigs=s32.eigs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    x0, b, _ = manufactured(s32)
+    res, x = [s32.residual_norm(x0, b).item()], x0
+    for _ in range(MP_COEFF_CYCLES):
+        x = s32.gmg.cycle(x, b)
+        res.append(s32.residual_norm(x, b).item())
+    del x
+    rate = (res[4] / res[0]) ** 0.25
+    check(all(math.isfinite(r) for r in res),
+          f"coefficient level {level}: non-finite f32 residuals {res}")
+    # the rate gated as the main path gates it: in 3D on the manufactured
+    # problem, in 2D on A x = 0 (the 2D f32 floor sits near the manufactured
+    # residual after a cycle or two)
+    hom = (homogeneous_rates(s32, device, 760 + level, RATE_MAX)
+           if gated and storage.dim == 2 else None)
+    check(not gated or storage.dim == 2 or rate <= RATE_MAX,
+          f"coefficient level {level}: f32 residual rate {rate} > {RATE_MAX}")
+    out = refine_around_bf16(
+        s32, s16, x0, b, res, {"b4_bf16": ("p1_apply_bf16_kernel",
+                                           "p1_apply_2d_bf16_kernel")},
+        {f"p1_apply_local{sfx}_bf16": (b34.p1_apply_local,
+                                       f"launches{sfx}_bf16")}, None, gated,
+        reps=3)
+    counts = {f"p1_apply_local{sfx}_bf16":
+              getattr(b34.p1_apply_local, f"launches{sfx}_bf16"),
+              f"p1_diagonal_local{sfx}_coeff_bf16":
+              getattr(b34.p1_diagonal_local, f"launches{sfx}_bf16")}
+    f32 = {f"p1_apply_local{sfx}":
+           getattr(b34.p1_apply_local, f"launches{sfx}")
+           - counts[f"p1_apply_local{sfx}_bf16"],
+           f"p1_diagonal_local{sfx}":
+           getattr(b34.p1_diagonal_local, f"launches{sfx}")
+           - counts[f"p1_diagonal_local{sfx}_coeff_bf16"]}
+    out.update({"coefficient": "1 + x + 0.5 y", "mean": "arithmetic",
+                "f32_residuals": res, "f32_rate_cycles_1_4": rate,
+                "f32_homogeneous": hom,
+                "eigs_f32_coeff": s32.eigs,
+                "setup_s_base_stacks": t1 - t0,
+                "setup_s_coefficient_stacks": t2 - t1,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts, "f32_launches": f32})
+    del s32, s16, base32, base16, x0, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_bf16_coeff(storage, device, card: str) -> dict:
+    """bf16_coeff_kernels: B4-bf16 and B3-bf16 with a coefficient at every
+    P1 level 2-7 (pitch 129) and their 2D forms at every P1 level 2-11 of
+    the rect, each timed at its top level; then the paths, each with the
+    counts of B3 and B4 from 0: mixed_precision_coeff (3D, level 7),
+    mixed_precision_coeff_2d (level 11: reported, not gated) and
+    mixed_precision_coeff_2d_gated (MP_GATE_2D["p1"]). Returns the kernels
+    line's rows of the four bf16 forms and the paths' f32 launches."""
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_rectangle
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    t0 = time.perf_counter()
+    rect = CellStorage(mesh_rectangle(**RECT_2D))
+    checks = {3: [], 2: []}
+    for dim, st, top in ((3, storage, SLICE_LEVELS[-1]), (2, rect, LEVEL_2D)):
+        for lv in range(MIN_LEVEL, top + 1):
+            checks[dim].append(bf16_coeff_kernel_check(
+                st, lv, device, 700 + 20 * dim + lv, timed=lv == top))
+            emit("bf16_coeff_kernels", card=card, dim=dim, **checks[dim][-1])
+    mixed = {}
+    for path, st, level, gated in (
+            ("mixed_precision_coeff", storage, MP_LEVEL, True),
+            ("mixed_precision_coeff_2d", rect, LEVEL_2D, False),
+            ("mixed_precision_coeff_2d_gated", rect, MP_GATE_2D["p1"], True)):
+        t1 = time.perf_counter()
+        mixed[path] = mixed_precision_coeff(st, device, level, gated)
+        emit(path, card=card, phase_s=time.perf_counter() - t1,
+             mesh=(f"mesh_unit_cube({MESH_N})" if st is storage
+                   else "mesh_rectangle(nx=4, ny=4)"), **mixed[path])
+        for name, n in mixed[path]["launches"].items():
+            check(n > 0, f"{name} was not launched on the {path} path")
+    rows = {}
+    for name, dim, tag in (("p1_apply_local_bf16", 3, "b4"),
+                           ("p1_apply_local_2d_bf16", 2, "b4"),
+                           ("p1_diagonal_local_coeff_bf16", 3, "b3c"),
+                           ("p1_diagonal_local_2d_coeff_bf16", 2, "b3c")):
+        top = checks[dim][-1]
+        by_path = {path: mp["launches"][name] for path, mp in mixed.items()
+                   if name in mp["launches"]}
+        rows[name] = {
+            "ms": top[f"{tag}_bf16_ms"], "plain_ms": top[f"{tag}_bf16_plain_ms"],
+            "bound": top[f"{tag}_bf16_bound"], "level": top["level"],
+            "ms_by_mode": top[f"{tag}_bf16_ms_by_mode"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(v for c in checks[dim] for k, v in c.items()
+                               if k.startswith(f"{tag}_bf16_")
+                               and k.endswith("_max_abs_err")),
+            "ulp_excess": max(v for c in checks[dim] for k, v in c.items()
+                              if k.startswith(f"{tag}_bf16_")
+                              and k.endswith("_ulp_excess"))}
+    f32 = {}
+    for path, mp in mixed.items():
+        for name, n in mp["f32_launches"].items():
+            f32.setdefault(name, {})[path] = n
+    emit("bf16_coeff_kernel_timings", card=card,
+         phase_s=time.perf_counter() - t0,
+         **{k: {kk: v[kk] for kk in ("level", "ms", "plain_ms", "ms_by_mode",
+                                      "ulp_excess", "launches")}
+            | {"bound_ms": v["bound"][0],
+               "share_of_bound": v["bound"][0] / v["ms"]}
+            for k, v in rows.items()})
+    return {"rows": rows, "f32_launches": f32,
+            "phase_s": time.perf_counter() - t0}
 
 
 def run_a10(storage, device, card: str, f32_residuals: list) -> dict:
@@ -5449,6 +5835,15 @@ def main() -> int:
     bf16_rows = run_bf16_gmg_kernels(storage, device, card)
     torch.cuda.empty_cache()
 
+    # -- the bf16 variable-coefficient path (B4, B4-2D, B3 and B3-2D with a
+    # coefficient in bf16; B4 and B3 in f32 for the outer residual and the
+    # f32 hierarchy) ---------------------------------------------------------
+    coeff16 = run_bf16_coeff(storage, device, card)
+    emit("bf16_coeff_checks", phase_s=coeff16["phase_s"],
+         launches={k: v["launches"] for k, v in coeff16["rows"].items()},
+         f32_launches=coeff16["f32_launches"])
+    torch.cuda.empty_cache()
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -5603,6 +5998,24 @@ def main() -> int:
                            path: mp["launches"][name]
                            for path, mp in mixed.items()
                            if name in mp["launches"]}}
+    # and the bf16 coefficient path's: its four bf16 rows, the f32 launches
+    # of B4 and B3 (3D, 2D) by path
+    for name, by in coeff16["f32_launches"].items():
+        by_path = extra.setdefault(name, {}).setdefault(
+            "launches_by_path", {"earlier_paths": launches[name]})
+        by_path.update(by)
+        launches[name] += sum(by.values())
+    for name, row in coeff16["rows"].items():
+        t[name], t[name + "_plain"] = row["ms"], row["plain_ms"]
+        bounds[name], lib_ms[name] = row["bound"], None
+        errs[name], timed[name] = row["max_abs_err"], name
+        launches[name] = row["launches"]
+        if "_2d" in name:
+            p1_size[name] = "face_level11_block"
+        extra[name] = {"label": BF16_LABELS[name], "storage": "bf16",
+                       "level": row["level"], "ulp_excess": row["ulp_excess"],
+                       "ms_by_mode": row["ms_by_mode"],
+                       "launches_by_path": row["launches_by_path"]}
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

@@ -1,6 +1,7 @@
-// bf16 storage for the kernels that take it (B2, B3 and B5, each in 3D
-// and 2D): a source that widens each load to f32 and a store that rounds
-// each f32 result to bf16 (round to nearest even) once. Device-only: host
+// bf16 storage for the kernels that take it (B2, B3, B4 and B5, each in
+// 3D and 2D): a source that widens each load to f32 (also a coefficient's)
+// and a store that rounds each f32 result to bf16 (round to nearest even)
+// once. Device-only: host
 // tests of the walks pass their own source and store of the same shape.
 #pragma once
 
@@ -27,6 +28,10 @@ struct BF16Src {
   // 0 where p is at a 4-byte boundary (a pair load may start), else 1
   __device__ __forceinline__ int pair_parity() const {
     return (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 1);
+  }
+  // set or not, as a pointer tests: BF16Src{} is a missing coefficient
+  __device__ __forceinline__ explicit operator bool() const {
+    return p != nullptr;
   }
 };
 

@@ -34,8 +34,20 @@
 // rows x 64 slots once, in shared memory (4.78 transforms per in-tet slot
 // at level 7 instead of 14.82), ran slower than this one on the card in
 // every mean and was dropped (PERF.md, PR 10).
+//
+// bf16 (p1_apply_bf16_kernel): the same plane walk on a bf16 source,
+// coefficient and block (BF16Src, BF16CellStore in bf16.cuh) and bf16
+// element matrices, which widen into the shared rows; every load widens
+// to f32, the coefficient transforms, means and sums stay f32, and each
+// result is rounded to bf16 once on its store. A kernel of its own beside
+// the f32 one, which keeps its code. It replaces the Pallas kernel run on
+// a bf16 source, which casts the element matrices and the coefficient to
+// the source's type (hyteg_tpu/kernels/p1_stencil.py:205,218). Bound: the
+// f32 kernel's bytes with the block's bytes halved.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "p1_apply.cuh"
 
 namespace {
@@ -66,12 +78,40 @@ p1_apply_kernel(const float* __restrict__ src, const float* __restrict__ coeff,
                     threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
 }
 
+// The bf16 form: thread block (cell c, plane x), the element matrices
+// widened into the shared rows, the walk on bf16 storage. MODE as above.
 template <int MODE>
-void launch(const float* src, const float* coeff, const float* elmats,
-            float* dst, int C, int N, int pitch, cudaStream_t s) {
-  p1_apply_kernel<MODE><<<dim3((unsigned)C, (unsigned)N),
-                          hyteg::kApplyThreads, 0, s>>>(src, coeff, elmats,
-                                                        dst, N, pitch);
+__global__ void __launch_bounds__(hyteg::kApplyThreads,
+                                  kApplyMinBlocks[MODE + 1])
+p1_apply_bf16_kernel(const __nv_bfloat16* __restrict__ src,
+                     const __nv_bfloat16* __restrict__ coeff,
+                     const __nv_bfloat16* __restrict__ elmats,
+                     __nv_bfloat16* __restrict__ dst, int N, int pitch) {
+  using namespace hyteg;
+  __shared__ __align__(16) float e_s[kElm];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < kElm; i += blockDim.x)
+    e_s[i] = widen(elmats[c * kElm + i]);
+  __syncthreads();
+  const long long cell = (long long)N * N * pitch;
+  apply_plane<MODE>(BF16Src{src + c * cell},
+                    MODE < 0 ? BF16Src{} : BF16Src{coeff + c * cell},
+                    BF16CellStore{dst + c * cell}, blockIdx.y, N, pitch, e_s,
+                    threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
+}
+
+// The launch of kernels[k], k from diag_kernel, on grid (C, N).
+template <typename T>
+int launch_mode(void (*const (&kernels)[4])(const T*, const T*, const T*, T*,
+                                              int, int),
+                const T* src, const T* coeff, const T* elmats, T* dst, int C,
+                int N, int pitch, int mode, const int* offs,
+                const int* margins, void* stream) {
+  const int k = hyteg::diag_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  kernels[k]<<<dim3((unsigned)C, (unsigned)N), hyteg::kApplyThreads, 0,
+               (cudaStream_t)stream>>>(src, coeff, elmats, dst, N, pitch);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -85,23 +125,28 @@ extern "C" int hyteg_p1_apply(const float* src, const float* coeff,
                               const float* elmats, float* dst, int C, int N,
                               int pitch, int mode, const int* offs,
                               const int* margins, void* stream) {
-  using namespace hyteg;
-  for (int t = 0; t < kClasses; ++t) {
-    if (margins[t] != kDiagMargin[t]) return (int)cudaErrorInvalidValue;
-    for (int a = 0; a < kVerts; ++a)
-      for (int d = 0; d < 3; ++d)
-        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d])
-          return (int)cudaErrorInvalidValue;
-  }
-  if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!coeff)
-    launch<-1>(src, coeff, elmats, dst, C, N, pitch, s);
-  else if (mode == 0)
-    launch<0>(src, coeff, elmats, dst, C, N, pitch, s);
-  else if (mode == 1)
-    launch<1>(src, coeff, elmats, dst, C, N, pitch, s);
-  else
-    launch<2>(src, coeff, elmats, dst, C, N, pitch, s);
-  return (int)cudaGetLastError();
+  static void (*const kernels[4])(const float*, const float*, const float*,
+                                  float*, int, int) = {
+      p1_apply_kernel<-1>, p1_apply_kernel<0>, p1_apply_kernel<1>,
+      p1_apply_kernel<2>};
+  return launch_mode(kernels, src, coeff, elmats, dst, C, N, pitch, mode,
+                     offs, margins, stream);
+}
+
+// The bf16 form: src, coeff (or null), elmats (C, 6, 4, 4) and dst all
+// bf16; the rest as hyteg_p1_apply's.
+extern "C" int hyteg_p1_apply_bf16(const void* src, const void* coeff,
+                                   const void* elmats, void* dst, int C,
+                                   int N, int pitch, int mode,
+                                   const int* offs, const int* margins,
+                                   void* stream) {
+  using B = __nv_bfloat16;
+  static void (*const kernels[4])(const B*, const B*, const B*, B*, int,
+                                  int) = {
+      p1_apply_bf16_kernel<-1>, p1_apply_bf16_kernel<0>,
+      p1_apply_bf16_kernel<1>, p1_apply_bf16_kernel<2>};
+  return launch_mode(
+      kernels, static_cast<const B*>(src), static_cast<const B*>(coeff),
+      static_cast<const B*>(elmats), static_cast<B*>(dst), C, N, pitch, mode,
+      offs, margins, stream);
 }

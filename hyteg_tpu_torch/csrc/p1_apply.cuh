@@ -4,6 +4,11 @@
 // hyteg_tpu_torch/kernels/p1_stencil.py:
 //   elmats of one cell: (6, 4, 4) f32, one matrix per micro-tet
 //   congruence class t; src, coeff and dst blocks: (N, L), L = N * pitch.
+// The source and the coefficient are template parameters Src and Co,
+// read as p[i] -> float and p + k (and a coefficient tested as a
+// pointer is): a plain const float* for f32 storage, or bf16.cuh's
+// BF16Src, which widens each bf16 load (a missing coefficient is Co{}).
+// Every sum and mean is f32; the store (Out) rounds once for bf16.
 #pragma once
 
 #include <utility>
@@ -75,9 +80,9 @@ HYTEG_DEVICE float coeff_finish(float s, int mode, int nv = kApplyVerts) {
 // terms) are read once. Reads beyond the block are 0, as in
 // flat.shift_read; a valid base never reads there. 0 outside the tet and
 // on padding lanes. coeff may be null.
-HYTEG_DEVICE float p1_apply_point(const float* src, const float* coeff,
-                                  int x, int lane, int N, int pitch,
-                                  const float* elm, int mode) {
+template <class Src, class Co>
+HYTEG_DEVICE float p1_apply_point(Src src, Co coeff, int x, int lane, int N,
+                                  int pitch, const float* elm, int mode) {
   const int n = N - 1;
   const int L = N * pitch;
   const int y = lane / pitch;
@@ -166,9 +171,8 @@ HYTEG_DEVICE ElmRow elm_row(const float* elm, int I) {
 
 // v[K] = p[move K], for the 15 moves used; transformed by MODE when
 // MODE >= 0 (a coefficient), as read when MODE < 0 (src).
-template <int MODE, int K>
-HYTEG_DEVICE void apply_load_nbr(float (&v)[27], const float* p, int L,
-                                 int pitch) {
+template <int MODE, int K, class P>
+HYTEG_DEVICE void apply_load_nbr(float (&v)[27], P p, int L, int pitch) {
   if constexpr (diag_nbr_used(K)) {
     const float r = p[(K / 9 - 1) * L + (K / 3 % 3 - 1) * pitch + (K % 3 - 1)];
     if constexpr (MODE < 0)
@@ -215,9 +219,9 @@ HYTEG_DEVICE void apply_elem_term(float& acc, const float (&u)[27],
   }
 }
 
-template <int MODE, int... K, int... I>
-HYTEG_DEVICE float apply_interior_seq(const float* p, const float* k, int L,
-                                      int pitch, const float* elm,
+template <int MODE, class Src, class Co, int... K, int... I>
+HYTEG_DEVICE float apply_interior_seq(Src p, Co k, int L, int pitch,
+                                      const float* elm,
                                       std::integer_sequence<int, K...>,
                                       std::integer_sequence<int, I...>) {
   float u[27], g[27];
@@ -233,9 +237,9 @@ HYTEG_DEVICE float apply_interior_seq(const float* p, const float* k, int L,
 // neighbours read once, each coefficient value transformed once, the 24
 // element means formed from compile-time vertex lists, no tests. The
 // same terms in the same order as p1_apply_point.
-template <int MODE>
-HYTEG_DEVICE float apply_interior(const float* p, const float* k, int L,
-                                  int pitch, const float* elm) {
+template <int MODE, class Src, class Co>
+HYTEG_DEVICE float apply_interior(Src p, Co k, int L, int pitch,
+                                  const float* elm) {
   return apply_interior_seq<MODE>(
       p, k, L, pitch, elm, std::make_integer_sequence<int, 27>{},
       std::make_integer_sequence<int, kClasses * kVerts>{});
@@ -248,10 +252,9 @@ HYTEG_DEVICE float apply_interior(const float* p, const float* k, int L,
 #else
 #define HYTEG_NOINLINE inline
 #endif
-template <int MODE>
-HYTEG_NOINLINE float apply_point_rim(const float* src, const float* coeff,
-                                     int x, int lane, int N, int pitch,
-                                     const float* elm) {
+template <int MODE, class Src, class Co>
+HYTEG_NOINLINE float apply_point_rim(Src src, Co coeff, int x, int lane,
+                                     int N, int pitch, const float* elm) {
   return p1_apply_point(src, coeff, x, lane, N, pitch, elm, MODE);
 }
 
@@ -260,9 +263,9 @@ HYTEG_NOINLINE float apply_point_rim(const float* src, const float* coeff,
 // turn; else row y = 0 is face, its slots to all threads, and the face
 // slot z = 0 and the shell slot z = r - 1 of rows 1 .. n - x form one list
 // over all threads, so that no row waits on them. Then the zero runs.
-template <int MODE, class Out>
-HYTEG_DEVICE void apply_plane_rim(const float* src, const float* coeff,
-                                  const Out& out, int x, int N, int pitch,
+template <int MODE, class Src, class Co, class Out>
+HYTEG_DEVICE void apply_plane_rim(Src src, Co coeff, const Out& out, int x,
+                                  int N, int pitch,
                                   const float* elm, int tid, int nthreads) {
   const int L = N * pitch;
   const int ry = N - 1 - x;  // last row that meets the tet
@@ -293,10 +296,10 @@ HYTEG_DEVICE void apply_plane_rim(const float* src, const float* coeff,
 // Kernel B4's block (cell, plane x), thread (warp, lane) of nwarps: the
 // rim, then rows y = 1 + warp, 1 + warp + nwarps, ... whose slots z = 1
 // .. r - 2 run apply_interior, 32 lanes at a time.
-// coeff may be null when MODE < 0.
-template <int MODE, class Out>
-HYTEG_DEVICE void apply_plane(const float* src, const float* coeff,
-                              const Out& out, int x, int N, int pitch,
+// coeff may be missing (Co{}) when MODE < 0.
+template <int MODE, class Src, class Co, class Out>
+HYTEG_DEVICE void apply_plane(Src src, Co coeff, const Out& out, int x,
+                              int N, int pitch,
                               const float* elm, int warp, int lane,
                               int nwarps) {
   const int L = N * pitch;
@@ -309,7 +312,7 @@ HYTEG_DEVICE void apply_plane(const float* src, const float* coeff,
     for (int z = 1 + lane; z - lane <= zl; z += 32)
       if (z <= zl)
         out(row + z, apply_interior<MODE>(src + row + z,
-                                          coeff ? coeff + row + z : nullptr,
+                                          coeff ? coeff + row + z : Co{},
                                           L, pitch, elm));
   }
 }

@@ -35,12 +35,16 @@
 // arithmetic one on their 15 transforms and 24 divisions or exponentials
 // per slot.
 //
-// bf16 (no coefficient): the same walk on bf16 element matrices and a
-// bf16 block (BF16CellStore in bf16.cuh); the entries widen to f32, the
-// 24 weights and 16 class values are folded in f32, and each slot's value
-// is rounded to bf16 once on its store. It replaces the Pallas kernel run
-// on bf16 element matrices, which writes in their type
-// (hyteg_tpu/kernels/p1_stencil.py:303).
+// bf16: the same walks on bf16 element matrices and a bf16 block
+// (BF16CellStore in bf16.cuh), and with a coefficient on a bf16
+// coefficient (BF16Src); the entries widen to f32, the 24 weights and 16
+// class values are folded in f32, the coefficient's transforms and means
+// are f32, and each slot's value is rounded to bf16 once on its store. A
+// kernel of its own beside the f32 one, which keeps its code. It replaces
+// the Pallas kernel run on bf16 element matrices, which writes in their
+// type and casts the coefficient to it (hyteg_tpu/kernels/p1_stencil.py:
+// 299,303). Bound: the f32 kernel's bytes with the block's and the
+// coefficient's bytes halved.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -84,9 +88,12 @@ p1_diag_kernel(const float* __restrict__ elmats,
   }
 }
 
-// The bf16 form, without a coefficient: thread block (cell c, plane x).
+// The bf16 form: thread block (cell c, plane x), MODE as above, the
+// element matrices widened into shared memory.
+template <int MODE>
 __global__ void __launch_bounds__(kPlaneThreads, 4)
 p1_diag_bf16_kernel(const __nv_bfloat16* __restrict__ elmats,
+                    const __nv_bfloat16* __restrict__ coeff,
                     __nv_bfloat16* __restrict__ dst, int N, int pitch,
                     int lumped) {
   using namespace hyteg;
@@ -99,22 +106,18 @@ p1_diag_bf16_kernel(const __nv_bfloat16* __restrict__ elmats,
   __syncthreads();
   diag_fold_weights(e_s, lumped, w, threadIdx.x, blockDim.x);
   __syncthreads();
-  diag_fold_classes(w, cls, threadIdx.x, blockDim.x);
-  __syncthreads();
   const long long cell = (long long)N * N * pitch;
-  diag_plane(BF16CellStore{dst + c * cell}, blockIdx.y, N, pitch, cls,
-             threadIdx.x >> 5, threadIdx.x & 31, blockDim.x >> 5);
-}
-
-bool tables_ok(const int* offs, const int* margins) {
-  using namespace hyteg;
-  for (int t = 0; t < kClasses; ++t) {
-    if (margins[t] != kDiagMargin[t]) return false;
-    for (int a = 0; a < kVerts; ++a)
-      for (int d = 0; d < 3; ++d)
-        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d]) return false;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if constexpr (MODE < 0) {
+    diag_fold_classes(w, cls, threadIdx.x, blockDim.x);
+    __syncthreads();
+    diag_plane(BF16CellStore{dst + c * cell}, blockIdx.y, N, pitch, cls,
+               warp, lane, blockDim.x >> 5);
+  } else {
+    diag_plane_coeff<MODE>(BF16Src{coeff + c * cell},
+                           BF16CellStore{dst + c * cell}, blockIdx.y, N,
+                           pitch, w, warp, lane, blockDim.x >> 5);
   }
-  return true;
 }
 
 }  // namespace
@@ -128,35 +131,32 @@ extern "C" int hyteg_p1_diag(const float* elmats, const float* coeff,
                              float* dst, int C, int N, int pitch, int lumped,
                              int mode, const int* offs, const int* margins,
                              void* stream) {
-  using namespace hyteg;
-  if (!tables_ok(offs, margins)) return (int)cudaErrorInvalidValue;
-  if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)C, (unsigned)N);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!coeff)
-    p1_diag_kernel<-1><<<grid, kPlaneThreads, 0, s>>>(elmats, coeff, dst, N,
-                                                      pitch, lumped);
-  else if (mode == 0)
-    p1_diag_kernel<0><<<grid, kPlaneThreads, 0, s>>>(elmats, coeff, dst, N,
-                                                     pitch, lumped);
-  else if (mode == 1)
-    p1_diag_kernel<1><<<grid, kPlaneThreads, 0, s>>>(elmats, coeff, dst, N,
-                                                     pitch, lumped);
-  else
-    p1_diag_kernel<2><<<grid, kPlaneThreads, 0, s>>>(elmats, coeff, dst, N,
-                                                     pitch, lumped);
+  const int k = hyteg::diag_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  static void (*const kernels[4])(const float*, const float*, float*, int,
+                                  int, int) = {
+      p1_diag_kernel<-1>, p1_diag_kernel<0>, p1_diag_kernel<1>,
+      p1_diag_kernel<2>};
+  kernels[k]<<<dim3((unsigned)C, (unsigned)N), kPlaneThreads, 0,
+               (cudaStream_t)stream>>>(elmats, coeff, dst, N, pitch, lumped);
   return (int)cudaGetLastError();
 }
 
-// The bf16 form: elmats (C, 6, 4, 4) and dst bf16, no coefficient; the
-// tables as hyteg_p1_diag's. Returns cudaGetLastError() after the launch.
-extern "C" int hyteg_p1_diag_bf16(const void* elmats, void* dst, int C, int N,
-                                  int pitch, int lumped, const int* offs,
+// The bf16 form: elmats (C, 6, 4, 4), coeff (or null) and dst bf16; the
+// rest as hyteg_p1_diag's. Returns cudaGetLastError() after the launch.
+extern "C" int hyteg_p1_diag_bf16(const void* elmats, const void* coeff,
+                                  void* dst, int C, int N, int pitch,
+                                  int lumped, int mode, const int* offs,
                                   const int* margins, void* stream) {
-  if (!tables_ok(offs, margins)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)C, (unsigned)N);
-  p1_diag_bf16_kernel<<<grid, kPlaneThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(elmats),
-      static_cast<__nv_bfloat16*>(dst), N, pitch, lumped);
+  using B = __nv_bfloat16;
+  const int k = hyteg::diag_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  static void (*const kernels[4])(const B*, const B*, B*, int, int, int) = {
+      p1_diag_bf16_kernel<-1>, p1_diag_bf16_kernel<0>,
+      p1_diag_bf16_kernel<1>, p1_diag_bf16_kernel<2>};
+  kernels[k]<<<dim3((unsigned)C, (unsigned)N), kPlaneThreads, 0,
+               (cudaStream_t)stream>>>(
+      static_cast<const B*>(elmats), static_cast<const B*>(coeff),
+      static_cast<B*>(dst), N, pitch, lumped);
   return (int)cudaGetLastError();
 }

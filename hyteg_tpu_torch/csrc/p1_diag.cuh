@@ -5,9 +5,12 @@
 //   elmats of one cell: (6, 4, 4) f32 element matrices, one per micro-tet
 //   congruence class t; dst and coeff blocks: (N, L), L = N * pitch,
 //   lane = y * pitch + z.
-// The walks store through a template Out: f32 (CellStore) or, without a
-// coefficient, bf16 storage that rounds the f32 class value once
-// (p1_diag.cu's BF16CellStore); the weights are f32 either way.
+// The walks store through a template Out: f32 (CellStore) or bf16
+// storage that rounds each f32 value once (bf16.cuh's BF16CellStore);
+// the weights are f32 either way. The coefficient is a template
+// parameter Co, read as p[i] -> float and p + k and tested as a pointer
+// is: a const float*, or bf16.cuh's BF16Src, which widens each load (a
+// missing coefficient is Co{}); its means are f32.
 #pragma once
 
 #include <utility>
@@ -75,6 +78,22 @@ static_assert(diag_class_rule_holds(),
               "the diagonal's weights depend on more than (face set, shell)");
 constexpr int kDiagRows = 16;  // 8 face sets x 2 shell flags
 
+// The kernel of a B3 or B4 launcher's table of four (mode -1 .. 2) that
+// runs: [0] without a coefficient, else [mode + 1]; -1 (nothing launched)
+// for class tables (offs (6, 4, 3), margins (6,), host int32) other than
+// the compiled kDiagOff and kDiagMargin, or a mode outside 0-2. Host code.
+inline int diag_kernel(const void* coeff, int mode, const int* offs,
+                       const int* margins) {
+  for (int t = 0; t < kClasses; ++t) {
+    if (margins[t] != kDiagMargin[t]) return -1;
+    for (int a = 0; a < kVerts; ++a)
+      for (int d = 0; d < 3; ++d)
+        if (offs[(t * kVerts + a) * 3 + d] != kDiagOff[t][a][d]) return -1;
+  }
+  if (!coeff) return 0;
+  return mode < 0 || mode > 2 ? -1 : mode + 1;
+}
+
 // Vertex a of class t as compile-time constants (device code reads the
 // tables above only in constant expressions): its offset, the class's
 // margin, its face mask (bit i: off_i = 1) and its gap.
@@ -138,9 +157,9 @@ HYTEG_DEVICE float diag_coeff_mean_of(float s, int mode) {
 
 // Mean of the nodal coefficient over the vertices of the class-T element
 // whose base lies at offset q of the cell's block.
-template <int T>
-HYTEG_DEVICE float diag_coeff_mean(const float* coeff, int q, int L,
-                                   int pitch, int mode) {
+template <int T, class Co>
+HYTEG_DEVICE float diag_coeff_mean(Co coeff, int q, int L, int pitch,
+                                   int mode) {
   float s = 0.f;
   s += diag_coeff_term(coeff[q + DiagVert<T, 0>::ox * L +
                              DiagVert<T, 0>::oy * pitch + DiagVert<T, 0>::oz],
@@ -157,10 +176,10 @@ HYTEG_DEVICE float diag_coeff_mean(const float* coeff, int q, int L,
   return diag_coeff_mean_of(s, mode);
 }
 
-template <int I>
-HYTEG_DEVICE void diag_point_term(float& acc, const float* coeff, int x,
-                                  int y, int z, int n, int L, int pitch,
-                                  const float* w, int mode) {
+template <int I, class Co>
+HYTEG_DEVICE void diag_point_term(float& acc, Co coeff, int x, int y, int z,
+                                  int n, int L, int pitch, const float* w,
+                                  int mode) {
   using V = DiagVert<I / kVerts, I % kVerts>;
   const int qx = x - V::ox, qy = y - V::oy, qz = z - V::oz;
   if (qx < 0 || qy < 0 || qz < 0 || qx + qy + qz > n - V::margin) return;
@@ -171,9 +190,9 @@ HYTEG_DEVICE void diag_point_term(float& acc, const float* coeff, int x,
   acc += v;
 }
 
-template <int... I>
-HYTEG_DEVICE float diag_point_seq(const float* coeff, int x, int y, int z,
-                                  int N, int pitch, const float* w, int mode,
+template <class Co, int... I>
+HYTEG_DEVICE float diag_point_seq(Co coeff, int x, int y, int z, int N,
+                                  int pitch, const float* w, int mode,
                                   std::integer_sequence<int, I...>) {
   float acc = 0.f;
   (diag_point_term<I>(acc, coeff, x, y, z, N - 1, N * pitch, pitch, w, mode),
@@ -187,7 +206,8 @@ HYTEG_DEVICE float diag_point_seq(const float* coeff, int x, int y, int z,
 // S(q) <= n - margin), each base tested. coeff may be null. The kernel's
 // path for slots on a coordinate face or the shell when it has a
 // coefficient.
-HYTEG_DEVICE float diag_point(const float* coeff, int x, int y, int z, int N,
+template <class Co>
+HYTEG_DEVICE float diag_point(Co coeff, int x, int y, int z, int N,
                               int pitch, const float* w, int mode) {
   return diag_point_seq(coeff, x, y, z, N, pitch, w, mode,
                         std::make_integer_sequence<int, kClasses * kVerts>{});
@@ -213,9 +233,8 @@ HYTEG_HD constexpr bool diag_nbr_used(int k) {
 }
 
 // g[K] = the transformed coefficient at move K, for the 15 moves used.
-template <int MODE, int K>
-HYTEG_DEVICE void diag_load_nbr(float (&g)[27], const float* p, int L,
-                                int pitch) {
+template <int MODE, int K, class Co>
+HYTEG_DEVICE void diag_load_nbr(float (&g)[27], Co p, int L, int pitch) {
   if constexpr (diag_nbr_used(K))
     g[K] = diag_coeff_term(p[(K / 9 - 1) * L + (K / 3 % 3 - 1) * pitch +
                              (K % 3 - 1)],
@@ -238,8 +257,8 @@ HYTEG_DEVICE void diag_elem_term(float& acc, const float (&g)[27],
   acc += w[I] * diag_coeff_mean_of(s, MODE);
 }
 
-template <int MODE, int... K, int... I>
-HYTEG_DEVICE float diag_interior_coeff_seq(const float* p, int L, int pitch,
+template <int MODE, class Co, int... K, int... I>
+HYTEG_DEVICE float diag_interior_coeff_seq(Co p, int L, int pitch,
                                            const float* w,
                                            std::integer_sequence<int, K...>,
                                            std::integer_sequence<int, I...>) {
@@ -254,8 +273,8 @@ HYTEG_DEVICE float diag_interior_coeff_seq(const float* p, int L, int pitch,
 // p pointing at its coefficient: the 15 neighbours read once and
 // transformed once, the 24 element means formed from compile-time vertex
 // lists, no tests. The same terms in the same order as diag_point.
-template <int MODE>
-HYTEG_DEVICE float diag_interior_coeff(const float* p, int L, int pitch,
+template <int MODE, class Co>
+HYTEG_DEVICE float diag_interior_coeff(Co p, int L, int pitch,
                                        const float* w) {
   return diag_interior_coeff_seq<MODE>(
       p, L, pitch, w, std::make_integer_sequence<int, 27>{},
@@ -298,9 +317,9 @@ HYTEG_DEVICE void diag_plane(const Out& out, int x, int N, int pitch,
 //    slots z = 1 .. r - 2 run diag_interior_coeff; their face slot z = 0
 //    and shell slot z = r - 1 go through diag_point as one list over all
 //    threads, so the row chunks hold neither.
-template <int MODE, class Out>
-HYTEG_DEVICE void diag_plane_coeff(const float* coeff, const Out& out, int x,
-                                   int N, int pitch, const float* w, int warp,
+template <int MODE, class Co, class Out>
+HYTEG_DEVICE void diag_plane_coeff(Co coeff, const Out& out, int x, int N,
+                                   int pitch, const float* w, int warp,
                                    int lane, int nwarps) {
   const int L = N * pitch;
   const int ry = N - 1 - x;

@@ -57,6 +57,18 @@
 // (BF16CellStore::to_aligned; rows of the odd width N alternate their
 // alignment), single stores before and after. Bound: writing the block,
 // 2 B per slot.
+//
+// B3-2D and B4-2D in bf16 with a coefficient (B4-2D also without one):
+// the same band walks, direct and staged, on a bf16 source, coefficient
+// and block (BF16Src, BF16CellStore) and bf16 element matrices widened
+// into shared memory; every load widens to f32, the staged tile holds
+// the transformed coefficient values in f32, the means and sums stay f32,
+// and each result is rounded to bf16 once on its store. Kernels of their
+// own beside the f32 ones, which keep their code. They replace the Pallas
+// kernels run on bf16 inputs, which cast the element matrices and the
+// coefficient to the block's type (hyteg_tpu/kernels/p1_stencil.py:205,
+// 218,299). Bound: the f32 kernels' bytes with the block's and the
+// coefficient's bytes halved.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -111,12 +123,15 @@ p1_diag_2d_kernel(const float* __restrict__ elmats,
   }
 }
 
-// B3-2D in bf16, no coefficient: thread block (face c, band of rows x0 =
-// blockIdx.y * kApplyR2); the element matrices widen into shared memory,
-// then the 6 weights and the 8 class values fold in f32 and
-// tri_diag_band stores them rounded once.
+// B3-2D in bf16: thread block (face c, band of rows x0 = blockIdx.y *
+// kApplyR2); the element matrices widen into shared memory, the 6
+// weights fold in f32; MODE -1: the 8 class values fold in f32 and
+// tri_diag_band stores them rounded once; 0-2: tri_diag_band_coeff on the
+// bf16 coefficient, as the f32 kernel.
+template <int MODE>
 __global__ void __launch_bounds__(hyteg::kApplyThreads, 8)
 p1_diag_2d_bf16_kernel(const __nv_bfloat16* __restrict__ elmats,
+                       const __nv_bfloat16* __restrict__ coeff,
                        __nv_bfloat16* __restrict__ dst, int N, int lumped) {
   using namespace hyteg;
   __shared__ float e_s[kElm];
@@ -128,20 +143,19 @@ p1_diag_2d_bf16_kernel(const __nv_bfloat16* __restrict__ elmats,
   __syncthreads();
   tri_diag_fold_weights(e_s, lumped, w, threadIdx.x, blockDim.x);
   __syncthreads();
-  tri_fold_classes(w, cls, threadIdx.x, blockDim.x);
-  __syncthreads();
   const long long face = (long long)N * N;
-  tri_diag_band(BF16CellStore{dst + c * face}, blockIdx.y * kApplyR2, N, cls,
-                threadIdx.x >> 5, threadIdx.x & 31);
-}
-
-template <int MODE>
-void launch_diag_2d(const float* elmats, const float* coeff, float* dst,
-                    int C, int N, int lumped, cudaStream_t s) {
-  const dim3 grid((unsigned)C, (unsigned)((N + hyteg::kApplyR2 - 1) /
-                                          hyteg::kApplyR2));
-  p1_diag_2d_kernel<MODE><<<grid, hyteg::kApplyThreads, 0, s>>>(
-      elmats, coeff, dst, N, lumped);
+  const BF16CellStore out{dst + c * face};
+  const int x0 = blockIdx.y * kApplyR2;
+  if constexpr (MODE < 0) {
+    tri_fold_classes(w, cls, threadIdx.x, blockDim.x);
+    __syncthreads();
+    tri_diag_band(out, x0, N, cls, threadIdx.x >> 5, threadIdx.x & 31);
+  } else {
+    __shared__ float gs[tri_apply_staged(MODE) ? kApplyG2 : 1];
+    BlockTeam team;
+    tri_diag_band_coeff<MODE>(team, BF16Src{coeff + c * face}, out, x0, N, w,
+                              gs);
+  }
 }
 
 // True when the passed class tables, offs (2, 3, 2) and margins (2,), are
@@ -156,6 +170,22 @@ bool tri_tables_match(const int* offs, const int* margins) {
           return false;
   }
   return true;
+}
+
+// The kernel of a launcher's table of four (mode -1 .. 2) that runs:
+// [0] without a coefficient, else [mode + 1]; -1 (nothing launched) for
+// class tables other than the compiled ones or a mode outside 0-2.
+int band_kernel(const void* coeff, int mode, const int* offs,
+                const int* margins) {
+  if (!tri_tables_match(offs, margins)) return -1;
+  if (!coeff) return 0;
+  return mode < 0 || mode > 2 ? -1 : mode + 1;
+}
+
+// The grid of the 2D band walks: (faces, bands of kApplyR2 rows).
+dim3 band_grid(int C, int N) {
+  return dim3((unsigned)C,
+              (unsigned)((N + hyteg::kApplyR2 - 1) / hyteg::kApplyR2));
 }
 
 
@@ -197,14 +227,36 @@ p1_apply_2d_kernel(const float* __restrict__ src,
   }
 }
 
+// B4-2D in bf16: the f32 kernel's walk (staged where tri_apply_staged
+// says so, else direct) on bf16 storage, the element matrices widened
+// into shared memory.
 template <int MODE>
-void launch_apply_2d(const float* src, const float* coeff,
-                     const float* elmats, float* dst, int C, int N,
-                     cudaStream_t s) {
-  const dim3 grid((unsigned)C, (unsigned)((N + hyteg::kApplyR2 - 1) /
-                                          hyteg::kApplyR2));
-  p1_apply_2d_kernel<MODE><<<grid, hyteg::kApplyThreads, 0, s>>>(
-      src, coeff, elmats, dst, N);
+__global__ void __launch_bounds__(hyteg::kApplyThreads,
+                                  kApplyMinBlocks2D[MODE + 1])
+p1_apply_2d_bf16_kernel(const __nv_bfloat16* __restrict__ src,
+                        const __nv_bfloat16* __restrict__ coeff,
+                        const __nv_bfloat16* __restrict__ elmats,
+                        __nv_bfloat16* __restrict__ dst, int N) {
+  using namespace hyteg;
+  __shared__ float elm[kElm];
+  const int c = blockIdx.x;
+  for (int i = threadIdx.x; i < kElm; i += blockDim.x)
+    elm[i] = widen(elmats[c * kElm + i]);
+  __syncthreads();
+  const long long face = (long long)N * N;
+  const BF16CellStore out{dst + c * face};
+  const int x0 = blockIdx.y * kApplyR2;
+  if constexpr (tri_apply_staged(MODE)) {
+    __shared__ float gs[kApplyG2];
+    BlockTeam team;
+    tri_apply_band_staged<MODE>(team, BF16Src{src + c * face},
+                                BF16Src{coeff + c * face}, out, x0, N, elm,
+                                gs);
+  } else {
+    tri_apply_band<MODE>(BF16Src{src + c * face},
+                         MODE < 0 ? BF16Src{} : BF16Src{coeff + c * face},
+                         out, x0, N, elm, threadIdx.x >> 5, threadIdx.x & 31);
+  }
 }
 
 }  // namespace
@@ -212,60 +264,74 @@ void launch_apply_2d(const float* src, const float* coeff,
 // offs: host (2, 3, 2) int32 class vertex offsets and margins: host (2,)
 // int32, which must equal the kernel's compile-time kTriOff and
 // kTriMargin (else cudaErrorInvalidValue, nothing launched); coeff may be
-// null (then mode is ignored). Returns cudaGetLastError() after the
-// launch.
+// null (then mode is ignored). Each launcher returns cudaGetLastError()
+// after the launch.
 extern "C" int hyteg_p1_diag_2d(const float* elmats, const float* coeff,
                                 float* dst, int C, int N, int lumped, int mode,
                                 const int* offs, const int* margins,
                                 void* stream) {
-  if (!tri_tables_match(offs, margins)) return (int)cudaErrorInvalidValue;
-  if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!coeff)
-    launch_diag_2d<-1>(elmats, coeff, dst, C, N, lumped, s);
-  else if (mode == 0)
-    launch_diag_2d<0>(elmats, coeff, dst, C, N, lumped, s);
-  else if (mode == 1)
-    launch_diag_2d<1>(elmats, coeff, dst, C, N, lumped, s);
-  else
-    launch_diag_2d<2>(elmats, coeff, dst, C, N, lumped, s);
+  const int k = band_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  static void (*const kernels[4])(const float*, const float*, float*, int,
+                                  int) = {
+      p1_diag_2d_kernel<-1>, p1_diag_2d_kernel<0>, p1_diag_2d_kernel<1>,
+      p1_diag_2d_kernel<2>};
+  kernels[k]<<<band_grid(C, N), hyteg::kApplyThreads, 0,
+               (cudaStream_t)stream>>>(elmats, coeff, dst, N, lumped);
   return (int)cudaGetLastError();
 }
 
-// The bf16 form of B3-2D: elmats (C, 2, 3, 3) and dst (C, N, N) bf16, no
-// coefficient; offs and margins as above.
-extern "C" int hyteg_p1_diag_2d_bf16(const void* elmats, void* dst, int C,
-                                     int N, int lumped, const int* offs,
+// The bf16 form of B3-2D: elmats (C, 2, 3, 3), coeff (or null) and dst
+// (C, N, N) bf16; the rest as hyteg_p1_diag_2d's.
+extern "C" int hyteg_p1_diag_2d_bf16(const void* elmats, const void* coeff,
+                                     void* dst, int C, int N, int lumped,
+                                     int mode, const int* offs,
                                      const int* margins, void* stream) {
-  if (!tri_tables_match(offs, margins)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)C, (unsigned)((N + hyteg::kApplyR2 - 1) /
-                                          hyteg::kApplyR2));
-  p1_diag_2d_bf16_kernel<<<grid, hyteg::kApplyThreads, 0,
-                           (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(elmats),
-      static_cast<__nv_bfloat16*>(dst), N, lumped);
+  using B = __nv_bfloat16;
+  const int k = band_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  static void (*const kernels[4])(const B*, const B*, B*, int, int) = {
+      p1_diag_2d_bf16_kernel<-1>, p1_diag_2d_bf16_kernel<0>,
+      p1_diag_2d_bf16_kernel<1>, p1_diag_2d_bf16_kernel<2>};
+  kernels[k]<<<band_grid(C, N), hyteg::kApplyThreads, 0,
+               (cudaStream_t)stream>>>(
+      static_cast<const B*>(elmats), static_cast<const B*>(coeff),
+      static_cast<B*>(dst), N, lumped);
   return (int)cudaGetLastError();
 }
 
-// offs: host (2, 3, 2) int32 class vertex offsets and margins: host (2,)
-// int32, which must equal the kernel's compile-time kTriOff and
-// kTriMargin (else cudaErrorInvalidValue, nothing launched); coeff may be
-// null (then mode is ignored). Returns cudaGetLastError() after the
-// launch.
+// B4-2D: src, coeff (or null), elmats (C, 2, 3, 3), dst; offs and margins
+// as above.
 extern "C" int hyteg_p1_apply_2d(const float* src, const float* coeff,
                                  const float* elmats, float* dst, int C, int N,
                                  int mode, const int* offs,
                                  const int* margins, void* stream) {
-  if (!tri_tables_match(offs, margins)) return (int)cudaErrorInvalidValue;
-  if (coeff && (mode < 0 || mode > 2)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!coeff)
-    launch_apply_2d<-1>(src, coeff, elmats, dst, C, N, s);
-  else if (mode == 0)
-    launch_apply_2d<0>(src, coeff, elmats, dst, C, N, s);
-  else if (mode == 1)
-    launch_apply_2d<1>(src, coeff, elmats, dst, C, N, s);
-  else
-    launch_apply_2d<2>(src, coeff, elmats, dst, C, N, s);
+  const int k = band_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  static void (*const kernels[4])(const float*, const float*, const float*,
+                                  float*, int) = {
+      p1_apply_2d_kernel<-1>, p1_apply_2d_kernel<0>, p1_apply_2d_kernel<1>,
+      p1_apply_2d_kernel<2>};
+  kernels[k]<<<band_grid(C, N), hyteg::kApplyThreads, 0,
+               (cudaStream_t)stream>>>(src, coeff, elmats, dst, N);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 form of B4-2D: src, coeff (or null), elmats (C, 2, 3, 3) and
+// dst all bf16; the rest as hyteg_p1_apply_2d's.
+extern "C" int hyteg_p1_apply_2d_bf16(const void* src, const void* coeff,
+                                      const void* elmats, void* dst, int C,
+                                      int N, int mode, const int* offs,
+                                      const int* margins, void* stream) {
+  using B = __nv_bfloat16;
+  const int k = band_kernel(coeff, mode, offs, margins);
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  static void (*const kernels[4])(const B*, const B*, const B*, B*, int) = {
+      p1_apply_2d_bf16_kernel<-1>, p1_apply_2d_bf16_kernel<0>,
+      p1_apply_2d_bf16_kernel<1>, p1_apply_2d_bf16_kernel<2>};
+  kernels[k]<<<band_grid(C, N), hyteg::kApplyThreads, 0,
+               (cudaStream_t)stream>>>(
+      static_cast<const B*>(src), static_cast<const B*>(coeff),
+      static_cast<const B*>(elmats), static_cast<B*>(dst), N);
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,11 @@
 // Layout follows hyteg_tpu_torch/kernels/p1_stencil.py:
 //   elmats of one face: (2, 3, 3) f32, one matrix per micro-triangle
 //   class t (up, down); src, coeff and dst blocks: (N, N), lane = z.
+// The source and the coefficient are template parameters (Src, Co; P
+// where either one is read), as in p1_apply.cuh: a const float*, or
+// bf16.cuh's BF16Src, which widens each load (a missing coefficient is
+// Co{}). Every sum, mean and staged value is f32; the store (Out) rounds
+// once for bf16.
 #pragma once
 
 #ifndef HYTEG_DEVICE
@@ -49,7 +54,8 @@ HYTEG_DEVICE void tri_diag_fold_weights(const float* elm, int lumped, float* w,
 // vertices) for every element whose base q = p - off[t,a] is valid (q_i
 // >= 0, qx + qz <= n - margin[t]). 0 outside the triangle. coeff may be
 // null; mode 0 arithmetic, 1 harmonic, 2 geometric.
-HYTEG_DEVICE float diag_point_2d(const float* coeff, int x, int z, int N,
+template <class Co>
+HYTEG_DEVICE float diag_point_2d(Co coeff, int x, int z, int N,
                                  const float* w, int mode) {
   const int n = N - 1;
   if (x + z > n) return 0.f;
@@ -83,9 +89,9 @@ HYTEG_DEVICE float diag_point_2d(const float* coeff, int x, int z, int N,
 // 7-point neighbourhood of p, so those src values (and coefficient terms)
 // are read once. Reads beyond the block are 0, as in flat.shift_read; a
 // valid base never reads there. 0 outside the triangle. coeff may be null.
-HYTEG_DEVICE float p1_apply_point_2d(const float* src, const float* coeff,
-                                     int x, int z, int N, const float* elm,
-                                     int mode) {
+template <class Src, class Co>
+HYTEG_DEVICE float p1_apply_point_2d(Src src, Co coeff, int x, int z, int N,
+                                     const float* elm, int mode) {
   const int n = N - 1;
   if (x + z > n) return 0.f;
   bool used[9] = {};
@@ -168,8 +174,8 @@ struct TriVert {
 };
 
 // v[K] = p[move K], for the 7 moves used; transformed by MODE >= 0.
-template <int MODE, int K>
-HYTEG_DEVICE void tri_load_nbr(float (&v)[9], const float* p, int N) {
+template <int MODE, int K, class P>
+HYTEG_DEVICE void tri_load_nbr(float (&v)[9], P p, int N) {
   if constexpr (tri_nbr_used(K)) {
     const float r = p[(K / 3 - 1) * N + (K % 3 - 1)];
     if constexpr (MODE < 0)
@@ -212,9 +218,8 @@ HYTEG_DEVICE void tri_elem_term(float& acc, const float (&u)[9],
   }
 }
 
-template <int MODE, int... K, int... I>
-HYTEG_DEVICE float tri_interior_seq(const float* p, const float* k, int N,
-                                    const float* elm,
+template <int MODE, class Src, class Co, int... K, int... I>
+HYTEG_DEVICE float tri_interior_seq(Src p, Co k, int N, const float* elm,
                                     std::integer_sequence<int, K...>,
                                     std::integer_sequence<int, I...>) {
   float u[9], g[9];
@@ -230,9 +235,8 @@ HYTEG_DEVICE float tri_interior_seq(const float* p, const float* k, int N,
 // coefficient value transformed once, the 6 means from compile-time
 // vertex lists, no tests. The same terms in the same order as
 // p1_apply_point_2d.
-template <int MODE>
-HYTEG_DEVICE float tri_interior(const float* p, const float* k, int N,
-                                const float* elm) {
+template <int MODE, class Src, class Co>
+HYTEG_DEVICE float tri_interior(Src p, Co k, int N, const float* elm) {
   return tri_interior_seq<MODE>(
       p, k, N, elm, std::make_integer_sequence<int, 9>{},
       std::make_integer_sequence<int, kTriClasses * kTriVerts>{});
@@ -241,9 +245,9 @@ HYTEG_DEVICE float tri_interior(const float* p, const float* k, int N,
 constexpr int kApplyR2 = kPlaneWarps;  // rows of a band: a warp each
 
 // p1_apply_point_2d as a call of its own on the card (as apply_point_rim).
-template <int MODE>
-HYTEG_NOINLINE float tri_point_rim(const float* src, const float* coeff,
-                                   int x, int z, int N, const float* elm) {
+template <int MODE, class Src, class Co>
+HYTEG_NOINLINE float tri_point_rim(Src src, Co coeff, int x, int z, int N,
+                                   const float* elm) {
   return p1_apply_point_2d(src, coeff, x, z, N, elm, MODE);
 }
 
@@ -302,11 +306,11 @@ HYTEG_DEVICE void tri_band_interior(const Out& out, int x0, int N,
 
 // Kernel B4-2D's block (face, band x0) in its direct form, thread (warp,
 // lane) of kApplyR2 warps: the rim, then row x0 + warp's slots z = 1 ..
-// r - 2 through tri_interior. coeff may be null when MODE < 0.
-template <int MODE, class Out>
-HYTEG_DEVICE void tri_apply_band(const float* src, const float* coeff,
-                                 const Out& out, int x0, int N,
-                                 const float* elm, int warp, int lane) {
+// r - 2 through tri_interior. coeff may be missing (Co{}) when MODE < 0.
+template <int MODE, class Src, class Co, class Out>
+HYTEG_DEVICE void tri_apply_band(Src src, Co coeff, const Out& out, int x0,
+                                 int N, const float* elm, int warp,
+                                 int lane) {
   tri_band_rim(
       out, x0, N,
       [&](int x, int z) {
@@ -317,7 +321,7 @@ HYTEG_DEVICE void tri_apply_band(const float* src, const float* coeff,
       out, x0, N,
       [&](int row, int z) {
         return tri_interior<MODE>(src + row + z,
-                                  coeff ? coeff + row + z : nullptr, N, elm);
+                                  coeff ? coeff + row + z : Co{}, N, elm);
       },
       warp, lane);
 }
@@ -355,9 +359,9 @@ HYTEG_DEVICE void tri_staged_nbr(float (&g)[9], const float* gp) {
     g[K] = gp[(K / 3 - 1) * kApplyGZ2 + (K % 3 - 1)];
 }
 
-template <int MODE, int... K, int... I>
-HYTEG_DEVICE float tri_interior_staged_seq(const float* p, const float* gp,
-                                           int N, const float* elm,
+template <int MODE, class Src, int... K, int... I>
+HYTEG_DEVICE float tri_interior_staged_seq(Src p, const float* gp, int N,
+                                           const float* elm,
                                            std::integer_sequence<int, K...>,
                                            std::integer_sequence<int, I...>) {
   float u[9], g[9];
@@ -377,9 +381,10 @@ HYTEG_DEVICE float tri_interior_staged_seq(const float* p, const float* gp,
 // the direct form (point(x, z)), then tiles of kApplyZ2 slots from z = 1,
 // each staged, then summed (two barriers a tile): slot(i, gp) gives the
 // interior slot at offset i of the face, gp its position in G.
-template <int MODE, class Team, class Out, class Point, class Slot>
-HYTEG_DEVICE void tri_band_staged(Team& team, const float* coeff,
-                                  const Out& out, int x0, int N, float* gs,
+template <int MODE, class Team, class Co, class Out, class Point,
+          class Slot>
+HYTEG_DEVICE void tri_band_staged(Team& team, Co coeff, const Out& out,
+                                  int x0, int N, float* gs,
                                   const Point& point, const Slot& slot) {
   static_assert(MODE >= 0, "the staged form needs a coefficient");
   const int n = N - 1;
@@ -412,11 +417,10 @@ HYTEG_DEVICE void tri_band_staged(Team& team, const float* coeff,
 }
 
 // Kernel B4-2D's block (face, band x0) in its staged form (MODE >= 0).
-template <int MODE, class Team, class Out>
-HYTEG_DEVICE void tri_apply_band_staged(Team& team, const float* src,
-                                        const float* coeff, const Out& out,
-                                        int x0, int N, const float* elm,
-                                        float* gs) {
+template <int MODE, class Team, class Src, class Co, class Out>
+HYTEG_DEVICE void tri_apply_band_staged(Team& team, Src src, Co coeff,
+                                        const Out& out, int x0, int N,
+                                        const float* elm, float* gs) {
   tri_band_staged<MODE>(
       team, coeff, out, x0, N, gs,
       [&](int x, int z) {
@@ -533,9 +537,8 @@ HYTEG_DEVICE void tri_diag_term(float& acc, const float (&g)[9],
 // g: the 7 transformed neighbours, read directly (STAGED false: k points
 // at the slot's coefficient) or from the staged tile (STAGED true: k
 // points at the slot's position in G).
-template <int MODE, bool STAGED, int... K, int... I>
-HYTEG_DEVICE float tri_diag_interior_seq(const float* k, int N,
-                                         const float* w,
+template <int MODE, bool STAGED, class P, int... K, int... I>
+HYTEG_DEVICE float tri_diag_interior_seq(P k, int N, const float* w,
                                          std::integer_sequence<int, K...>,
                                          std::integer_sequence<int, I...>) {
   float g[9];
@@ -548,8 +551,8 @@ HYTEG_DEVICE float tri_diag_interior_seq(const float* k, int N,
   return acc;
 }
 
-template <int MODE, bool STAGED = false>
-HYTEG_DEVICE float tri_diag_interior(const float* k, int N, const float* w) {
+template <int MODE, bool STAGED = false, class P>
+HYTEG_DEVICE float tri_diag_interior(P k, int N, const float* w) {
   return tri_diag_interior_seq<MODE, STAGED>(
       k, N, w, std::make_integer_sequence<int, 9>{},
       std::make_integer_sequence<int, kTriClasses * kTriVerts>{});
@@ -561,10 +564,10 @@ HYTEG_DEVICE float tri_diag_interior(const float* k, int N, const float* w) {
 // tri_diag_interior, in the staged form where tri_apply_staged says so (gs:
 // kApplyG2 floats of shared memory), else row x0 + warp's a warp at a
 // time. team as in tri_band_staged.
-template <int MODE, class Team, class Out>
-HYTEG_DEVICE void tri_diag_band_coeff(Team& team, const float* coeff,
-                                      const Out& out, int x0, int N,
-                                      const float* w, float* gs) {
+template <int MODE, class Team, class Co, class Out>
+HYTEG_DEVICE void tri_diag_band_coeff(Team& team, Co coeff, const Out& out,
+                                      int x0, int N, const float* w,
+                                      float* gs) {
   static_assert(MODE >= 0, "the coefficient walk needs a mean");
   auto point = [&](int x, int z) {
     return diag_point_2d(coeff, x, z, N, w, MODE);

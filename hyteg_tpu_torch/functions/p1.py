@@ -184,6 +184,10 @@ class P1Space:
         self.level = level
         self.device = torch.device(device)
         self.dtype = dtype
+        # coordinates (cell vertices, reference and physical coordinates)
+        # are at least f32: a bf16 space evaluates a field at f32 points
+        # and rounds each value once
+        self.coord_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
         self.dim = storage.dim
         self.N = (1 << level) + 1
         self.n = self.N - 1
@@ -308,7 +312,8 @@ class P1Space:
                 slot_rep=idx(self.slot_rep_mask, torch.bool),
                 slot_inv_mult=idx(self.slot_inv_mult, self.dtype),
                 slot_doftype=idx(self.slot_doftype_np(bc), torch.int32),
-                cell_vertices=self._tensor(self.cell_vertices(shard)),
+                cell_vertices=self._tensor(self.cell_vertices(shard),
+                                           self.coord_dtype),
                 bc=bc,
                 pad_cells=self._pad_cells(self.cell_valid(shard)),
             )
@@ -354,7 +359,8 @@ class P1Space:
                 slot_rep=sel(self.slot_rep_mask, torch.bool),
                 slot_inv_mult=sel(self.slot_inv_mult, self.dtype),
                 slot_doftype=sel(self.slot_doftype_np(bc), torch.int32),
-                cell_vertices=self._tensor(self.storage.cell_vertices),
+                cell_vertices=self._tensor(self.storage.cell_vertices,
+                                           self.coord_dtype),
                 bc=bc,
                 pad_cells=self._pad_cells(self.storage.cell_valid),
             )
@@ -688,7 +694,7 @@ class P1Space:
         ref = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1) / self.n
         if self.dim == 3:
             ref = flat.flatten_field(ref, self.pitch, ncomp=1)
-        return self._tensor(ref)
+        return self._tensor(ref, self.coord_dtype)
 
     def coords_from(self, cell_vertices: torch.Tensor) -> torch.Tensor:
         """(C, N, lanes, 3) physical coordinates of every micro-vertex
@@ -699,7 +705,8 @@ class P1Space:
             "xld,cde->cxle", self._ref_coords, J)
 
     def coords(self, shard: int = 0) -> torch.Tensor:
-        return self.coords_from(self._tensor(self.cell_vertices(shard)))
+        return self.coords_from(self._tensor(self.cell_vertices(shard),
+                                             self.coord_dtype))
 
     def interpolate(self, expr, old, flag: DoFType, sd=None) -> torch.Tensor:
         """Evaluate ``expr`` (constant or callable of coords (..., 3)) on rows
@@ -707,7 +714,8 @@ class P1Space:
         (each cell evaluates at its own affine image of a shared point, so
         replicas may differ in the last ulp). A lone shard of a sharded
         storage (no group) skips that: gids whose representative lies on
-        another shard would read zero."""
+        another shard would read zero. The points are ``coord_dtype`` (f32
+        on a bf16 space: each value is rounded once)."""
         sd = self.resolve_sd(sd)
         if callable(expr):
             vals = torch.as_tensor(expr(self.coords_from(sd.cell_vertices)),

@@ -49,12 +49,20 @@ SIGNATURES = {
     "hyteg_p1_diag": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # src, A, E, dst (all bf16), C, N, pitch, dirs, gmask, stream
     "hyteg_p1_const_apply_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # elmats, dst (bf16), C, N, pitch, lumped, offs, margins, stream
-    "hyteg_p1_diag_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # elmats, coeff, dst (all bf16), C, N, pitch, lumped, mode, offs,
+    # margins, stream
+    "hyteg_p1_diag_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # src, coeff, elmats, dst (all bf16), C, N, pitch, mode, offs,
+    # margins, stream
+    "hyteg_p1_apply_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # src, A, E, dst (all bf16), C, N, dirs, gmask, stream (2D)
     "hyteg_p1_const_apply_2d_bf16": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
-    # elmats, dst (bf16), C, N, lumped, offs, margins, stream (2D)
-    "hyteg_p1_diag_2d_bf16": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # elmats, coeff, dst (all bf16), C, N, lumped, mode, offs, margins,
+    # stream (2D)
+    "hyteg_p1_diag_2d_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # src, coeff, elmats, dst (all bf16), C, N, mode, offs, margins,
+    # stream (2D)
+    "hyteg_p1_apply_2d_bf16": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # src, W, dst (all bf16), C, M, pitch, dirs, stream
     "hyteg_p2_const_apply_bf16": [_P, _P, _P, _I, _I, _I, _P, _P],
     # src, W, dst (all bf16), C, M, dirs, stream (2D)

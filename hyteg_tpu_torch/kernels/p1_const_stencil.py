@@ -22,7 +22,7 @@ JAX package's Pallas kernel rounds them); the loads widen to f32, every
 sum runs in f32, and the result is rounded to bf16 once. The JAX
 package's plain ``p1_const_apply_xla`` instead accumulates in bf16.
 ``bf16_weights`` is the dtype contract of every kernel with a bf16 form
-(B2, B5), the same on both devices.
+(B2, B3, B4, B5), the same on both devices.
 """
 
 from __future__ import annotations
@@ -319,9 +319,11 @@ def bf16_weights(src, *weights):
     every device: a bf16 source takes bf16 weights, or f32 weights rounded
     to bf16 as the Pallas kernels round them
     (hyteg_tpu/kernels/p1_const_stencil.py:721-722,
-    p2_const_stencil.py:409-410); any other weight type with a bf16
-    source, and bf16 weights with another source, raise. The source is
-    never cast."""
+    p2_const_stencil.py:409-410, p1_stencil.py:205,218,299); any other
+    weight type with a bf16 source, and bf16 weights with another source,
+    raise. The source is never cast. B3 and B4 pass their element
+    matrices and coefficient as weights (B3's block type is its element
+    matrices')."""
     bf16 = torch.bfloat16
     if src.dtype != bf16:
         if any(w.dtype == bf16 for w in weights):

@@ -19,9 +19,16 @@ triangles (up, down) with 3 vertices each.
 ``csrc/p1_apply.cu`` and ``csrc/p1_diag.cu`` (3D) or ``csrc/p1_tri.cu``
 (2D) for a CUDA tensor and run the plain versions
 ``p1_apply_local_torch`` and ``p1_diagonal_local_torch`` for a CPU
-tensor. Their bf16 forms are those of B3 without a coefficient (3D and
-2D); B3 with a coefficient and B4 refuse bf16 on both devices
-(``_refuse_bf16``), so that what runs on the CPU also runs on the card.
+tensor. Each has a bf16 form in 3D and 2D, with and without a
+coefficient. One dtype contract holds on both devices
+(``p1_const_stencil.bf16_weights``, B2's): the block's type decides the
+form, the source's for B4 and the element matrices' for B3; with a bf16
+block, f32 element matrices or an f32 coefficient are rounded to bf16 as
+the Pallas kernels cast them (hyteg_tpu/kernels/p1_stencil.py:205,218,
+299), so they give the bits of bf16 ones; any other type beside a bf16
+block, and a bf16 input beside another block, raise. The bf16 kernels
+and plain versions widen every value to f32, sum and take the means in
+f32, and round each result to bf16 once.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from ..indexing import flat, micro
 from ..operators.averaging import MODES, coeff_average
 from . import build
-from .p1_const_stencil import _check_cuda_input
+from .p1_const_stencil import _check_cuda_input, bf16_weights
 
 
 @functools.lru_cache(maxsize=8)
@@ -51,7 +58,15 @@ def p1_apply_local_torch(src, elmats, level: int, dim: int, pitch: int,
     """Plain-torch per-cell apply, scatter form with zero-filled shifts
     (the ``unroll=True`` form of the JAX package's p1_apply_local; partial
     sums on interface rows):
-    dst[q + off_a] += mean_t(coeff) * sum_b elMat[t,a,b] * src[q + off_b]."""
+    dst[q + off_a] += mean_t(coeff) * sum_b elMat[t,a,b] * src[q + off_b].
+
+    bf16 source: the sums and means run in f32 on the widened values and
+    the result is rounded to bf16 once (kernel B4's bf16 rule)."""
+    if src.dtype == torch.bfloat16:
+        wide = [None if t is None else t.to(torch.float32)
+                for t in (src, elmats, coeff)]
+        return p1_apply_local_torch(wide[0], wide[1], level, dim, pitch,
+                                    wide[2], coeff_avg).to(torch.bfloat16)
     N = (1 << level) + 1
     pitch = N if dim == 2 else pitch
     offs = micro.offsets(dim)
@@ -85,13 +100,6 @@ def _kernel_tables(dim: int = 3):
             np.ascontiguousarray(micro.base_margin(dim), dtype=np.int32))
 
 
-def _refuse_bf16(what: str, *tensors) -> None:
-    """Raise on a bf16 tensor where no kernel form takes one (B4, and B3
-    with a coefficient), on every device."""
-    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
-        raise ValueError(f"{what} has no bf16 form")
-
-
 def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
                    coeff=None, coeff_avg: str = "arithmetic"):
     """Per-cell elementwise apply on the flat layout (partial sums on
@@ -101,8 +109,12 @@ def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
     4) or (C, 2, 3, 3). A CPU tensor runs the plain version; a CUDA tensor
     launches kernel B4 (csrc/p1_apply.cu, or csrc/p1_tri.cu in 2D) and
     counts the launch in ``p1_apply_local.launches`` (3D) or
-    ``p1_apply_local.launches_2d``. bf16 raises on both devices."""
-    _refuse_bf16("p1_apply_local (kernel B4)", src, elmats, coeff)
+    ``p1_apply_local.launches_2d``. A bf16 source runs the bf16 form (the
+    launch also counts in ``p1_apply_local.launches_bf16`` or
+    ``launches_2d_bf16``); the element matrices and the coefficient follow
+    ``bf16_weights`` on either device."""
+    ins = bf16_weights(src, *(t for t in (elmats, coeff) if t is not None))
+    elmats, coeff = ins[0], (None if coeff is None else ins[1])
     if src.device.type == "cpu":
         return p1_apply_local_torch(src, elmats, level, dim, pitch, coeff,
                                     coeff_avg)
@@ -112,27 +124,37 @@ def p1_apply_local(src, elmats, level: int, dim: int, pitch: int,
     C = src.shape[0]
     block = (C, N, N * pitch if dim == 3 else N)
     offs = micro.offsets(dim)
-    _check_cuda_input("src", src, block)
-    _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
+    bf16 = src.dtype == torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
+    _check_cuda_input("src", src, block, dt)
+    _check_cuda_input("elmats", elmats,
+                      (C,) + offs.shape[:2] + (offs.shape[1],), dt)
     if coeff is not None:
-        _check_cuda_input("coeff", coeff, block)
+        _check_cuda_input("coeff", coeff, block, dt)
     dst = torch.empty_like(src)
     offs, margins = _kernel_tables(dim)
     args = (src.data_ptr(), None if coeff is None else coeff.data_ptr(),
             elmats.data_ptr(), dst.data_ptr(), C, N)
     tail = (MODES.index(coeff_avg), offs.ctypes.data, margins.ctypes.data,
             build.current_stream())
+    lib = build.library()
     if dim == 3:
-        rc = build.library().hyteg_p1_apply(*args, pitch, *tail)
+        fn = lib.hyteg_p1_apply_bf16 if bf16 else lib.hyteg_p1_apply
+        rc = fn(*args, pitch, *tail)
     else:
-        rc = build.library().hyteg_p1_apply_2d(*args, *tail)
+        fn = lib.hyteg_p1_apply_2d_bf16 if bf16 else lib.hyteg_p1_apply_2d
+        rc = fn(*args, *tail)
     build.check_launch(rc, "p1_apply_local")
     build.count_launch(p1_apply_local, dim, level)
+    if bf16:
+        build.count_bf16(p1_apply_local, dim)
     return dst
 
 
 p1_apply_local.launches = 0
+p1_apply_local.launches_bf16 = 0
 p1_apply_local.launches_2d = 0
+p1_apply_local.launches_2d_bf16 = 0
 p1_apply_local.launches_by_level = {}
 p1_apply_local.launches_by_level_2d = {}
 
@@ -182,14 +204,12 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
     version; a CUDA tensor launches kernel B3 (csrc/p1_diag.cu, or
     csrc/p1_tri.cu in 2D) and counts the launch in
     ``p1_diagonal_local.launches`` (3D) or
-    ``p1_diagonal_local.launches_2d``. Without a coefficient the element
-    matrices may be bf16 in either dimension (the block is then bf16, and
-    the launch also counts in ``p1_diagonal_local.launches_bf16`` or
-    ``launches_2d_bf16``); a bf16 coefficient, or bf16 element matrices
-    with a coefficient, raise on both devices, and no type is cast."""
+    ``p1_diagonal_local.launches_2d``. bf16 element matrices run the bf16
+    form and give a bf16 block (the launch also counts in
+    ``p1_diagonal_local.launches_bf16`` or ``launches_2d_bf16``); the
+    coefficient follows ``bf16_weights`` on either device."""
     if coeff is not None:
-        _refuse_bf16("p1_diagonal_local with a coefficient (kernel B3)",
-                     elmats, coeff)
+        (coeff,) = bf16_weights(elmats, coeff)
     if elmats.device.type == "cpu":
         return p1_diagonal_local_torch(elmats, level, dim, pitch, lumped,
                                        coeff, coeff_avg)
@@ -199,39 +219,29 @@ def p1_diagonal_local(elmats, level: int, dim: int, pitch: int,
     C = elmats.shape[0]
     block = (C, N, N * pitch if dim == 3 else N)
     offs = micro.offsets(dim)
-    if elmats.dtype == torch.bfloat16:
-        _check_cuda_input("elmats", elmats,
-                          (C,) + offs.shape[:2] + (offs.shape[1],),
-                          torch.bfloat16)
-        dst = torch.empty(block, dtype=torch.bfloat16, device=elmats.device)
-        offs, margins = _kernel_tables(dim)
-        if dim == 3:
-            rc = build.library().hyteg_p1_diag_bf16(
-                elmats.data_ptr(), dst.data_ptr(), C, N, pitch, int(lumped),
-                offs.ctypes.data, margins.ctypes.data, build.current_stream())
-        else:
-            rc = build.library().hyteg_p1_diag_2d_bf16(
-                elmats.data_ptr(), dst.data_ptr(), C, N, int(lumped),
-                offs.ctypes.data, margins.ctypes.data, build.current_stream())
-        build.check_launch(rc, "p1_diagonal_local")
-        build.count_launch(p1_diagonal_local, dim, level)
-        build.count_bf16(p1_diagonal_local, dim)
-        return dst
-    _check_cuda_input("elmats", elmats, (C,) + offs.shape[:2] + (offs.shape[1],))
+    bf16 = elmats.dtype == torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
+    _check_cuda_input("elmats", elmats,
+                      (C,) + offs.shape[:2] + (offs.shape[1],), dt)
     if coeff is not None:
-        _check_cuda_input("coeff", coeff, block)
-    dst = torch.empty(block, dtype=elmats.dtype, device=elmats.device)
+        _check_cuda_input("coeff", coeff, block, dt)
+    dst = torch.empty(block, dtype=dt, device=elmats.device)
     co = None if coeff is None else coeff.data_ptr()
     offs, margins = _kernel_tables(dim)
     args = (elmats.data_ptr(), co, dst.data_ptr(), C, N)
     tail = (int(lumped), MODES.index(coeff_avg), offs.ctypes.data,
             margins.ctypes.data, build.current_stream())
+    lib = build.library()
     if dim == 3:
-        rc = build.library().hyteg_p1_diag(*args, pitch, *tail)
+        fn = lib.hyteg_p1_diag_bf16 if bf16 else lib.hyteg_p1_diag
+        rc = fn(*args, pitch, *tail)
     else:
-        rc = build.library().hyteg_p1_diag_2d(*args, *tail)
+        fn = lib.hyteg_p1_diag_2d_bf16 if bf16 else lib.hyteg_p1_diag_2d
+        rc = fn(*args, *tail)
     build.check_launch(rc, "p1_diagonal_local")
     build.count_launch(p1_diagonal_local, dim, level)
+    if bf16:
+        build.count_bf16(p1_diagonal_local, dim)
     return dst
 
 

@@ -67,9 +67,7 @@ class P1ElementwiseOperator(nn.Module):
         # the tables are built in f32 at least, then rounded once
         wide = torch.float32 if space.dtype == torch.bfloat16 else space.dtype
         if elmats is None:
-            cv = space.resolve_sd(None, shard).cell_vertices
-            if wide != space.dtype:  # the host's f64 vertices, not bf16 ones
-                cv = space._tensor(space.cell_vertices(shard), wide)
+            cv = space.resolve_sd(None, shard).cell_vertices  # f32 at least
             elmats = compute_elmats(space, form, cv, dtype=wide)
         elmats = torch.as_tensor(elmats, device=space.device).to(wide)
         self.register_buffer("elmats",

@@ -4,7 +4,8 @@ walks compiled with the host C++ compiler, bf16 emulated), the parts of
 the bf16 P1 V-cycle on 2D storage held one by one against the JAX
 package's (apply, inverse diagonal, one Chebyshev step, restriction and
 prolongation), an f32 iterative refinement around the port's whole bf16
-cycle, the dtype contract of B3 and B4, and ROADMAP C-ref13: the JAX
+cycle, the dtype contract of B3 and B4 (their bf16 forms with a
+coefficient and the rounding of f32 inputs), and ROADMAP C-ref13: the JAX
 package's bf16 P1 transfers return float32, so its bf16 P1 V-cycle
 cannot run (and no whole-cycle comparison exists).
 
@@ -391,33 +392,50 @@ def test_refinement_around_a_bf16_2d_p1_vcycle():
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_bf16_refusals_on_the_cpu(dim):
-    """Until their bf16 forms are ported, the CPU refuses what the card
-    refuses (chip_smoke.py's bf16_refusals): B3 in bf16 with a coefficient
-    (bf16 element matrices or a bf16 coefficient), B4 in bf16 (bf16
-    source, element matrices or coefficient). The bf16 forms that exist
-    run: B3 without a coefficient."""
+    """The dtype contract of B3 and B4 on the CPU, as the card's
+    bf16_refusals phase checks it (kernels/p1_const_stencil.py::
+    bf16_weights): the calls refused before their bf16 forms were ported
+    now run on a bf16 block and give, bit for bit, what their inputs
+    rounded to bf16 give: B3 with bf16 element matrices and an f32
+    coefficient, B4 on a bf16 source with f32 element matrices or an f32
+    coefficient. A bf16 input beside an f32 block still raises (B3 with
+    f32 element matrices and a bf16 coefficient; B4 on an f32 source with
+    bf16 element matrices or a bf16 coefficient), and no source is cast.
+    B3 without a coefficient runs, and the operator's coefficient apply
+    stays bf16."""
     st = (CellStorage(mi.mesh_rectangle(**RECT)) if dim == 2
           else CellStorage(mi.mesh_unit_cube(1)))
     sp = P1Space(st, 2, device="cpu", dtype=bf16)
     op = P1ElementwiseOperator(sp, forms.laplace_form)
     x = _source(sp, 80)
     e32, x32 = op.elmats.float(), x.float()
-    calls = {
-        "b3 bf16 elmats, f32 coefficient": lambda: tk3.p1_diagonal_local(
-            op.elmats, 2, dim, sp.pitch, False, x32),
-        "b3 f32 elmats, bf16 coefficient": lambda: tk3.p1_diagonal_local(
-            e32, 2, dim, sp.pitch, False, x),
-        "b4 bf16 source": lambda: tk3.p1_apply_local(x, e32, 2, dim,
-                                                     sp.pitch),
-        "b4 bf16 elmats": lambda: tk3.p1_apply_local(x32, op.elmats, 2, dim,
-                                                     sp.pitch),
-        "b4 bf16 coefficient": lambda: tk3.p1_apply_local(x32, e32, 2, dim,
-                                                          sp.pitch, x),
+    k32 = x32.abs() + sp.vertex_mask_t.float()  # a positive coefficient
+    k16 = k32.to(bf16)
+    args = (2, dim, sp.pitch)
+    rounded = {
+        "b3 bf16 elmats, f32 coefficient": (
+            lambda: tk3.p1_diagonal_local(op.elmats, *args, False, k32),
+            lambda: tk3.p1_diagonal_local(op.elmats, *args, False, k16)),
+        "b4 bf16 source, f32 elmats": (
+            lambda: tk3.p1_apply_local(x, e32, *args),
+            lambda: tk3.p1_apply_local(x, op.elmats, *args)),
+        "b4 bf16 source, f32 coefficient": (
+            lambda: tk3.p1_apply_local(x, op.elmats, *args, k32),
+            lambda: tk3.p1_apply_local(x, op.elmats, *args, k16)),
     }
-    for name, call in calls.items():
+    for name, (got, want) in rounded.items():
+        y = got()
+        assert y.dtype == bf16 and torch.equal(y, want()), name
+    refused = {
+        "b3 f32 elmats, bf16 coefficient": lambda: tk3.p1_diagonal_local(
+            e32, *args, False, k16),
+        "b4 bf16 elmats": lambda: tk3.p1_apply_local(x32, op.elmats, *args),
+        "b4 bf16 coefficient": lambda: tk3.p1_apply_local(x32, e32, *args,
+                                                          k16),
+    }
+    for name, call in refused.items():
         with pytest.raises(ValueError, match="bf16"):
             call()
-    d = tk3.p1_diagonal_local(op.elmats, 2, dim, sp.pitch)
+    d = tk3.p1_diagonal_local(op.elmats, *args)
     assert d.dtype == bf16 and d.shape == tuple(sp.block_shape)
-    with pytest.raises(ValueError, match="bf16"):
-        op.apply_raw(x, coeff=x)
+    assert op.apply_raw(x, coeff=k16).dtype == bf16
