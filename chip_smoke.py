@@ -156,6 +156,19 @@ read just after:
   at level 11 (``mixed_precision_coeff_2d``, reported) and level 8
   (``mixed_precision_coeff_2d_gated``), the f32 coefficient cycle's rate
   gated first.
+- the AMR path (B2, B3, B2-2D, B3-2D on red-green refined meshes): on
+  mesh_unit_cube(2) the bump's gradient indicator at P1 level 4 on the
+  card (its Dörfler marks equal to the CPU's), red-green refinement to 106
+  cells (conforming, volume and boundary measure kept), a linear field
+  moved to the refined storage, the refined-mesh GMG at P1 levels 4-7
+  (the nodal error dropping >= 3x from level 4 to 5; at level 7 each of
+  cycles 1-4 on A x = 0 at rate <= 0.35),
+  timed and profiled, and IO read back (a VTU of the field, the
+  partitioning VTU, the mesh through Gmsh, one SQLite row) (``amr``); the
+  same cycle on the rect, 40 faces, its GMG at level 11 on A x = 0
+  (``amr_2d``); then B2, B3 at every level 2-7 of the refined cube and
+  B2-2D, B3-2D at every level 2-11 of the refined rect against their plain
+  versions (``amr_kernels``); the native setup core must build.
 
 It times the kernels, the operator applies and the V-cycles with CUDA
 events, and each kernel's least time on the card (its bytes over the
@@ -433,14 +446,37 @@ N1E1_COARSE_SWEEPS = 30
 N1E1_RATE_MAX = 0.5      # tests/test_n1e1_transfer.py's gates
 N1E1_ALPHA, N1E1_BETA = 1.0, 0.1
 CURL_GRAD_RTOL = 1e-5    # |curl grad p| against the size of its terms
-DG_LEVELS = (4, 5)       # 48-cell cube: 1,572,864 and 6,291,456 DG1 DoFs
+DG_LEVELS = (3, 4)       # 48-cell cube: 196,608 and 786,432 DG1 DoFs; its
+                         # CG is launch-bound (~15 ms a step at any level),
+                         # so the levels set the steps: 4 -> 5 (6,291,456
+                         # DoFs) took 85 s on a slow host (PERF.md 5)
 DG_CG_ITERS, DG_CG_RTOL = 6000, 1e-8  # tests/test_dg.py's cross-macro rtol
 DG_DROP_MIN = 2.8        # tests/test_dg.py:90-97 (O(h^2) predicts 4)
 DG_F32_FACTOR = 2.0      # float32 error / float64 error at one level
-EG_LEVELS = (4, 5)       # one macro-tet: the EG operator takes one cell
+EG_LEVELS = (3, 4)       # one macro-tet: the EG operator takes one cell;
+                         # its apply is launch-bound (~0.3 s at any level):
+                         # 4 -> 5 took 67.5 s on a slow host (PERF.md 5)
 EG_CG_ITERS, EG_CG_RTOL = 4000, 1e-7
 EG_DROP_MIN = 2.5        # tests/test_eg.py:138-141
 A10_SYM_RTOL = 1e-4
+# the AMR path (adaptivity, IO): mark, refine, transfer, the refined-mesh GMG
+AMR_LEVEL = 4            # the 3D indicator's and transfer's P1 level
+AMR_LEVEL_2D = 6         # the rect's
+AMR_FRAC = 0.5           # Dörfler fraction: 3 of 48 cells -> 106 (48 green)
+AMR_GMG_LEVELS = (4, 5, 6, 7)  # refined cube, manufactured; 7 timed
+AMR_ERR_LEVELS = (4, 5)  # the error drop: on this mesh level 7's error sits
+                         # on the f32 floor and level 6's carries its noise
+                         # (5 -> 6 read 3.4-4.4x over five runs; PERF.md
+                         # section 6)
+AMR_GMG_LEVEL_2D = 11    # refined rect (40 faces): (40, 2049, 2049) blocks
+AMR_CYCLES = 16          # the rate rises towards 0.4 (ROADMAP C-ref21): 8
+                         # cycles leave the algebraic error above the nodal
+AMR_RATE_MAX = 0.35      # on A x = 0 at the top level (3D and 2D): each of
+                         # cycles 1-4, the means over 1-4 and 3-6
+AMR_GROWTH_MAX = 2.0     # tests/test_gmg_regression.py: no cycle grows > 2x,
+AMR_GROWTH_SLACK = 1e-4  # + 1e-4 r0 (its 1e-5 absolute at r0 ~ 0.1)
+AMR_MEASURE_RTOL = 1e-12  # tests/test_amr.py: volume and boundary measure
+AMR_TRANSFER_ATOL = 5e-5  # tests/test_amr.py:126-127, the linear field
 # the card's data-sheet peaks: H100 SXM
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -687,9 +723,9 @@ def manufactured(stack):
     return x0, b, u
 
 
-def solve(storage, level: int, device,
-          gate_rate: bool = True) -> tuple[dict, object, tuple]:
-    """The main path: GMG stack set-up plus N_CYCLES V-cycles (the rate
+def solve(storage, level: int, device, gate_rate: bool = True,
+          cycles: int = N_CYCLES) -> tuple[dict, object, tuple]:
+    """The main path: GMG stack set-up plus ``cycles`` V-cycles (the rate
     over cycles 1-4 gated at RATE_MAX when ``gate_rate``)."""
     from hyteg_tpu_torch.solvers.templates import make_p1_gmg
 
@@ -702,7 +738,7 @@ def solve(storage, level: int, device,
     setup_s = time.perf_counter() - t0
     res = [stack.residual_norm(x, b).item()]
     t0 = time.perf_counter()
-    for _ in range(N_CYCLES):
+    for _ in range(cycles):
         x = stack.gmg.cycle(x, b)
         res.append(stack.residual_norm(x, b).item())
     torch.cuda.synchronize()
@@ -4753,9 +4789,10 @@ def dg_eg_phase(device, card: str) -> dict:
     solves at two levels each; the SIP and EG-P0 Stokes operators'
     symmetry and the EG div adjoint at the finer level. DG runs in float64
     and in float32 (the packages' default): the order is gated on the
-    float64 solves, because the float32 CG at level 5 stops at an
-    algebraic error of the size of the discretization error; each float32
-    error is gated within DG_F32_FACTOR of the float64 one at its level.
+    float64 solves, because the float32 CG stops at an algebraic error of
+    the size of the discretization error (at level 5, PERF.md section 7);
+    each float32 error is gated within DG_F32_FACTOR of the float64 one at
+    its level.
     Gates: the error drops >= DG_DROP_MIN / EG_DROP_MIN x; symmetry (SIP
     in both types) and adjoint within A10_SYM_RTOL."""
     from hyteg_tpu_torch.core.types import FLAG_INNER
@@ -5288,6 +5325,385 @@ def run_a10(storage, device, card: str, f32_residuals: list) -> dict:
     return {"launches": launches, "f32_launches": f32, "ms": ms,
             "bounds": bounds, "library_ms": lib, "errs": errs,
             "ulp_excess": ulp, "phase_s": time.perf_counter() - t0}
+
+
+def amr_bump(dim: int):
+    """u = exp(-|x - 0.1|^2 / 0.005), the steep bump of tests/test_amr.py
+    (:93-95), in dim coordinates."""
+    return lambda p: torch.exp(-sum((p[..., d] - 0.1) ** 2
+                                    for d in range(dim)) / 0.005)
+
+
+def amr_linear(p):
+    return 2 * p[..., 0] - p[..., 1] + 0.5 * p[..., 2]
+
+
+def mesh_measures(mesh) -> dict:
+    """Volume (area), boundary measure and conformity of a macro mesh, as
+    tests/test_amr.py:21-47 computes them."""
+    import itertools
+
+    from hyteg_tpu_torch.mesh.meshinfo import boundary_facets
+
+    dim = mesh.dim
+    v = mesh.points[mesh.elements][..., :dim]
+    vol = np.abs(np.linalg.det(v[:, 1:] - v[:, :1])).sum() / (
+        2.0 if dim == 2 else 6.0)
+    f = mesh.points[boundary_facets(mesh.elements, dim)][..., :dim]
+    if dim == 2:
+        bnd = np.linalg.norm(f[:, 1] - f[:, 0], axis=1).sum()
+    else:
+        bnd = 0.5 * np.linalg.norm(np.cross(f[:, 1] - f[:, 0],
+                                            f[:, 2] - f[:, 0]), axis=1).sum()
+    combos = itertools.combinations(range(dim + 1), dim)
+    key = np.sort(np.concatenate([mesh.elements[:, c] for c in combos]), 1)
+    facet_uses = np.unique(key, axis=0, return_counts=True)[1].max()
+    return {"volume": float(vol), "boundary_measure": float(bnd),
+            "conforming": bool(facet_uses <= 2)}
+
+
+def amr_mark_refine(mesh, level: int, device) -> tuple[dict, object, object]:
+    """Interpolate the bump at P1 ``level``, compute the indicator on the
+    card (and on the CPU from the same field: the marked sets must be
+    equal), mark (Dörfler AMR_FRAC) and refine red-green; the refined mesh
+    must be conforming with the old volume and boundary measure."""
+    from hyteg_tpu_torch.adaptivity import (macro_gradient_indicator,
+                                            mark_dorfler, refine_rg)
+    from hyteg_tpu_torch.core.types import BoundaryCondition, DoFType
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+
+    st = CellStorage(mesh)
+    sp = P1Space(st, level, device=device)
+    u = sp.interpolate(amr_bump(mesh.dim), sp.zeros(), DoFType.ALL,
+                       BoundaryCondition.all_dirichlet())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eta = macro_gradient_indicator(sp, u)
+    indicator_ms = (time.perf_counter() - t0) * 1e3
+    eta_cpu = macro_gradient_indicator(P1Space(st, level, device="cpu"),
+                                       u.cpu())
+    marked = mark_dorfler(eta, AMR_FRAC)
+    marked_cpu = mark_dorfler(eta_cpu, AMR_FRAC)
+    check(np.array_equal(marked, marked_cpu),
+          f"AMR {mesh.dim}D: the card marks {marked}, the CPU {marked_cpu}")
+    t0 = time.perf_counter()
+    res = refine_rg(mesh, marked)
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    old, new = mesh_measures(mesh), mesh_measures(res.mesh)
+    check(new["conforming"], f"AMR {mesh.dim}D: the refined mesh has "
+          "hanging facets")
+    for k in ("volume", "boundary_measure"):
+        check(abs(new[k] - old[k]) <= AMR_MEASURE_RTOL * old[k],
+              f"AMR {mesh.dim}D: {k} {new[k]} != {old[k]}")
+    out = {"level": level, "cells": mesh.num_elements,
+           "marked": marked.tolist(), "refined_cells": res.mesh.num_elements,
+           "green_cells": int(res.is_green.sum()),
+           "eta_max": float(eta.max()),
+           "eta_card_vs_cpu_max_rel": float(np.abs(eta - eta_cpu).max()
+                                            / np.abs(eta_cpu).max()),
+           "indicator_ms": indicator_ms, "refine_ms": refine_ms,
+           "measures": new}
+    return out, st, res
+
+
+def amr_transfer(st, st2, level: int, device) -> tuple[dict, torch.Tensor]:
+    """The linear field 2x - y + 0.5z moved from the old storage to the
+    refined one at P1 ``level``, against its interpolant there (valid
+    positions), timed (median of 3, each synchronised)."""
+    from hyteg_tpu_torch.adaptivity import interpolate_between_storages
+    from hyteg_tpu_torch.core.types import BoundaryCondition, DoFType
+    from hyteg_tpu_torch.functions.p1 import P1Space
+
+    bc = BoundaryCondition.all_dirichlet()
+    sp, sp2 = P1Space(st, level, device=device), P1Space(st2, level, device=device)
+    u = sp.interpolate(amr_linear, sp.zeros(), DoFType.ALL, bc)
+    want = sp2.interpolate(amr_linear, sp2.zeros(), DoFType.ALL, bc)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u2 = interpolate_between_storages(st, level, 1, u, st2, device=device)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sel = torch.as_tensor(sp2.vertex_mask[None] & st2.cell_valid[:, None, None],
+                          device=device)
+    err = (u2 - want).abs()[sel].max().item()
+    check(err <= AMR_TRANSFER_ATOL,
+          f"AMR transfer: max error {err} > {AMR_TRANSFER_ATOL}")
+    ms = float(np.median(times))
+    return {"level": level, "points": u2.numel(),
+            "valid_points": int(sel.sum().item()), "max_abs_err": err,
+            "ms": ms, "points_per_s": u2.numel() / (ms * 1e-3),
+            "method": "wall clock, synchronised, median of 3 (space set-up, "
+                      "point location and evaluation)"}, u2
+
+
+def amr_gmg(st2, device, card: str) -> dict:
+    """The refined cube's P1 GMG (make_p1_gmg from MIN_LEVEL, V(3,3),
+    Chebyshev; the level-7 stack's pitch is 129) on the manufactured sine,
+    AMR_CYCLES cycles at each of AMR_GMG_LEVELS: every residual finite and
+    no cycle growing it > 2x (tests/test_gmg_regression.py's rules), the
+    nodal error dropping >= ERR_DROP_MIN over AMR_ERR_LEVELS (the pair
+    below the f32 floor). At the top level, where the manufactured
+    residual nears its f32 floor by cycle 4, the rate is gated on A x = 0
+    from a random start: each of cycles 1-4 and the means over 1-4 and 3-6
+    <= AMR_RATE_MAX. The top level is timed and profiled. Each level's
+    line (``amr_gmg_level``) is printed before its gates."""
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+
+    runs = {}
+    top = AMR_GMG_LEVELS[-1]
+    for lv in AMR_GMG_LEVELS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        b3.p1_diagonal_local.launches_by_level.clear()
+        runs[lv], stack, (x, b) = solve(st2, lv, device, gate_rate=False,
+                                        cycles=AMR_CYCLES)
+        runs[lv]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res = runs[lv]["residuals"]
+        runs[lv]["rates"] = [res[i + 1] / res[i] for i in range(len(res) - 1)]
+        if lv == top:
+            hom = homogeneous_rates(stack, device, seed=810, max_rate=1.0)
+            r = hom["residuals"]
+            hom["rates"] = [r[i + 1] / r[i] for i in range(len(r) - 1)]
+            runs[lv]["homogeneous"] = hom
+        emit("amr_gmg_level", card=card, **{
+            k: v for k, v in runs[lv].items() if k != "eigs"})
+        check(all(b <= AMR_GROWTH_MAX * a + AMR_GROWTH_SLACK * res[0]
+                  for a, b in zip(res, res[1:])),
+              f"AMR GMG level {lv}: a cycle grew the residual: {res}")
+        if lv != top:
+            del stack, x, b
+    hom = runs[top]["homogeneous"]
+    rates = hom["rates"][:4] + [hom["rate_cycles_1_4"], hom["rate_cycles_3_6"]]
+    check(all(r <= AMR_RATE_MAX for r in rates),
+          f"AMR GMG level {top} on A x = 0: the rates of cycles 1-4 and the "
+          f"means over 1-4, 3-6 {rates} > {AMR_RATE_MAX}")
+    lo, hi = AMR_ERR_LEVELS
+    drop = runs[lo]["max_nodal_error"] / runs[hi]["max_nodal_error"]
+    check(drop >= ERR_DROP_MIN, f"AMR GMG: the nodal error dropped {drop}x "
+          f"from level {lo} to {hi}, < {ERR_DROP_MIN}x")
+    cycle_ms = median_ms(lambda: stack.gmg.cycle(x, b), 10)
+    prof = cycle_profile(lambda: stack.gmg.cycle(x, b), cycle_ms,
+                         {"b2": ("p1_const_apply_kernel",),
+                          "b3": ("p1_diag_kernel",)})
+    b3_by_level = dict(sorted(b3.p1_diagonal_local.launches_by_level.items()))
+    b2_by_level = launches_by_level(stack, x, b, b2.p1_const_apply)
+    del stack, x, b
+    torch.cuda.empty_cache()
+    return {"levels": {lv: {k: r[k] for k in (
+        "global_dofs", "rate_cycles_1_4", "max_nodal_error", "setup_s",
+        "peak_gb")} for lv, r in runs.items()},
+        "homogeneous_rates": hom["rates"], "error_drop": drop,
+        "error_drop_levels": [lo, hi],
+        "error_drop_above_f32_floor": (runs[hi]["max_nodal_error"]
+                                       / runs[top]["max_nodal_error"]),
+        "cycle_ms": cycle_ms, "profile": prof,
+        "b2_launches_by_level_per_cycle": b2_by_level,
+        "b3_launches_by_level_at_setup": b3_by_level}
+
+
+def read_vtu_arrays(path) -> dict:
+    """{name: array} of a VTU file's DataArrays (binary payloads decoded:
+    a UInt32 byte count, then the raw data; ASCII ones parsed)."""
+    import base64
+    import struct
+    import xml.etree.ElementTree as ET
+
+    types = {"Float64": np.float64, "Float32": np.float32,
+             "Int64": np.int64, "UInt8": np.uint8}
+    arrays = {}
+    for el in ET.parse(path).getroot().iter("DataArray"):
+        dt = types[el.get("type")]
+        name = el.get("Name") or "points"
+        if el.get("format") == "binary":
+            raw = base64.b64decode(el.text.strip())
+            (nb,) = struct.unpack("<I", raw[:4])
+            check(nb == len(raw) - 4, f"{path}: {name}'s byte count")
+            arrays[name] = np.frombuffer(raw[4:], dtype=dt)
+        else:
+            arrays[name] = np.array(el.text.split(), dtype=np.float64).astype(dt)
+    return arrays
+
+
+def amr_io(st2, u2, level: int, numbers: dict) -> dict:
+    """Write, time and read back, in a temporary directory: a VTU of the
+    refined field ``u2`` at P1 ``level``, the domain-partitioning VTU, the
+    refined mesh through write_msh2 and from_gmsh_file, and one
+    FixedSizeSQLDB row of ``numbers``."""
+    import sqlite3
+    import tempfile
+
+    from hyteg_tpu_torch.functions.p1 import P1Space
+    from hyteg_tpu_torch.io.gmsh import write_msh2
+    from hyteg_tpu_torch.io.tables import FixedSizeSQLDB, plain_value
+    from hyteg_tpu_torch.io.vtk import VTKOutput, write_domain_partitioning_vtk
+    from hyteg_tpu_torch.mesh.meshinfo import from_gmsh_file
+
+    out = {}
+    mesh = st2.mesh
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        sp = P1Space(st2, level, device=u2.device)
+        t0 = time.perf_counter()
+        vtk = VTKOutput(tmp, "amr", st2)
+        vtk.add("u", sp, u2)
+        path = vtk.write(level)
+        out["vtu_ms"] = (time.perf_counter() - t0) * 1e3
+        out["vtu_bytes"] = os.path.getsize(path)
+        arrays = read_vtu_arrays(path)
+        N = sp.N
+        grid = u2.reshape(sp.C_loc, N, N, sp.pitch)[..., :N].cpu().numpy()
+        check(np.array_equal(arrays["u"], grid.reshape(-1)),
+              "AMR VTU: the values read back differ")
+        coords = sp.coords().cpu().numpy().astype(np.float64)
+        coords = coords.reshape(sp.C_loc, N, N, sp.pitch, 3)[..., :N, :]
+        check(np.array_equal(arrays["points"], coords.reshape(-1)),
+              "AMR VTU: the points read back differ")
+        n_el = mesh.num_elements * 8 ** level
+        check(arrays["types"].shape == (n_el,) and (arrays["types"] == 10).all()
+              and arrays["connectivity"].shape == (4 * n_el,),
+              "AMR VTU: the cells read back differ")
+        t0 = time.perf_counter()
+        path = write_domain_partitioning_vtk(st2, tmp, "amr")
+        out["partitioning_ms"] = (time.perf_counter() - t0) * 1e3
+        arrays = read_vtu_arrays(path)
+        check(np.array_equal(arrays["connectivity"].reshape(-1, 4),
+                             st2.topo.elements)
+              and np.array_equal(arrays["shard"],
+                                 np.zeros(mesh.num_elements)),
+              "AMR partitioning VTU: the cells or shards read back differ")
+        t0 = time.perf_counter()
+        write_msh2(mesh, os.path.join(tmp, "amr.msh"))
+        back = from_gmsh_file(os.path.join(tmp, "amr.msh"))
+        out["msh_round_trip_ms"] = (time.perf_counter() - t0) * 1e3
+        check(back.dim == mesh.dim and np.array_equal(back.points, mesh.points)
+              and np.array_equal(back.elements, mesh.elements)
+              and np.array_equal(back.vertex_boundary_flag,
+                                 mesh.with_computed_boundary_flags()
+                                 .vertex_boundary_flag),
+              "AMR msh: the mesh read back differs")
+        t0 = time.perf_counter()
+        db = FixedSizeSQLDB(os.path.join(tmp, "amr.db"))
+        for k, v in numbers.items():
+            db.set_variable_entry(k, v)
+        db.write_row_on_root()
+        with sqlite3.connect(os.path.join(tmp, "amr.db")) as con:
+            row = con.execute(f"SELECT {', '.join(sorted(numbers))} "
+                              "FROM runs").fetchall()
+        out["sql_ms"] = (time.perf_counter() - t0) * 1e3
+        want = tuple(plain_value(v) for _, v in sorted(numbers.items()))
+        check(row == [want], f"AMR SQL row: {row} != {[want]}")
+    return out
+
+
+def run_amr(device, card: str) -> dict:
+    """The AMR path (kernels B2, B3, B2-2D, B3-2D on red-green refined
+    meshes): on mesh_unit_cube(2) the bump's indicator at P1 level 4 on the
+    card, Dörfler marking, red-green refinement (106 cells), the transfer
+    of a linear field to the refined storage, the refined-mesh GMG at P1
+    levels 4-7 (2-7, pitch 129), IO of the result; the same AMR cycle
+    on the rect (40 faces) with its GMG at level 11 on A x = 0. The counts
+    of B2 / B3 (3D and 2D) are set to 0 before the path and read after
+    it; then each kernel is held against its plain version at every level
+    of the refined stacks (``amr_kernels``), which counts no launch."""
+    from hyteg_tpu_torch import native
+    from hyteg_tpu_torch.kernels import p1_const_stencil as b2
+    from hyteg_tpu_torch.kernels import p1_stencil as b3
+    from hyteg_tpu_torch.mesh.meshinfo import mesh_rectangle, mesh_unit_cube
+    from hyteg_tpu_torch.primitives.storage import CellStorage
+    from hyteg_tpu_torch.solvers.templates import make_p1_gmg
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native setup core did not build")
+    for w in (b2.p1_const_apply, b3.p1_diagonal_local):
+        w.launches = w.launches_2d = 0
+    # -- 3D: mark, refine, transfer, the refined-mesh GMG, IO ---------------
+    mark, st, res = amr_mark_refine(mesh_unit_cube(MESH_N), AMR_LEVEL, device)
+    st2 = CellStorage(res.mesh)
+    transfer, u2 = amr_transfer(st, st2, AMR_LEVEL, device)
+    gmg = amr_gmg(st2, device, card)
+    top = gmg["levels"][AMR_GMG_LEVELS[-1]]
+    io = amr_io(st2, u2, AMR_LEVEL, {
+        "refined_cells": res.mesh.num_elements,
+        "global_dofs": top["global_dofs"],
+        "rate_cycle_2": gmg["homogeneous_rates"][1],
+        "max_nodal_error": np.float64(top["max_nodal_error"]),
+        "transfer_err": torch.tensor(transfer["max_abs_err"])})
+    launches = {"p1_const_apply": b2.p1_const_apply.launches,
+                "p1_diagonal_local": b3.p1_diagonal_local.launches}
+    emit("amr", card=card, phase_s=time.perf_counter() - t0,
+         mesh=f"mesh_unit_cube({MESH_N})", mark_refine=mark,
+         transfer=transfer, gmg=gmg, io=io, launches=launches,
+         native_available=True)
+    del u2
+    # -- 2D: the rect ---------------------------------------------------------
+    t1 = time.perf_counter()
+    mark2, rst, res2 = amr_mark_refine(mesh_rectangle(**RECT_2D),
+                                       AMR_LEVEL_2D, device)
+    rst2 = CellStorage(res2.mesh)
+    transfer2, _ = amr_transfer(rst, rst2, AMR_LEVEL_2D, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = time.perf_counter()
+    stack = make_p1_gmg(rst2, min_level=MIN_LEVEL, max_level=AMR_GMG_LEVEL_2D,
+                        smoother="chebyshev", coarse_iters=COARSE_ITERS,
+                        device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - s0
+    hom = homogeneous_rates(stack, device, seed=800, max_rate=AMR_RATE_MAX)
+    r = hom["residuals"]
+    hom["rates"] = [r[i + 1] / r[i] for i in range(len(r) - 1)]
+    check(all(q <= AMR_RATE_MAX for q in hom["rates"][:4]),
+          f"AMR 2D GMG on A x = 0: rates {hom['rates'][:4]} > {AMR_RATE_MAX}")
+    x, b = manufactured(stack)[:2]
+    cycle_ms = median_ms(lambda: stack.gmg.cycle(x, b), 10)
+    prof = cycle_profile(lambda: stack.gmg.cycle(x, b), cycle_ms, {
+        "b2_2d": ("p1_const_apply_2d_kernel",),
+        "b3_2d": ("p1_diag_2d_kernel",)})
+    by_level = launches_by_level(stack, x, b, b2.p1_const_apply, dim=2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    dofs = stack.space().num_global_dofs()
+    launches.update({"p1_const_apply_2d": b2.p1_const_apply.launches_2d,
+                     "p1_diagonal_local_2d": b3.p1_diagonal_local.launches_2d})
+    del stack, x, b
+    torch.cuda.empty_cache()
+    emit("amr_2d", card=card, phase_s=time.perf_counter() - t1,
+         mesh="mesh_rectangle(nx=4, ny=4)", mark_refine=mark2,
+         transfer=transfer2, level=AMR_GMG_LEVEL_2D, global_dofs=dofs,
+         setup_s=setup_s, peak_gb=peak, homogeneous=hom, cycle_ms=cycle_ms,
+         profile=prof, b2_2d_launches_by_level_per_cycle=by_level,
+         launches={k: launches[k] for k in ("p1_const_apply_2d",
+                                            "p1_diagonal_local_2d")})
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the AMR path")
+    # -- the kernels on the refined meshes, against their plain versions ----
+    checks = {3: [], 2: []}
+    for dim, s, top_level in ((3, st2, AMR_GMG_LEVELS[-1]),
+                              (2, rst2, AMR_GMG_LEVEL_2D)):
+        for lv in range(MIN_LEVEL, top_level + 1):
+            checks[dim].append(check_kernels(s, lv, device, seed=820 + lv))
+        torch.cuda.empty_cache()
+    emit("amr_kernels", card=card, rtol={"b2": B2_RTOL, "b3": B3_RTOL},
+         **{f"{dim}d": [{k: v for k, v in c.items()
+                         if k in ("level", "block", "global_dofs", "b2_ms",
+                                  "b2_bound_ms") or k.endswith("max_abs_err")}
+                        for c in cs] for dim, cs in checks.items()})
+    errs = {}
+    for name, dim, tag in (("p1_const_apply", 3, "b2_"),
+                           ("p1_diagonal_local", 3, "b3_"),
+                           ("p1_const_apply_2d", 2, "b2_"),
+                           ("p1_diagonal_local_2d", 2, "b3_")):
+        errs[name] = max(v for c in checks[dim] for k, v in c.items()
+                         if k.startswith(tag) and k.endswith("_max_abs_err"))
+    b2_top = checks[3][-1]
+    phase_s = time.perf_counter() - t0
+    emit("amr_checks", card=card, phase_s=phase_s, launches=launches,
+         b2_level7_ms=b2_top["b2_ms"], b2_level7_bound_ms=b2_top["b2_bound_ms"],
+         b2_level7_share_of_bound=b2_top["b2_bound_ms"] / b2_top["b2_ms"])
+    return {"launches": launches, "errs": errs, "phase_s": phase_s}
 
 
 def main() -> int:
@@ -5844,6 +6260,11 @@ def main() -> int:
          f32_launches=coeff16["f32_launches"])
     torch.cuda.empty_cache()
 
+    # -- the AMR path: red-green refinement, transfer, the refined-mesh GMG
+    # (B2, B3, B2-2D, B3-2D), IO, the native setup core ---------------------
+    amr = run_amr(device, card)
+    torch.cuda.empty_cache()
+
     t.update(box_t)
     t["stream_scale"], t["stream_scale_plain"] = p1_t["box_level9"]
     dofs = {"p1_const_apply": tet_dofs, "p1_diagonal_local": tet_dofs,
@@ -6016,6 +6437,14 @@ def main() -> int:
                        "level": row["level"], "ulp_excess": row["ulp_excess"],
                        "ms_by_mode": row["ms_by_mode"],
                        "launches_by_path": row["launches_by_path"]}
+    # and the AMR path's launches of B2, B3, B2-2D and B3-2D
+    for name, n in amr["launches"].items():
+        by_path = extra.setdefault(name, {}).setdefault(
+            "launches_by_path", {"earlier_paths": launches[name]})
+        by_path["amr"] = n
+        launches[name] += n
+    for name, e in amr["errs"].items():
+        errs[name] = max(errs[name], e)
     kernels = []
     for name, (src, rep) in REPLACES.items():
         ms, by, nb, fl = bounds[name]

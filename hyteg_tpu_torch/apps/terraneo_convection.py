@@ -2,13 +2,16 @@
 apps/terraneo_convection.py; reference: apps/TerraNeo/Origin/Convection.cpp
 startSimulation loop + parameters.prm): reads a JSON/TOML config, runs the
 coupled Stokes + energy time loop, writes per-step metrics, radial
-profiles, continuous checkpoints, and a timing-tree JSON.
+profiles, continuous checkpoints, a timing-tree JSON and, every
+``--vtk-every`` steps, a VTU snapshot of the temperature.
 
 Usage:  python -m hyteg_tpu_torch.apps.terraneo_convection [config.json]
-            [--steps N] [--out DIR] [--device cuda|cpu]
+            [--steps N] [--out DIR] [--vtk-every K] [--device cuda|cpu]
 
-Runs on the card unless ``--device cpu`` is given. VTK snapshots
-(``--vtk-every``) need the port of io/vtk, which is not done yet.
+Runs on the card unless ``--device cpu`` is given. The snapshot
+``<out>/convection_ts<step>.vtu`` holds T on its P2 node grid (level + 1):
+the JAX package's app writes it at the P2 level, which does not fit that
+grid, and adds T again at every snapshot (ROADMAP C-ref20).
 """
 
 from __future__ import annotations
@@ -33,8 +36,6 @@ def main(argv=None) -> int:
     ap.add_argument("--vtk-every", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.vtk_every:
-        ap.error("--vtk-every: io/vtk is not ported yet (ROADMAP A11)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: torch sees no CUDA device "
@@ -56,7 +57,7 @@ def main(argv=None) -> int:
           f"device={device}")
 
     rows = []
-    for _ in range(args.steps):
+    for k in range(args.steps):
         dt = sim.step()
         prof = sim.temperature_profile()
         vrms = float(np.sqrt(max(
@@ -68,6 +69,14 @@ def main(argv=None) -> int:
                          vrms=vrms, t_mean=float(prof.mean.mean())))
         print(f"step {sim.step_count:4d}  t={sim.time:.5f}  dt={dt:.2e}  "
               f"vrms={vrms:.4f}  <T>={rows[-1]['t_mean']:.4f}")
+        if args.vtk_every and (k + 1) % args.vtk_every == 0:
+            from ..io.vtk import VTKOutput
+
+            vtk = VTKOutput(args.out, "convection", sim.storage)
+            vtk.add("T", sim.T_space, sim.T)
+            path = vtk.write(sim.T_space.node_space.level,
+                             timestep=sim.step_count)
+            print("wrote", path)
 
     with open(os.path.join(args.out, "metrics.json"), "w") as f:
         json.dump(rows, f, indent=1)

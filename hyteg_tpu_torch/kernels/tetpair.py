@@ -26,7 +26,10 @@ any mesh.
 
 Each wrapper runs its plain version for a CPU tensor and launches its
 CUDA kernel (csrc/tetpair.cu) for a CUDA tensor, counting the launch in
-``<wrapper>.launches``.
+``<wrapper>.launches``. On either device a block or face array that is not
+f32 raises ``ValueError``: the reference's Pallas kernels have no other
+form (their face arrays are f32 and the stores refuse a mixed type,
+ROADMAP C-ref18).
 """
 
 from __future__ import annotations
@@ -147,6 +150,18 @@ def _kernel_tables():
             sum(1 << d for d in tail_a), sum(1 << d for d in tail_b))
 
 
+def _check_f32(what: str, names, tensors):
+    """Refuse a block or face array that is not f32, on both devices."""
+    for name, t in zip(names, tensors):
+        if t.dtype != torch.float32:
+            raise ValueError(
+                f"{what}: {name} is {t.dtype}; the paired-tet kernels take "
+                "f32 blocks and faces only, and the reference's Pallas "
+                "kernels refuse a bf16 block too (their face arrays are f32 "
+                "and the store into the block rejects the other type, "
+                "ROADMAP C-ref18)")
+
+
 def _check_faces(names, faces, Cp: int, N: int, P: int):
     for name, t, shape in zip(names, faces, _face_shapes(Cp, N, P)):
         _check_cuda_input(name, t, shape)
@@ -158,6 +173,8 @@ def pair_apply(u, W, xf, yf, zf, df, N: int, P: int):
     u: (Cp, N, N*P) f32 blocks, consistent except on the boundary (the
     face arrays are authoritative there); W: (Cp, 120, 7) from
     plan.weight_matrix. Returns (dst, xfo, yfo, zfo, dfo)."""
+    _check_f32("pair_apply", ("u", "xf", "yf", "zf", "df"),
+               (u, xf, yf, zf, df))
     if u.device.type == "cpu":
         return pair_apply_torch(u, W, xf, yf, zf, df, N, P)
     Cp = u.shape[0]
@@ -181,6 +198,8 @@ def pair_apply(u, W, xf, yf, zf, df, N: int, P: int):
 def pair_install(u, xf, yf, zf, df, N: int, P: int) -> torch.Tensor:
     """Consistent blocks: the face values written back into the block
     boundaries (kernel B7; the finalize step of a chain)."""
+    _check_f32("pair_install", ("u", "xf", "yf", "zf", "df"),
+               (u, xf, yf, zf, df))
     if u.device.type == "cpu":
         return pair_install_torch(u, xf, yf, zf, df, N, P)
     Cp = u.shape[0]
@@ -198,6 +217,7 @@ def pair_install(u, xf, yf, zf, df, N: int, P: int) -> torch.Tensor:
 def pair_extract(u, N: int, P: int):
     """The boundary values of consistent blocks as face arrays (kernel B8;
     the chain-start step)."""
+    _check_f32("pair_extract", ("u",), (u,))
     if u.device.type == "cpu":
         return pair_extract_torch(u, N, P)
     Cp = u.shape[0]

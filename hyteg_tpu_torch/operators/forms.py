@@ -81,3 +81,21 @@ def mass_form(verts: torch.Tensor) -> torch.Tensor:
     base = (torch.ones((nv, nv), **kw) + torch.eye(nv, **kw)) / (
         20.0 if dim == 3 else 12.0)
     return simplex_volume(verts)[..., None, None] * base
+
+
+def diffusion_plus_mass_form(kappa: float = 1.0, sigma: float = 1.0):
+    """-kappa * Laplace + sigma * mass: the implicit-diffusion operator of
+    reference UnsteadyDiffusion (src/hyteg/composites/UnsteadyDiffusion.hpp)."""
+
+    def form(verts: torch.Tensor) -> torch.Tensor:
+        return kappa * laplace_form(verts) + sigma * mass_form(verts)
+
+    return form
+
+
+def div_k_grad_form_factory():
+    """Element matrix of -div(k grad u) with an element-averaged
+    coefficient: P1 gradients are constant per element, so elMat = (mean k)
+    * laplace. The variable-coefficient operator takes the mean; this
+    returns the geometric part."""
+    return laplace_form

@@ -27,18 +27,11 @@ from .storage import CellStorage
 
 def morton_codes(points: np.ndarray, bits: int = 16) -> np.ndarray:
     """Morton (Z-order) codes of points normalised to their bounding box:
-    bit b of axis d lands at bit b * dim + d."""
-    p = np.asarray(points, dtype=np.float64)
-    lo, hi = p.min(axis=0), p.max(axis=0)
-    q = ((p - lo) / np.where(hi - lo == 0, 1.0, hi - lo)
-         * ((1 << bits) - 1)).astype(np.uint64)
-    dim = p.shape[1]
-    codes = np.zeros(len(p), dtype=np.uint64)
-    for b in range(bits):
-        for d in range(dim):
-            codes |= ((q[:, d] >> np.uint64(b)) & np.uint64(1)) << np.uint64(
-                b * dim + d)
-    return codes
+    bit b of axis d lands at bit b * dim + d (the native setup core, or
+    its numpy fallback when it does not build)."""
+    from .. import native
+
+    return native.morton_codes(points, bits)
 
 
 def partition_sfc(centroids: np.ndarray, num_shards: int,

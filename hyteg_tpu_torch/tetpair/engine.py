@@ -55,6 +55,11 @@ class TetPairEngine:
             raise ValueError("tetpair requires a padding-free storage")
         if space.C_loc % 2:
             raise ValueError("tetpair requires an even macro-cell count")
+        if space.dtype != torch.float32:
+            raise ValueError(
+                f"tetpair requires an f32 space, got {space.dtype}: the "
+                "paired-tet kernels B6-B8 have no other form, and the "
+                "reference's refuse a bf16 block too (ROADMAP C-ref18)")
         self.space = space
         self.N = space.N
         self.P = space.pitch

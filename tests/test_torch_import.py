@@ -116,7 +116,16 @@ def test_module_list_covers_the_slice():
               "hyteg_tpu_torch.operators.eg_ops",
               "hyteg_tpu_torch.operators.eg_stokes",
               "hyteg_tpu_torch.operators.n1e1_ops",
-              "hyteg_tpu_torch.operators.n1e1_transfer"):
+              "hyteg_tpu_torch.operators.n1e1_transfer",
+              "hyteg_tpu_torch.adaptivity",
+              "hyteg_tpu_torch.adaptivity.refine",
+              "hyteg_tpu_torch.adaptivity.estimator",
+              "hyteg_tpu_torch.adaptivity.transfer",
+              "hyteg_tpu_torch.functions.registry",
+              "hyteg_tpu_torch.io.vtk",
+              "hyteg_tpu_torch.io.gmsh",
+              "hyteg_tpu_torch.io.tables",
+              "hyteg_tpu_torch.native"):
         assert m in MODULES
 
 

@@ -418,6 +418,68 @@ def test_engine_rejects_several_shards():
 
 
 # ---------------------------------------------------------------------------
+# bf16 blocks (ROADMAP C-ref18): the reference's kernels have no bf16 form
+# ---------------------------------------------------------------------------
+
+
+def _bf16_inputs(c, mod, bf16, f32):
+    """(u, W, faces in f32, faces in bf16) of a zero paired state."""
+    Cp, N, P = c.teng.Cp, c.N, c.P
+    shapes = [(Cp, 2, N * P), (Cp, 2, N, P), (Cp, 2, N, N), (Cp, 2, N * P)]
+    u = mod.zeros((Cp, N, N * P), dtype=bf16)
+    faces = [mod.zeros(s, dtype=f32) for s in shapes]
+    return (u, mod.zeros((Cp, 120, 7), dtype=f32), faces,
+            [f.astype(bf16) if mod is jnp else f.to(bf16) for f in faces])
+
+
+def test_jax_pair_kernels_refuse_bf16_blocks():
+    """In interpret mode (the checks are made at trace time, before
+    lowering) every Pallas kernel refuses a bf16 block: the face arrays
+    are f32, and a store of one type into a ref of the other raises; with
+    bf16 faces the install's pad raises. So does the JAX engine's lift."""
+    c = _case("cube1", 2, None)
+    N, P = c.N, c.P
+    u, W, f32, f16 = _bf16_inputs(c, jnp, jnp.bfloat16, jnp.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        jtk.pair_extract(u, N, P, interpret=True)
+    for faces, err in ((f32, ValueError), (f16, TypeError)):
+        with pytest.raises(err, match="dtype"):
+            jtk.pair_install(u, *faces, N, P, interpret=True)
+        with pytest.raises(err, match="dtype"):
+            jtk.pair_apply(u, W, *faces, N, P, interpret=True)
+    jsp = JSpace(JStorage(jmi.mesh_unit_cube(1)), 2, dtype=jnp.bfloat16)
+    eng = JEngine(jsp, c.jop.elmats, interpret=True)
+    with pytest.raises(ValueError, match="dtype"):
+        eng.lift(jsp.zeros())
+
+
+def test_port_pair_kernels_refuse_bf16_blocks():
+    """The port's wrappers raise ValueError on the CPU as on the card, and
+    TetPairEngine refuses a bf16 space before any kernel runs."""
+    c = _case("cube1", 2, None)
+    N, P = c.N, c.P
+    u, W, f32, f16 = _bf16_inputs(c, torch, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError, match="C-ref18"):
+        tk.pair_extract(u, N, P)
+    for faces in (f32, f16):
+        with pytest.raises(ValueError, match="C-ref18"):
+            tk.pair_install(u, *faces, N, P)
+        with pytest.raises(ValueError, match="C-ref18"):
+            tk.pair_apply(u, W, *faces, N, P)
+    # an f32 block with bf16 faces too
+    with pytest.raises(ValueError, match="xf is torch.bfloat16"):
+        tk.pair_install(u.float(), *f16, N, P)
+    with pytest.raises(ValueError, match="f32 space"):
+        TetPairEngine(P1Space(CellStorage(tmi.mesh_unit_cube(1)), 2,
+                              device="cpu", dtype=torch.bfloat16),
+                      c.top.elmats)
+    with pytest.raises(ValueError, match="f32 space"):
+        TetPairEngine(P1Space(CellStorage(tmi.mesh_unit_cube(1)), 2,
+                              device="cpu", dtype=torch.float64),
+                      c.top.elmats)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels' per-point math, compiled for the host
 # ---------------------------------------------------------------------------
 
